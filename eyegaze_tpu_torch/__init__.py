@@ -1,0 +1,12 @@
+"""eyegaze_tpu_torch: the PyTorch and CUDA port of eyegaze_tpu for NVIDIA Hopper.
+
+A second package beside the JAX one, which stays the reference.  The first
+slice is the flagship EEG serving path: preprocessing (``ops.preprocess``),
+the six-band spectral and connectivity math (``ops.spectral``,
+``ops.connectivity``), the DualEEGTransformer (``models``) and the bucketed
+``serving.Predictor``.  The connectivity block's phase metrics run in a hand
+CUDA kernel (``kernels.phase_metrics``, source in ``csrc/``), built with nvcc
+at first use.  This package imports torch and never jax.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,256 @@
+"""DualEEGTransformer, the flagship EEG hyperscanning model, in PyTorch.
+
+Port of ``eyegaze_tpu/models/dual_eeg.py``.  Token sequence at the full
+configuration (C = 32): [CLS | IBS x42 | Spec x32 | conv x64] = 139 tokens.
+The connectivity block runs the phase-metrics kernel (K1) on CUDA.
+
+Parameter names are the reference torch model's (the names
+``eyegaze_tpu.models.torch_port.export_dual_eeg_state_dict`` emits), so a
+state_dict from ``eyegaze_tpu_torch.models.convert`` loads with
+``strict=True``.  The legacy scalar IBS token (``use_robust_ibs=False``) is
+not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from eyegaze_tpu_torch.models.transformer import (
+    MultiHeadAttention,
+    PositionalEmbedding,
+    TransformerEncoder,
+    init_weights_,
+    normal_,
+)
+from eyegaze_tpu_torch.ops.connectivity import connectivity_matrices, feature_indices_for
+from eyegaze_tpu_torch.ops.spectral import BAND_DEFS_6, hann_window, stft_log_magnitude
+
+
+def adaptive_avg_pool_2d(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """AdaptiveAvgPool2d on (N, C, H, W): bin i covers
+    [floor(i * in / out), ceil((i + 1) * in / out))."""
+    return F.adaptive_avg_pool2d(x, (out_h, out_w))
+
+
+class TemporalConvFrontend(nn.Module):
+    """Strided 1-D conv embedding: (B, C, T) -> (B, T', d).
+
+    Conv1d(k, stride, padding k//2) x num_layers, each ReLU + dropout.
+    """
+
+    def __init__(self, in_channels: int, d_model: int, kernel_size: int = 25,
+                 stride: int = 4, num_layers: int = 2, dropout: float = 0.1, *,
+                 device: torch.device):
+        super().__init__()
+        self.convs = nn.ModuleList([
+            nn.Conv1d(in_channels if i == 0 else d_model, d_model, kernel_size, stride,
+                      padding=kernel_size // 2, device=device)
+            for i in range(num_layers)
+        ])
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x
+        for conv in self.convs:
+            h = self.dropout(torch.relu(conv(h)))
+        return h.transpose(1, 2)
+
+
+class SpectrogramTokenGenerator(nn.Module):
+    """One token per EEG channel from a log-magnitude STFT.
+
+    log|STFT| of the first freq_bins bins -> Conv(32, 3x3) ReLU MaxPool2
+    -> Conv(64, 3x3) ReLU -> AdaptiveAvgPool(4, 4) -> MLP 1024 -> 2d -> d.
+    """
+
+    def __init__(self, d_model: int, n_fft: int = 128, hop_length: int = 64,
+                 freq_bins: int = 64, dropout: float = 0.1, *, device: torch.device):
+        super().__init__()
+        self.n_fft, self.hop_length, self.freq_bins = n_fft, hop_length, freq_bins
+        self.register_buffer("window", hann_window(n_fft, device), persistent=False)
+        self.spec_conv = nn.Sequential(
+            nn.Conv2d(1, 32, 3, padding=1, device=device), nn.ReLU(), nn.MaxPool2d(2),
+            nn.Conv2d(32, 64, 3, padding=1, device=device), nn.ReLU(),
+        )
+        self.proj = nn.Sequential(
+            nn.Linear(64 * 4 * 4, d_model * 2, device=device), nn.ReLU(), nn.Dropout(dropout),
+            nn.Linear(d_model * 2, d_model, device=device),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, t = x.shape
+        mag = stft_log_magnitude(x.reshape(b * c, t).to(torch.float32), self.n_fft,
+                                 self.hop_length, self.freq_bins, window=self.window)
+        h = adaptive_avg_pool_2d(self.spec_conv(mag[:, None]), 4, 4)
+        return self.proj(h.reshape(b * c, -1)).reshape(b, c, -1)
+
+
+class RobustIBSTokenizer(nn.Module):
+    """Connectivity matrices -> token sequence.
+
+    (B, nb, nf, C, C) -> (B, nb*nf, C*C) -> optional instance norm per C*C
+    entry across the token axis (biased variance, eps 1e-5, affine) ->
+    Linear C*C -> 64, tanh-GELU, Linear 64 -> d -> + learned type embedding.
+    """
+
+    def __init__(self, in_channels: int, d_model: int, use_instance_norm: bool = True,
+                 num_features: int = 7, num_bands: int = 6, dropout: float = 0.1, *,
+                 device: torch.device):
+        super().__init__()
+        entries = in_channels * in_channels
+        self.instance_norm = (nn.InstanceNorm1d(entries, eps=1e-5, affine=True, device=device)
+                              if use_instance_norm else None)
+        self.bottleneck = nn.Sequential(
+            nn.Linear(entries, 64, device=device), nn.GELU(approximate="tanh"),
+            nn.Dropout(dropout), nn.Linear(64, d_model, device=device),
+        )
+        self.type_embedding = nn.Parameter(
+            torch.empty(1, num_bands * num_features, d_model, device=device))
+
+    def forward(self, matrices: torch.Tensor) -> torch.Tensor:
+        b, nb, nf, c1, c2 = matrices.shape
+        x = matrices.reshape(b, nb * nf, c1 * c2)
+        if self.instance_norm is not None:
+            x = self.instance_norm(x.transpose(1, 2)).transpose(1, 2)
+        return self.bottleneck(x) + self.type_embedding
+
+
+class SymmetricFusion(nn.Module):
+    """Permutation-invariant fusion: Linear([z1 + z2, z1 * z2, |z1 - z2|])."""
+
+    def __init__(self, d_model: int, *, device: torch.device):
+        super().__init__()
+        self.proj = nn.Linear(3 * d_model, d_model, device=device)
+
+    def forward(self, z1: torch.Tensor, z2: torch.Tensor) -> torch.Tensor:
+        return self.proj(torch.cat([z1 + z2, z1 * z2, (z1 - z2).abs()], dim=-1))
+
+
+class CrossBrainAttention(nn.Module):
+    """Bidirectional cross-attention with shared weights and LayerNorm."""
+
+    def __init__(self, d_model: int, num_heads: int, dropout: float = 0.1, *,
+                 device: torch.device):
+        super().__init__()
+        self.cross_attn = MultiHeadAttention(d_model, num_heads, dropout, device=device)
+        self.norm = nn.LayerNorm(d_model, eps=1e-5, device=device)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, z1: torch.Tensor, z2: torch.Tensor):
+        z1_cross = self.cross_attn(z1, z2, z2)
+        z2_cross = self.cross_attn(z2, z1, z1)
+        return (self.norm(z1 + self.dropout(z1_cross)),
+                self.norm(z2 + self.dropout(z2_cross)))
+
+
+class DualEEGTransformer(nn.Module):
+    """Dual-stream (Siamese) EEG transformer with inter-brain synchrony tokens.
+
+    ``forward(eeg1, eeg2)`` on (B, C, T) pairs returns {'logits', 'cls1',
+    'cls2', 'z_fuse'} plus {'ibs_logits', 'ibs_token'} when ``use_ibs``.
+    Weights are drawn from ``generator`` (a CPU ``torch.Generator``), so one
+    seed gives the same model on every device.
+    """
+
+    def __init__(
+        self,
+        in_channels: int = 32,
+        num_classes: int = 3,
+        d_model: int = 256,
+        num_layers: int = 6,
+        num_heads: int = 8,
+        d_ff: int = 1024,
+        dropout: float = 0.1,
+        max_len: int = 256,
+        conv_kernel_size: int = 25,
+        conv_stride: int = 4,
+        conv_layers: int = 2,
+        sampling_rate: float = 256.0,
+        use_spectrogram: bool = True,
+        spec_n_fft: int = 128,
+        spec_hop_length: int = 64,
+        spec_freq_bins: int = 64,
+        use_robust_ibs: bool = True,
+        use_ibs: bool = True,
+        use_cross_attention: bool = True,
+        ibs_instance_norm: bool = True,
+        ibs_feature_type: str = "all",
+        *,
+        device: torch.device,
+        generator: torch.Generator,
+    ):
+        super().__init__()
+        if use_ibs and not use_robust_ibs:
+            raise NotImplementedError("the legacy scalar IBS token is not ported yet")
+        self.in_channels = in_channels
+        self.sampling_rate = sampling_rate
+        self.ibs_feature_type = ibs_feature_type
+        self.num_ibs_tokens = (6 * len(feature_indices_for(ibs_feature_type))
+                               if use_ibs else 0)
+
+        self.temporal_conv = TemporalConvFrontend(
+            in_channels, d_model, conv_kernel_size, conv_stride, conv_layers, dropout,
+            device=device)
+        self.ibs_tokenizer = (RobustIBSTokenizer(
+            in_channels, d_model, ibs_instance_norm,
+            len(feature_indices_for(ibs_feature_type)), len(BAND_DEFS_6), dropout,
+            device=device) if use_ibs else None)
+        self.spectrogram_generator = (SpectrogramTokenGenerator(
+            d_model, spec_n_fft, spec_hop_length, spec_freq_bins, dropout, device=device)
+            if use_spectrogram else None)
+        self.cls_token = nn.Parameter(torch.empty(1, 1, d_model, device=device))
+        self.pos_embed = PositionalEmbedding(max_len, d_model, device=device)
+        self.encoder = TransformerEncoder(d_model, num_layers, num_heads, d_ff, dropout,
+                                          dropout, device=device)
+        self.cross_attn = (CrossBrainAttention(d_model, num_heads, dropout, device=device)
+                           if use_cross_attention else None)
+        self.symmetric_fusion = SymmetricFusion(d_model, device=device)
+        self.classifier = nn.Sequential(
+            nn.Linear(3 * d_model, d_model, device=device), nn.ReLU(), nn.Dropout(dropout),
+            nn.Linear(d_model, num_classes, device=device),
+        )
+        self.ibs_classifier = (nn.Sequential(
+            nn.Linear(d_model, d_model // 2, device=device), nn.ReLU(), nn.Dropout(0.3),
+            nn.Linear(d_model // 2, num_classes, device=device),
+        ) if use_ibs else None)
+
+        init_weights_(self, generator)
+        normal_(self.cls_token, 1.0, generator)
+        if self.ibs_tokenizer is not None:
+            normal_(self.ibs_tokenizer.type_embedding, 0.02, generator)
+
+    def forward(self, eeg1: torch.Tensor, eeg2: torch.Tensor) -> dict:
+        b = eeg1.shape[0]
+        h1 = self.temporal_conv(eeg1)  # (B, T', d), shared (Siamese) weights
+        h2 = self.temporal_conv(eeg2)
+        cls = self.cls_token.expand(b, -1, -1)
+        seq1, seq2 = [cls], [cls]
+        if self.ibs_tokenizer is not None:
+            matrices = connectivity_matrices(eeg1, eeg2, self.sampling_rate, BAND_DEFS_6,
+                                             feature_type=self.ibs_feature_type)
+            ibs_tokens = self.ibs_tokenizer(matrices)
+            seq1.append(ibs_tokens)
+            seq2.append(ibs_tokens)
+        if self.spectrogram_generator is not None:
+            seq1.append(self.spectrogram_generator(eeg1))
+            seq2.append(self.spectrogram_generator(eeg2))
+        seq1.append(h1)
+        seq2.append(h2)
+        z1 = self.encoder(self.pos_embed(torch.cat(seq1, dim=1)))
+        z2 = self.encoder(self.pos_embed(torch.cat(seq2, dim=1)))
+        if self.cross_attn is not None:
+            z1, z2 = self.cross_attn(z1, z2)
+
+        cls1, cls2 = z1[:, 0, :], z2[:, 0, :]
+        offset = 1 + self.num_ibs_tokens + (
+            self.in_channels if self.spectrogram_generator is not None else 0)
+        z_fuse = torch.cat([self.symmetric_fusion(cls1, cls2), z1[:, offset:, :].mean(dim=1),
+                            z2[:, offset:, :].mean(dim=1)], dim=-1)
+        out = {"logits": self.classifier(z_fuse), "cls1": cls1, "cls2": cls2, "z_fuse": z_fuse}
+        if self.ibs_classifier is not None:
+            ibs_pooled = z1[:, 1:1 + self.num_ibs_tokens, :].mean(dim=1)
+            out["ibs_logits"] = self.ibs_classifier(ibs_pooled)
+            out["ibs_token"] = ibs_pooled
+        return out
