@@ -4,20 +4,36 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from ``eyegaze_tpu_torch/csrc`` with nvcc,
-holds it against its plain PyTorch version on the card at the shapes the
-serving run launches it with (and at a ragged one), then drives the
-flagship EEG serving path at full width (DualEEGTransformer d_model 256,
-6 layers, 8 heads, random weights from a seed): raw (trials, 32, 3250)
-pairs -> ``preprocess_eeg`` -> ``sliding_windows`` -> ``Predictor.predict``
-for requests of 1, 3 and 16 trials.  It checks the outputs, that every
-forward launched the kernel, and that the card's logits for one trial match
-the same weights run on the CPU.  Every check raises on failure, and there is
-no CPU fallback: without a CUDA device the script exits non-zero and prints
-no result.
+It builds the port's CUDA kernels from ``eyegaze_tpu_torch/csrc`` with nvcc,
+one process per source, all at once, and prints each kernel's registers and
+spills.  Then, each phase raising on any failure:
 
-The second-to-last line of stdout is a JSON object with the kernel's
-launches, error and times; the last line is
+1. K1 (phase metrics) against its plain PyTorch version on the card at the
+   shapes the EEG serving run launches it with, and at a ragged one, timed
+   in turns with CUDA events.
+2. The attention kernel (K3 and K4) against its plain twin: the head-packed
+   entry point at ART's serving shapes (B, 1024, 8, 16) for B = 1, 8, 32 and
+   at a ragged (3, 200, 8, 16), the flash entry point at (2, 8, 1024, 128),
+   in f32 and bf16, timed in turns at the serving shapes.
+3. The flagship EEG serving path at full width (DualEEGTransformer d_model
+   256, 6 layers, 8 heads, random weights from a seed): raw (trials, 32,
+   3250) pairs -> ``preprocess_eeg`` -> ``sliding_windows`` ->
+   ``Predictor.predict`` for requests of 1, 3 and 16 trials.  Every forward
+   launches K1; its 139-token attention stays on the plain path; the card's
+   logits for one trial match the same weights run on the CPU.
+4. ART serving at full width (``ArtConfig()``: 6 + 6 layers, embed 128, ff
+   2048, 8 heads, random weights from a seed): ``ArtDenoiser.predict`` on
+   (N, 32, 1024) windows for N = 1, 5 and 16.  Every one of the 18 attention
+   calls of each forward launches the head-packed entry point; the card's
+   output for one window matches the same weights run on the CPU.
+5. The flash route: a bf16 ``MultiHeadAttention`` with d_k 128, the
+   counterpart of the JAX call site of the stock flash kernel, launches the
+   flash entry point on every forward and matches its own plain path.
+
+Every phase runs in float32 (TF32 off) unless it says bf16.  There is no
+CPU fallback: without a CUDA device the script exits non-zero and prints no
+result.  The second-to-last line of stdout is a JSON object with each
+kernel entry point's launches, error and times; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -42,7 +58,21 @@ BUCKETS = (1, 8, 32, 128)
 GEOMETRY = dict(in_channels=CHANNELS, num_classes=3, d_model=256, num_layers=6, num_heads=8,
                 d_ff=1024, max_len=256, sampling_rate=SAMPLING_RATE)
 RAGGED_SHAPE = (7, 30, 1000)
+SOURCES = ("phase_metrics", "attention")
 LOGIT_TOL = 2e-3  # the repo's cross-framework tolerance for this model (tests/test_torch_port.py)
+
+ART_REQUESTS = (1, 5, 16)  # windows per request: buckets 1, 8 and 32
+ART_BUCKETS = (1, 8, 32)
+ART_ATTENTION_CALLS = 18  # 6 encoder self + 6 decoder self + 6 decoder cross, per forward
+ART_TOL = 2e-3  # card vs CPU, float32 both (the flagship's cross-device tolerance)
+ATTN_HEADS, ATTN_DK = 8, 16  # ART's attention geometry at T = 1024
+ATTN_RAGGED = (3, 200, 8, 16)
+FLASH_SHAPE = (2, 8, 1024, 128)  # (B, H, T, d)
+FLASH_CALLS = 3
+# f32: the kernel and the twin sum the same products in another order; an
+# output near zero is a sum that cancels, whose error scales with its O(1)
+# terms, hence the absolute part.
+ATTN_F32_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 def path_kernel_shapes() -> tuple:
@@ -208,6 +238,196 @@ def cpu_parity(raw1, raw2, logits, state) -> None:
           f"|logits| max {float(np.abs(logits).max()):.3f}, tolerance {LOGIT_TOL}")
 
 
+def attention_inputs(shape, dtype, device, seed):
+    r = np.random.default_rng(seed)
+    return [torch.from_numpy(r.normal(size=shape).astype(np.float32)).to(device, dtype)
+            for _ in range(3)]
+
+
+def assert_within_bf16_bound(got, want, terms) -> float:
+    """bf16: each side rounds every probability to bf16 (2**-9 relative), the
+    kernel unnormalised and the twin normalised, and its output once more
+    (2**-8 relative: 8 significant bits).  So |got - want| <= 2**-8 *
+    sum_j p_j |v_j| + 2**-7 |want|, where ``terms``, the sum, is the twin run
+    on |v|.  Returns the largest share of the bound used."""
+    err = (got.float() - want.float()).abs()
+    bound = 2.0 ** -8 * terms.float() + 2.0 ** -7 * want.float().abs() + 1e-6
+    share = float((err / bound).max())
+    if share > 1.0:
+        raise AssertionError(f"bf16 attention off by {float(err.max()):.3e}: {share:.2f}x "
+                             "its rounding bound")
+    return share
+
+
+def alternate_ms(kernel_fn, plain_fn, rounds: int = 10) -> tuple[float, float]:
+    """Median CUDA-event ms of two functions, timed in turns after a warm-up."""
+    for _ in range(3):
+        kernel_fn()
+        plain_fn()
+    kernel, plain = [], []
+    for _ in range(rounds):  # in turns, so drift in clocks hits both alike
+        kernel += cuda_ms(kernel_fn, 2)
+        plain += cuda_ms(plain_fn, 2)
+    return statistics.median(kernel), statistics.median(plain)
+
+
+def attention_phase(device) -> dict:
+    """Both attention entry points against the twin; timings at ART's
+    serving shapes.  Returns the JSON fields of each entry point."""
+    from eyegaze_tpu_torch.kernels import attention
+
+    serving = [(b, WINDOW, ATTN_HEADS, ATTN_DK) for b in ART_BUCKETS]
+    err = {}  # (entry, dtype) -> max |kernel - twin|
+    cases = [("headpacked_attention", shape, dt) for shape in serving + [ATTN_RAGGED]
+             for dt in (torch.float32, torch.bfloat16)]
+    cases.append(("flash_attention", FLASH_SHAPE, torch.bfloat16))
+    for seed, (entry, shape, dt) in enumerate(cases):
+        q, k, v = attention_inputs(shape, dt, device, seed)
+        scale = 1.0 / math.sqrt(shape[-1])
+        if entry == "headpacked_attention":  # compare in (B, H, T, d)
+            got = attention.headpacked_attention(q, k, v, scale).transpose(1, 2)
+            q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+        else:
+            got = attention.flash_attention(q, k, v, scale)
+        torch.cuda.synchronize()
+        want = attention.attention_reference(q, k, v, scale)
+        if dt == torch.float32:
+            torch.testing.assert_close(got, want, **ATTN_F32_TOL)
+            bound = f"tolerance {ATTN_F32_TOL}"
+        else:
+            share = assert_within_bf16_bound(got, want,
+                                             attention.attention_reference(q, k, v.abs(), scale))
+            bound = f"{share:.2f} of the bf16 bound"
+        e = float((got.float() - want.float()).abs().max())
+        err[entry, dt] = max(err.get((entry, dt), 0.0), e)
+        print(f"{entry} {shape} {str(dt)[6:]}: max |kernel - twin| {e:.3e} "
+              f"(|out| max {float(want.float().abs().max()):.3f}), {bound}")
+        del q, k, v, got, want
+
+    times = {}
+    for seed, (entry, shape, dt) in enumerate(cases):
+        if shape == ATTN_RAGGED:
+            continue
+        q, k, v = attention_inputs(shape, dt, device, seed)
+        scale = 1.0 / math.sqrt(shape[-1])
+        if entry == "headpacked_attention":
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            ms, plain_ms = alternate_ms(lambda: attention.headpacked_attention(q, k, v, scale),
+                                        lambda: attention.attention_reference(qt, kt, vt, scale))
+        else:
+            ms, plain_ms = alternate_ms(lambda: attention.flash_attention(q, k, v, scale),
+                                        lambda: attention.attention_reference(q, k, v, scale))
+        times[(entry, shape, dt)] = (ms, plain_ms)
+        print(f"{entry} {shape} {str(dt)[6:]}: kernel median {ms:.4f} ms, twin median "
+              f"{plain_ms:.4f} ms over 20 calls each (CUDA events)")
+        del q, k, v
+    largest = serving[-1]  # the 16-window request's bucket
+    fields = {}
+    for entry, shape, dt in (("headpacked_attention", largest, torch.float32),
+                             ("flash_attention", FLASH_SHAPE, torch.bfloat16)):
+        errs = {str(d)[6:]: e for (name, d), e in err.items() if name == entry}
+        ms, plain_ms = times[(entry, shape, dt)]
+        fields[entry] = {"max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
+                         "shape": list(shape), "dtype": str(dt)[6:],
+                         "max_abs_err_by_dtype": errs}
+    return fields
+
+
+def art_phase(device):
+    """Serve (N, 32, 1024) windows through ArtDenoiser at full width.
+
+    Returns the head-packed launches of the run, the first request's input
+    and output, and the model's state_dict.
+    """
+    from eyegaze_tpu_torch.kernels import attention
+    from eyegaze_tpu_torch.models.art import ArtConfig, ArtifactRemovalTransformer
+    from eyegaze_tpu_torch.serving import ArtDenoiser
+
+    model = ArtifactRemovalTransformer(ArtConfig(), device=device,
+                                       generator=torch.Generator().manual_seed(0))
+    print(f"ArtifactRemovalTransformer {ArtConfig()}: "
+          f"{sum(p.numel() for p in model.parameters()):,} parameters on {device}")
+    den = ArtDenoiser(model, device=device, batch_buckets=ART_BUCKETS)
+    t0 = time.perf_counter()
+    den.warmup(CHANNELS, WINDOW)
+    print(f"warmup of buckets {ART_BUCKETS}: {time.perf_counter() - t0:.2f} s")
+    noisy = np.random.default_rng(1).normal(
+        size=(max(ART_REQUESTS), CHANNELS, WINDOW)).astype(np.float32)
+
+    first = None
+    attention.launch_count.update(headpacked_attention=0, flash_attention=0)
+    for n in ART_REQUESTS:
+        walls = []
+        for _ in range(REPEATS):
+            before = attention.launch_count["headpacked_attention"]
+            t0 = time.perf_counter()
+            out = den.predict(noisy[:n])["denoised"]
+            walls.append((time.perf_counter() - t0) * 1e3)
+            forwards = math.ceil(n / ART_BUCKETS[-1])
+            launched = attention.launch_count["headpacked_attention"] - before
+            if launched != ART_ATTENTION_CALLS * forwards:
+                raise RuntimeError(f"{forwards} forwards launched the attention kernel "
+                                   f"{launched} times, not {ART_ATTENTION_CALLS * forwards}")
+            if out.shape != (n, CHANNELS, WINDOW) or not np.isfinite(out).all():
+                raise RuntimeError(f"bad output: shape {out.shape}, finite "
+                                   f"{np.isfinite(out).all()}")
+            if first is None:
+                first = out
+        print(f"ART request of {n} window(s): wall ms {[round(w, 3) for w in walls]}, "
+              f"median {statistics.median(walls):.3f} (predict; output back on the host)")
+    launches = attention.launch_count["headpacked_attention"]
+    if launches == 0 or attention.launch_count["flash_attention"] != 0:
+        raise RuntimeError(f"ART's attention launches: {attention.launch_count}")
+    print(f"head-packed attention launches during the ART run: {launches}")
+    return launches, noisy[:ART_REQUESTS[0]], first, model.state_dict()
+
+
+def art_cpu_parity(noisy, denoised, state) -> None:
+    """The first request's card output against the same weights on the CPU."""
+    from eyegaze_tpu_torch.models.art import ArtConfig, ArtifactRemovalTransformer
+    from eyegaze_tpu_torch.serving import ArtDenoiser
+
+    cpu = torch.device("cpu")
+    model = ArtifactRemovalTransformer(ArtConfig(), device=cpu,
+                                       generator=torch.Generator().manual_seed(1))
+    model.load_state_dict({k: v.cpu() for k, v in state.items()}, strict=True)
+    want = ArtDenoiser(model, device=cpu, batch_buckets=ART_BUCKETS).predict(noisy)["denoised"]
+    torch.testing.assert_close(torch.from_numpy(denoised), torch.from_numpy(want),
+                               rtol=ART_TOL, atol=ART_TOL)
+    print(f"1-window ART output, card vs CPU (plain attention twin): max |diff| "
+          f"{float(np.abs(denoised - want).max()):.3e}, |out| max "
+          f"{float(np.abs(want).max()):.3f}, tolerance {ART_TOL}")
+
+
+def flash_route_phase(device) -> int:
+    """A bf16 MultiHeadAttention with d_k 128 takes the flash route on every
+    forward and matches its own plain path (forced by returning weights)."""
+    from eyegaze_tpu_torch.kernels import attention
+    from eyegaze_tpu_torch.models.transformer import MultiHeadAttention, init_weights_
+
+    b, h, t, d = FLASH_SHAPE
+    mha = MultiHeadAttention(h * d, h, device=device)
+    init_weights_(mha, torch.Generator().manual_seed(2))
+    mha = mha.to(torch.bfloat16).eval()
+    x = torch.randn(b, t, h * d, generator=torch.Generator().manual_seed(3)).to(
+        device, torch.bfloat16)
+    attention.launch_count.update(headpacked_attention=0, flash_attention=0)
+    with torch.inference_mode():
+        outs = [mha(x, x, x) for _ in range(FLASH_CALLS)]
+        launches = dict(attention.launch_count)
+        plain = mha(x, x, x, return_weights=True)[0]
+    torch.cuda.synchronize()
+    if launches != {"headpacked_attention": 0, "flash_attention": FLASH_CALLS}:
+        raise RuntimeError(f"{FLASH_CALLS} bf16 d_k-128 forwards: {launches}")
+    # The contexts agree to the bf16 bound of the attention phase; out_proj
+    # sums 1024 of them with weights of std 1/32 and rounds once more to bf16.
+    torch.testing.assert_close(outs[0].float(), plain.float(), rtol=2.0 ** -7, atol=2.0 ** -6)
+    print(f"flash route, bf16 MultiHeadAttention (B {b}, T {t}, H {h}, d_k {d}): "
+          f"{launches['flash_attention']} launches for {FLASH_CALLS} forwards, "
+          f"max |kernel route - plain route| {float((outs[0].float() - plain.float()).abs().max()):.3e}")
+    return launches["flash_attention"]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; it has no CPU mode")
@@ -225,24 +445,43 @@ def main() -> None:
     print("TF32 off for matmuls and cuDNN convolutions: every phase runs in full float32")
 
     t0 = time.perf_counter()
-    lib, report = build.build("phase_metrics")
-    print(f"K1 built in {time.perf_counter() - t0:.2f} s: {lib.name}")
-    for line in report.splitlines():
-        if "registers" in line or "bytes stack" in line:
-            print(f"  ptxas: {line.strip()}")
+    built = build.build_all(SOURCES)
+    print(f"built {', '.join(SOURCES)} in {time.perf_counter() - t0:.2f} s (one nvcc each, "
+          "in parallel)")
+    for name, (lib, report) in built.items():
+        print(f"{name}: {lib.name}")
+        for line in report.splitlines():
+            if "Compiling entry function" in line or "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
 
-    timing = kernel_phase(device)
-    launches, raw1, raw2, logits, state = slice_phase(device)
+    from eyegaze_tpu_torch.kernels import attention
+
+    k1_timing = kernel_phase(device)
+    attn_timing = attention_phase(device)
+
+    attention.launch_count.update(headpacked_attention=0, flash_attention=0)
+    k1_launches, raw1, raw2, logits, state = slice_phase(device)
+    if any(attention.launch_count.values()):
+        raise RuntimeError("the flagship's 139-token attention launched the attention kernel")
     cpu_parity(raw1, raw2, logits, state)
 
-    print(json.dumps({"kernels": [{
-        "name": "pairwise_phase_metrics",
-        "route": "cuda",
-        "source": "eyegaze_tpu_torch/csrc/phase_metrics.cu",
-        "replaces": "eyegaze_tpu/ops/pallas_kernels.py:74",
-        "launches": launches,
-        **timing,
-    }]}))
+    art_launches, noisy, denoised, art_state = art_phase(device)
+    art_cpu_parity(noisy, denoised, art_state)
+    flash_launches = flash_route_phase(device)
+
+    source = "eyegaze_tpu_torch/csrc/attention.cu"
+    print(json.dumps({"kernels": [
+        {"name": "pairwise_phase_metrics", "route": "cuda",
+         "source": "eyegaze_tpu_torch/csrc/phase_metrics.cu",
+         "replaces": "eyegaze_tpu/ops/pallas_kernels.py:74", "launches": k1_launches,
+         "path": "EEG serving", **k1_timing},
+        {"name": "headpacked_attention", "route": "cuda", "source": source,
+         "replaces": "eyegaze_tpu/ops/attn_kernels.py:78", "launches": art_launches,
+         "path": "ART serving", **attn_timing["headpacked_attention"]},
+        {"name": "flash_attention", "route": "cuda", "source": source,
+         "replaces": "eyegaze_tpu/models/transformer.py:232", "launches": flash_launches,
+         "path": "bf16 MultiHeadAttention, d_k 128", **attn_timing["flash_attention"]},
+    ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

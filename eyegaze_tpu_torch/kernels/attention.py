@@ -1,0 +1,141 @@
+"""K3 and K4: softmax attention, one CUDA kernel for Hopper and its plain twin.
+
+Replaces two Pallas TPU kernels that compute the same unmasked, bias-free,
+non-causal attention ``softmax(q k^T * scale) v`` in two layouts:
+
+- K3, ``eyegaze_tpu/ops/attn_kernels.py::headpacked_attention`` (pallas_call
+  in ``_headpacked_fwd_impl``), on (B, T, H, d): here ``headpacked_attention``;
+- K4, the stock ``jax.experimental.pallas.ops.tpu.flash_attention`` that
+  ``eyegaze_tpu/models/transformer.py:232`` calls on (B, H, T, d): here
+  ``flash_attention``, covering what that call uses (no ``ab``, no
+  ``segment_ids``, ``causal=False``).
+
+Both launch the one kernel of ``csrc/attention.cu`` with their layout's
+strides, never with a transposed copy.  Numerics: f32 or bf16 operands;
+scores, softmax and the PV sums in f32; probabilities rounded to the operand
+type before PV; output in the operand type.
+
+What bounds it on an H100: 4 * B * H * Tq * Tk * d FLOP on the CUDA cores
+(about 17 GFLOP at ART's B = 32, T = 1024, H = 8, d = 16) against only the
+bytes of Q, K, V and the output, so its FMA and shared-memory load stream,
+not device memory.  The plain twin instead writes and reads the (B, H, Tq, Tk)
+f32 score tensor (1 GiB at that shape) several times.  Both times sit in
+PERF.md.
+
+A CPU tensor goes to the plain twin ``attention_reference``; a CUDA tensor
+launches the kernel, or raises.  The kernel has no backward: a CUDA input
+that requires grad raises.  ``launch_count`` counts the kernel's launches,
+one count for each entry point.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from eyegaze_tpu_torch.kernels import build
+
+HEAD_DIMS = (16, 32, 64, 128)  # the head dims the kernel is instantiated for
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's dtype argument
+DTYPES = tuple(_DTYPE_CODE)
+_MAX_GRID_YZ = 65535  # heads and batch run on the grid's y and z axes
+
+# Kernel launches since import (or since a caller reset them), by entry point.
+launch_count = {"headpacked_attention": 0, "flash_attention": 0}
+
+
+def attention_reference(q, k, v, scale: float):
+    """Plain PyTorch twin on (B, H, Tq, d), (B, H, Tk, d) x2 -> (B, H, Tq, d).
+
+    Matmul on operands upcast to f32, f32 softmax, P cast to the operand
+    type, matmul with f32 accumulation, output cast to the operand type: the
+    JAX einsum contract (``preferred_element_type=float32``).
+    """
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.softmax(scores, dim=-1)
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+@functools.cache
+def _launcher():
+    fn = build.load("attention").attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k, v, t_dim: int) -> None:
+    for x in (q, k, v):
+        if x.dim() != 4:
+            raise ValueError(f"expected 4-d tensors, got shape {tuple(x.shape)}")
+        if x.dtype not in DTYPES:
+            raise TypeError(f"expected float32 or bfloat16, got {x.dtype}")
+        if x.dtype != q.dtype:
+            raise TypeError(f"dtype mismatch: {x.dtype} vs {q.dtype}")
+        if x.device != q.device:
+            raise ValueError(f"device mismatch: {x.device} vs {q.device}")
+        if x.stride(-1) != 1:
+            raise ValueError("the head dim of every input must be contiguous (stride 1)")
+    if k.shape != v.shape:
+        raise ValueError(f"shape mismatch: k {tuple(k.shape)} vs v {tuple(v.shape)}")
+    other = [a for a in range(4) if a != t_dim]
+    if [q.shape[a] for a in other] != [k.shape[a] for a in other]:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)} vs k {tuple(k.shape)}")
+    if k.shape[t_dim] == 0:
+        raise ValueError("attention over zero keys is undefined")
+
+
+def _launch(entry: str, q, k, v, scale: float, t_dim: int, h_dim: int):
+    """Launch the kernel on the current stream; the output has q's strides."""
+    if q.device.type != "cuda":
+        raise RuntimeError(f"no attention kernel for device {q.device}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError("the attention kernel has no backward: run it under "
+                           "torch.no_grad() / inference_mode(), or on the CPU")
+    b, h, d = q.shape[0], q.shape[h_dim], q.shape[-1]
+    tq, tk = q.shape[t_dim], k.shape[t_dim]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in the kernel's {HEAD_DIMS}")
+    if b > _MAX_GRID_YZ or h > _MAX_GRID_YZ or max(tq, tk) >= 2**31:
+        raise ValueError(f"shape {tuple(q.shape)} exceeds the kernel's grid")
+    out = torch.empty_like(q)  # same strides as q: the caller's layout
+    if out.numel() == 0:
+        return out
+    strides = [s for x in (q, k, v, out) for s in (x.stride(0), x.stride(t_dim), x.stride(h_dim))]
+    launch = _launcher()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     _DTYPE_CODE[q.dtype], b, h, tq, tk, d, *strides, scale, stream)
+    if err != 0:
+        raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
+    launch_count[entry] += 1
+    return out
+
+
+def headpacked_attention(qh, kh, vh, scale: float):
+    """K3's counterpart: (B, Tq, H, d), (B, Tk, H, d) x2 -> (B, Tq, H, d).
+
+    On a CUDA tensor this launches the kernel on the current stream; on a
+    CPU tensor it runs the plain twin.  Any other device raises.
+    """
+    _check(qh, kh, vh, t_dim=1)
+    if qh.device.type == "cpu":
+        return attention_reference(*(x.transpose(1, 2) for x in (qh, kh, vh)),
+                                   scale).transpose(1, 2)
+    return _launch("headpacked_attention", qh, kh, vh, scale, t_dim=1, h_dim=2)
+
+
+def flash_attention(q, k, v, sm_scale: float):
+    """K4's counterpart: (B, H, Tq, d), (B, H, Tk, d) x2 -> (B, H, Tq, d).
+
+    On a CUDA tensor this launches the kernel on the current stream; on a
+    CPU tensor it runs the plain twin.  Any other device raises.
+    """
+    _check(q, k, v, t_dim=2)
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, sm_scale)
+    return _launch("flash_attention", q, k, v, sm_scale, t_dim=2, h_dim=1)

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C entry point, so it compiles in seconds
 into a shared library without PyTorch's headers, and ``ctypes`` loads it.
 The library lands in ``eyegaze_tpu_torch/_build/``, named by a hash of the
 source and the flags, so an edited source is rebuilt and an unchanged one is
-built once per checkout.
+built once per checkout.  ``build_all`` starts one nvcc per source, all at
+once.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
+from typing import Dict, Iterable, Tuple
 
 _PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = _PACKAGE / "csrc"
@@ -32,25 +34,48 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def build(name: str) -> tuple[Path, str]:
-    """Compile ``csrc/<name>.cu`` unless its library exists.
-
-    Returns the library's path and nvcc's report (register and shared-memory
-    use from ``-Xptxas -v``; empty when the library was already built).
-    """
+def _library(name: str) -> Tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"{name}-{digest}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial file
-    return lib, proc.stdout + proc.stderr
+    return src, BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build_all(names: Iterable[str]) -> Dict[str, Tuple[Path, str]]:
+    """Compile each ``csrc/<name>.cu`` whose library is missing, one nvcc
+    process per source, all started together.
+
+    Returns, per name, the library's path and nvcc's report (register and
+    shared-memory use from ``-Xptxas -v``; empty when the library was already
+    built).  Waits for every process before raising on a failed build.
+    """
+    results: Dict[str, Tuple[Path, str]] = {}
+    jobs = {}
+    for name in names:
+        src, lib = _library(name)
+        if lib.exists():
+            results[name] = (lib, "")
+            continue
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        jobs[name] = (src, lib, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (src, lib, tmp, proc) in jobs.items():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src}:\n{out}{err}")
+            continue
+        os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial file
+        results[name] = (lib, out + err)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return results
+
+
+def build(name: str) -> Tuple[Path, str]:
+    """Compile ``csrc/<name>.cu`` unless its library exists (see ``build_all``)."""
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -201,7 +201,7 @@ class DualEEGTransformer(nn.Module):
             d_model, spec_n_fft, spec_hop_length, spec_freq_bins, dropout, device=device)
             if use_spectrogram else None)
         self.cls_token = nn.Parameter(torch.empty(1, 1, d_model, device=device))
-        self.pos_embed = PositionalEmbedding(max_len, d_model, device=device)
+        self.pos_embed = PositionalEmbedding(max_len, d_model, "learned", device=device)
         self.encoder = TransformerEncoder(d_model, num_layers, num_heads, d_ff, dropout,
                                           dropout, device=device)
         self.cross_attn = (CrossBrainAttention(d_model, num_heads, dropout, device=device)

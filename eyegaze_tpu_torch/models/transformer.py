@@ -1,22 +1,60 @@
-"""Post-LN transformer encoder stack and parameter initialisation.
+"""Post-LN transformer stack, positional tables and parameter initialisation.
 
-Port of the encoder half of ``eyegaze_tpu/models/transformer.py``:
-multi-head attention as matmul, float32 softmax, matmul; a ReLU feed-forward;
-post-LayerNorm residual blocks with eps 1e-5; a learned positional table.
-Parameter names follow the reference torch model, so state_dicts written by
-``eyegaze_tpu_torch.models.convert`` load with ``strict=True``.
+Port of ``eyegaze_tpu/models/transformer.py``: multi-head attention as
+matmul, float32 softmax, matmul (masks filled with -1e9 where ``mask == 0``);
+a ReLU feed-forward; post-LayerNorm encoder and decoder blocks with eps
+1e-5; sinusoidal or learned positions.  Parameter names follow the reference
+torch model, so state_dicts written by ``eyegaze_tpu_torch.models.convert``
+load with ``strict=True``.
+
+On a CUDA device, unmasked attention whose shapes tile runs the port's
+attention kernel (``eyegaze_tpu_torch.kernels.attention``) through the route
+``attention_route`` picks, the counterpart of the JAX package's
+``_flash_eligible`` and ``_headpack_eligible``.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
+from eyegaze_tpu_torch.kernels import attention
+
+
+def attention_route(device_type: str, dtype: torch.dtype, tq: int, tk: int, d_k: int, *,
+                    has_mask: bool, dropout_active: bool, return_weights: bool) -> str:
+    """Which path an attention call takes: 'flash', 'headpacked' or 'plain'.
+
+    The semantic and tileability gates of the JAX package's
+    ``_flash_eligible`` and ``_headpack_eligible``, in its order; its
+    performance gates, measured on a TPU, and its environment switches are
+    not carried over.  Semantic gates: the kernels take no mask, no
+    attention-weight dropout and return no weights.  Tileability: the
+    flash route (K4) wants ``tq`` and ``tk`` multiples of 128 and
+    ``d_k % 128 == 0`` with bf16 operands; the head-packed route (K3) wants
+    ``tq % 128 == 0`` and ``tk <= 2048``.  Everything else, and every device
+    but CUDA, takes the plain path.  A CUDA call routed to the kernel with a
+    head dim or dtype the kernel is not built for raises in the kernel's
+    wrapper; it never falls back to the plain path.
+    """
+    if device_type != "cuda" or has_mask or dropout_active or return_weights:
+        return "plain"
+    if tq % 128 == 0 and tk % 128 == 0 and d_k % 128 == 0 and dtype == torch.bfloat16:
+        return "flash"
+    if tq % 128 == 0 and tk <= 2048:
+        return "headpacked"
+    return "plain"
+
 
 class MultiHeadAttention(nn.Module):
-    """Scaled dot-product attention with q/k/v/out projections (no mask)."""
+    """Scaled dot-product attention with q/k/v/out projections.
+
+    ``attn_mask`` broadcasts against the (B, H, Tq, Tk) scores; where it is
+    0 the score becomes -1e9 before the softmax.
+    """
 
     def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0, *,
                  device: torch.device):
@@ -30,18 +68,37 @@ class MultiHeadAttention(nn.Module):
         self.out_proj = nn.Linear(d_model, d_model, device=device)
         self.dropout = nn.Dropout(dropout)  # on the softmax weights, as the reference
 
-    def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                attn_mask: torch.Tensor | None = None, return_weights: bool = False):
         b, tq, d_model = q.shape
         tk = k.shape[1]
         h = self.num_heads
         d_k = d_model // h
-        qh = self.q_proj(q).reshape(b, tq, h, d_k).transpose(1, 2)  # (B, H, Tq, d)
-        kh = self.k_proj(k).reshape(b, tk, h, d_k).transpose(1, 2)
-        vh = self.v_proj(v).reshape(b, tk, h, d_k).transpose(1, 2)
-        scores = torch.matmul(qh, kh.transpose(-1, -2)).float() / math.sqrt(d_k)
+        qh = self.q_proj(q).reshape(b, tq, h, d_k)
+        kh = self.k_proj(k).reshape(b, tk, h, d_k)
+        vh = self.v_proj(v).reshape(b, tk, h, d_k)
+        route = attention_route(
+            qh.device.type, qh.dtype, tq, tk, d_k, has_mask=attn_mask is not None,
+            dropout_active=self.training and self.dropout.p > 0, return_weights=return_weights)
+        if route == "flash":  # (B, H, T, d) views: the kernel reads them by their strides
+            context = attention.flash_attention(
+                qh.transpose(1, 2), kh.transpose(1, 2), vh.transpose(1, 2),
+                1.0 / math.sqrt(d_k)).transpose(1, 2)
+        elif route == "headpacked":
+            context = attention.headpacked_attention(qh, kh, vh, 1.0 / math.sqrt(d_k))
+        if route != "plain":
+            return self.out_proj(context.reshape(b, tq, d_model))
+
+        # (B, H, Tq, Tk) scores from f32 operands, f32 softmax; P in the
+        # value dtype for PV with f32 accumulation.
+        qh, kh, vh = (x.transpose(1, 2) for x in (qh, kh, vh))
+        scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) / math.sqrt(d_k)
+        if attn_mask is not None:
+            scores = scores.masked_fill(attn_mask == 0, -1e9)
         attn = self.dropout(torch.softmax(scores, dim=-1))
-        context = torch.matmul(attn.to(vh.dtype), vh)  # (B, H, Tq, d)
-        return self.out_proj(context.transpose(1, 2).reshape(b, tq, d_model))
+        context = torch.matmul(attn.to(vh.dtype).float(), vh.float()).to(vh.dtype)
+        out = self.out_proj(context.transpose(1, 2).reshape(b, tq, d_model))
+        return (out, attn) if return_weights else out
 
 
 class FeedForward(nn.Module):
@@ -71,8 +128,8 @@ class TransformerEncoderBlock(nn.Module):
         self.ln2 = nn.LayerNorm(d_model, eps=1e-5, device=device)
         self.dropout = nn.Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.ln1(x + self.dropout(self.mha(x, x, x)))
+    def forward(self, x: torch.Tensor, attn_mask: torch.Tensor | None = None) -> torch.Tensor:
+        x = self.ln1(x + self.dropout(self.mha(x, x, x, attn_mask)))
         return self.ln2(x + self.dropout(self.ffn(x)))
 
 
@@ -89,21 +146,89 @@ class TransformerEncoder(nn.Module):
         ])
         self.norm = nn.LayerNorm(d_model, eps=1e-5, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attn_mask: torch.Tensor | None = None) -> torch.Tensor:
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, attn_mask)
         return self.norm(x)
 
 
-class PositionalEmbedding(nn.Module):
-    """Adds a learned positional table (an nn.Embedding, as the reference)."""
+class TransformerDecoderBlock(nn.Module):
+    """Post-LN decoder block: self-attention, cross-attention, FFN."""
 
-    def __init__(self, max_len: int, d_model: int, *, device: torch.device):
+    def __init__(self, d_model: int, num_heads: int, d_ff: int, dropout: float = 0.0,
+                 attn_dropout: float = 0.0, *, device: torch.device):
         super().__init__()
-        self.pos_embed = nn.Embedding(max_len, d_model, device=device)
+        self.self_mha = MultiHeadAttention(d_model, num_heads, attn_dropout, device=device)
+        self.ln1 = nn.LayerNorm(d_model, eps=1e-5, device=device)
+        self.cross_mha = MultiHeadAttention(d_model, num_heads, attn_dropout, device=device)
+        self.ln2 = nn.LayerNorm(d_model, eps=1e-5, device=device)
+        self.ffn = FeedForward(d_model, d_ff, dropout, device=device)
+        self.ln3 = nn.LayerNorm(d_model, eps=1e-5, device=device)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x: torch.Tensor, memory: torch.Tensor,
+                self_attn_mask: torch.Tensor | None = None,
+                cross_attn_mask: torch.Tensor | None = None) -> torch.Tensor:
+        x = self.ln1(x + self.dropout(self.self_mha(x, x, x, self_attn_mask)))
+        x = self.ln2(x + self.dropout(self.cross_mha(x, memory, memory, cross_attn_mask)))
+        return self.ln3(x + self.dropout(self.ffn(x)))
+
+
+class TransformerDecoder(nn.Module):
+    """Stack of decoder blocks + final LayerNorm."""
+
+    def __init__(self, d_model: int, num_layers: int, num_heads: int, d_ff: int,
+                 dropout: float = 0.0, attn_dropout: float = 0.0, *, device: torch.device):
+        super().__init__()
+        self.layers = nn.ModuleList([
+            TransformerDecoderBlock(d_model, num_heads, d_ff, dropout, attn_dropout,
+                                    device=device)
+            for _ in range(num_layers)
+        ])
+        self.norm = nn.LayerNorm(d_model, eps=1e-5, device=device)
+
+    def forward(self, x: torch.Tensor, memory: torch.Tensor,
+                self_attn_mask: torch.Tensor | None = None,
+                cross_attn_mask: torch.Tensor | None = None) -> torch.Tensor:
+        for layer in self.layers:
+            x = layer(x, memory, self_attn_mask, cross_attn_mask)
+        return self.norm(x)
+
+
+def sinusoidal_position_table(max_len: int, d_model: int) -> np.ndarray:
+    """Fixed sin/cos table, float32, as the JAX package computes it."""
+    pos = np.arange(max_len, dtype=np.float32)[:, None]
+    div = np.exp(np.arange(0, d_model, 2, dtype=np.float32) * (-math.log(10000.0) / d_model))
+    pe = np.zeros((max_len, d_model), dtype=np.float32)
+    pe[:, 0::2] = np.sin(pos * div)
+    pe[:, 1::2] = np.cos(pos * div)
+    return pe
+
+
+class PositionalEmbedding(nn.Module):
+    """Adds sinusoidal or learned positions to (B, T, d).
+
+    'learned' holds an nn.Embedding ``pos_embed``, as the reference;
+    'sinusoidal' a fixed table ``pe``, a non-persistent buffer, so it is
+    neither in the state_dict nor expected by a strict load.
+    """
+
+    def __init__(self, max_len: int, d_model: int, mode: str = "sinusoidal", *,
+                 device: torch.device):
+        super().__init__()
+        self.mode = mode
+        if mode == "learned":
+            self.pos_embed = nn.Embedding(max_len, d_model, device=device)
+        elif mode == "sinusoidal":
+            self.register_buffer(
+                "pe", torch.from_numpy(sinusoidal_position_table(max_len, d_model)).to(device),
+                persistent=False)
+        else:
+            raise ValueError(f"Unsupported pos_mode: {mode}")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.pos_embed.weight[: x.shape[1]][None].to(x.dtype)
+        table = self.pos_embed.weight if self.mode == "learned" else self.pe
+        return x + table[: x.shape[1]][None].to(x.dtype)
 
 
 def _fill(param: torch.Tensor, draw) -> None:

@@ -1,10 +1,11 @@
-"""Serving: a DualEEGTransformer on one device behind bucketed batching.
+"""Serving: the DualEEGTransformer and the ART denoiser on one device behind
+bucketed batching.
 
-Port of ``eyegaze_tpu/serving.py::Predictor``.  Request batches are
-zero-padded up to the next bucket size, so the device sees a fixed set of
-batch shapes; above the largest bucket a request is chunked, and padding
-rows are stripped from the outputs.  The model runs in ``eval()`` under
-``torch.inference_mode()``.
+Port of ``eyegaze_tpu/serving.py::Predictor`` and ``ArtDenoiser``.  Request
+batches are zero-padded up to the next bucket size, so the device sees a
+fixed set of batch shapes; above the largest bucket a request is chunked,
+and padding rows are stripped from the outputs.  The model runs in
+``eval()`` under ``torch.inference_mode()``.
 """
 
 from __future__ import annotations
@@ -78,6 +79,46 @@ class Predictor:
         logits = _predict_batched(self._forward, self.buckets, eeg1, eeg2,
                                   device=self.device)
         return _logits_to_output(logits)
+
+
+class ArtDenoiser:
+    """Bucketed denoiser for the ART seq2seq model on one device.
+
+    Serving is label-free: the decoder is fed the noisy signal itself (the
+    model's ``tgt = src`` default).  A model whose Reconstructor z-scores over
+    the batch (``recon_zscore='batch'``) would give every sample an output
+    that depends on the request's other rows and on the zero padding, so it
+    is always served one sample at a time: its buckets are ``(1,)`` whatever
+    the caller passes.
+    """
+
+    def __init__(self, model: torch.nn.Module, *, device: torch.device,
+                 batch_buckets: Sequence[int] = (1, 8, 32)):
+        self.device = torch.device(device)
+        self.model = model.to(self.device).eval()
+        if model.config.recon_zscore == "batch":
+            batch_buckets = (1,)
+        self.buckets = tuple(sorted(batch_buckets))
+
+    @torch.inference_mode()
+    def _forward(self, noisy: torch.Tensor) -> torch.Tensor:
+        return self.model(noisy.float())
+
+    def warmup(self, c: int | None = None, t: int | None = None) -> None:
+        """Run every bucket once on zeros; ``t`` defaults to the 1024-sample
+        window, capped at the positional table's ``max_len``."""
+        cfg = self.model.config
+        c = c or cfg.in_channels
+        t = t or min(1024, cfg.max_len)
+        for b in self.buckets:
+            self._forward(torch.zeros((b, c, t), dtype=torch.float32, device=self.device))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def predict(self, noisy) -> Dict[str, np.ndarray]:
+        """(N, C, T) noisy EEG, numpy or a tensor -> {'denoised': (N, C_out, T) f32}."""
+        return {"denoised": _predict_batched(self._forward, self.buckets, noisy,
+                                             device=self.device)}
 
 
 def _logits_to_output(logits: np.ndarray) -> Dict[str, np.ndarray]:

@@ -1,0 +1,331 @@
+"""Attention kernel (K3, K4) of the PyTorch port against the JAX package.
+
+The plain twin ``attention_reference`` is held to the Pallas head-packed
+kernel in interpret mode (K3) and to the stock flash module's
+``mha_reference`` (K4, its (B, H, T, d) layout), on the same numpy inputs.
+``attention_route`` is checked gate by gate, and ``MultiHeadAttention`` with
+masks and in bf16 against the JAX MHA.  The CUDA kernel itself runs only on
+the card (``cuda`` marker); jax is imported inside the tests that compare
+against it, so the card's tests run where jax is not installed:
+
+    python -m pytest tests/test_torch_attention.py -m cuda --noconftest
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from eyegaze_tpu_torch.kernels import attention
+from eyegaze_tpu_torch.models.transformer import MultiHeadAttention, attention_route
+
+CPU = torch.device("cpu")
+# A bf16 output holds 8 significant bits: one rounding of a value below 1 in
+# magnitude moves it by at most 2**-9, two roundings (of P, then of the
+# output) by 2**-8.
+BF16_ATOL = 2.0 ** -8
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _qkv(shape, seed=0, kv_len=None):
+    r = np.random.default_rng(seed)
+    kv_shape = list(shape)
+    if kv_len is not None:
+        kv_shape[1] = kv_len
+    return (r.normal(size=shape).astype(np.float32),
+            r.normal(size=kv_shape).astype(np.float32),
+            r.normal(size=kv_shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_headpacked_twin_matches_pallas_interpret(dtype):
+    """(2, 256, 8, 16), the shape of tests/test_flash_attn.py's kernel parity.
+
+    f32: both sum the same products in another order, 1e-6.  bf16: P is
+    rounded to bf16 on both sides; the outputs (|o| < 1) agree to
+    ``BF16_ATOL``.  Scores rounded to bf16 before the softmax, the fault
+    the port's MHA had, miss that by 4x at this shape.
+    """
+    import jax.numpy as jnp
+
+    from eyegaze_tpu.ops.attn_kernels import headpacked_attention as jax_headpacked
+
+    q, k, v = _qkv((2, 256, 8, 16), seed=1)
+    scale = 1.0 / math.sqrt(16)
+    want = np.asarray(jax_headpacked(*(jnp.asarray(a, getattr(jnp, dtype)) for a in (q, k, v)),
+                                     scale, True).astype(jnp.float32))
+    before = dict(attention.launch_count)
+    got = attention.headpacked_attention(
+        *(torch.from_numpy(a).to(getattr(torch, dtype)) for a in (q, k, v)), scale)
+    assert attention.launch_count == before  # the CPU takes the twin
+    assert got.shape == q.shape and got.dtype == getattr(torch, dtype)
+    assert np.abs(want).max() < 1.0
+    atol = 1e-6 if dtype == "float32" else BF16_ATOL
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=atol)
+
+
+def test_flash_twin_matches_stock_mha_reference():
+    """The (B, H, T, d) entry point against the stock module's own jnp
+    reference, as tests/test_flash_attn.py pins the layout; f32, cross
+    attention (Tq 256, Tk 128), d 128."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas.ops.tpu.flash_attention import mha_reference
+
+    q, k, v = _qkv((2, 4, 256, 128), seed=2)
+    k, v = k[:, :, :128], v[:, :, :128]
+    scale = 1.0 / math.sqrt(128)
+    want = np.asarray(mha_reference(*(jnp.asarray(a) for a in (q, k, v)), None, sm_scale=scale))
+    got = attention.flash_attention(*(torch.from_numpy(np.ascontiguousarray(a))
+                                      for a in (q, k, v)), scale)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+def test_both_entry_points_are_one_function_in_two_layouts():
+    q, k, v = (torch.from_numpy(a) for a in _qkv((3, 200, 8, 16), seed=3, kv_len=130))
+    scale = 0.25
+    bthd = attention.headpacked_attention(q, k, v, scale)
+    bhtd = attention.flash_attention(*(x.transpose(1, 2) for x in (q, k, v)), scale)
+    torch.testing.assert_close(bthd, bhtd.transpose(1, 2), rtol=0, atol=0)
+
+
+GATES = {  # name: (device, dtype, tq, tk, d_k, mask, dropout, weights) -> route
+    "art_self_attention": (("cuda", torch.float32, 1024, 1024, 16, False, False, False),
+                           "headpacked"),
+    "art_bf16": (("cuda", torch.bfloat16, 1024, 1024, 16, False, False, False), "headpacked"),
+    "flagship_139_tokens": (("cuda", torch.float32, 139, 139, 32, False, False, False), "plain"),
+    "mask": (("cuda", torch.float32, 1024, 1024, 16, True, False, False), "plain"),
+    "attention_dropout": (("cuda", torch.float32, 1024, 1024, 16, False, True, False), "plain"),
+    "weight_return": (("cuda", torch.float32, 1024, 1024, 16, False, False, True), "plain"),
+    "cpu": (("cpu", torch.float32, 1024, 1024, 16, False, False, False), "plain"),
+    "tk_over_2048": (("cuda", torch.float32, 1024, 4096, 16, False, False, False), "plain"),
+    "tk_ragged": (("cuda", torch.float32, 1024, 1000, 16, False, False, False), "headpacked"),
+    "tq_ragged": (("cuda", torch.float32, 1000, 1024, 16, False, False, False), "plain"),
+    "d128_f32": (("cuda", torch.float32, 1024, 1024, 128, False, False, False), "headpacked"),
+    "d128_bf16": (("cuda", torch.bfloat16, 1024, 1024, 128, False, False, False), "flash"),
+    "d128_bf16_long_keys": (("cuda", torch.bfloat16, 1024, 4096, 128, False, False, False),
+                            "flash"),
+    "d128_bf16_ragged_keys": (("cuda", torch.bfloat16, 1024, 1000, 128, False, False, False),
+                              "headpacked"),
+    # No kernel instance for these: they take the kernel route and the
+    # wrapper raises (test_kernel_route_raises_without_an_instance).
+    "d256_bf16_no_instance": (("cuda", torch.bfloat16, 1024, 1024, 256, False, False, False),
+                              "flash"),
+    "f16_no_instance": (("cuda", torch.float16, 1024, 1024, 16, False, False, False),
+                        "headpacked"),
+}
+
+
+@pytest.mark.parametrize("case", list(GATES))
+def test_attention_route_gates(case):
+    """The semantic and tileability gates of _flash_eligible and
+    _headpack_eligible (tests/test_flash_attn.py), without the TPU-measured
+    performance gates; the flagship's 139 tokens stay on the plain path."""
+    (device, dtype, tq, tk, d_k, mask, dropout, weights), want = GATES[case]
+    assert attention_route(device, dtype, tq, tk, d_k, has_mask=mask, dropout_active=dropout,
+                           return_weights=weights) == want
+
+
+def _jax_mha_pair(d_model, heads, x, jdtype=None):
+    import jax
+    import jax.numpy as jnp
+
+    from eyegaze_tpu.models.transformer import MultiHeadAttention as JaxMHA
+
+    jm = JaxMHA(d_model, heads, dtype=jdtype or jnp.float32)
+    params = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(0), x, x, x)["params"])
+    tm = MultiHeadAttention(d_model, heads, device=CPU)
+    tm.load_state_dict({f"{n}.{p}": torch.tensor(params[n]["kernel"].T if p == "weight"
+                                                 else params[n]["bias"])
+                        for n in ("q_proj", "k_proj", "v_proj", "out_proj")
+                        for p in ("weight", "bias")}, strict=True)
+    return jm, params, tm.eval()
+
+
+@pytest.mark.parametrize("mask_shape", ["keys", "full"])
+def test_masked_mha_matches_jax(mask_shape):
+    """mask == 0 fills -1e9 before the softmax; (B, 1, 1, Tk) and
+    (B, 1, Tq, Tk) masks, with the weights returned; f32 at 1e-5."""
+    import jax.numpy as jnp
+
+    r = np.random.default_rng(4)
+    x = r.normal(size=(2, 48, 32)).astype(np.float32)
+    mem = r.normal(size=(2, 40, 32)).astype(np.float32)
+    shape = (2, 1, 1, 40) if mask_shape == "keys" else (2, 1, 48, 40)
+    mask = (r.random(shape) > 0.3).astype(np.int32)
+    mask[..., 0] = 1  # every query keeps a key
+    jm, params, tm = _jax_mha_pair(32, 4, x)
+    want, want_w = jm.apply({"params": params}, x, mem, mem, attn_mask=jnp.asarray(mask),
+                            return_weights=True)
+    with torch.no_grad():
+        got, got_w = tm(torch.from_numpy(x), torch.from_numpy(mem), torch.from_numpy(mem),
+                        torch.from_numpy(mask), return_weights=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got_w.numpy(), np.asarray(want_w), rtol=1e-5, atol=1e-6)
+    assert float(got_w.numpy()[np.broadcast_to(mask, got_w.shape) == 0].max()) == 0.0
+
+
+def test_bf16_mha_matches_jax():
+    """bf16 module and inputs against the JAX MHA at dtype bf16, with scores
+    of several units: f32 scores from bf16 operands (the JAX contract) agree
+    to one bf16 rounding of the largest output; scores rounded to bf16 first
+    would be 0.0625 off here."""
+    import jax.numpy as jnp
+
+    x = (np.random.default_rng(5).normal(size=(2, 128, 64)) * 2).astype(np.float32)
+    jm, params, tm = _jax_mha_pair(64, 4, x, jnp.bfloat16)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    want = np.asarray(jm.apply({"params": params}, xb, xb, xb).astype(jnp.float32))
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    with torch.no_grad():
+        got = tm.to(torch.bfloat16)(xt, xt, xt)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=2.0 ** -8 * np.abs(want).max())
+
+
+def test_wrapper_rejects_bad_inputs():
+    x = torch.zeros((2, 16, 4, 16))
+    before = dict(attention.launch_count)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        attention.headpacked_attention(x.double(), x.double(), x.double(), 0.25)
+    with pytest.raises(TypeError, match="mismatch"):
+        attention.headpacked_attention(x, x.bfloat16(), x, 0.25)
+    with pytest.raises(ValueError, match="shape"):
+        attention.headpacked_attention(x, x[:, :, :3], x[:, :, :3], 0.25)
+    with pytest.raises(ValueError, match="contiguous"):
+        attention.flash_attention(*(x.transpose(2, 3),) * 3, 0.25)
+    with pytest.raises(ValueError, match="4-d"):
+        attention.flash_attention(x[0], x[0], x[0], 0.25)
+    with pytest.raises(ValueError, match="zero keys"):
+        attention.headpacked_attention(x, x[:, :0], x[:, :0], 0.25)
+    with pytest.raises(RuntimeError, match="no attention kernel"):
+        attention._launch("flash_attention", x, x, x, 0.25, t_dim=2, h_dim=1)
+    assert attention.launch_count == before
+
+
+def test_twin_has_autograd_on_cpu():
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv((1, 32, 2, 16), seed=6))
+    attention.headpacked_attention(q, k, v, 0.25).square().sum().backward()
+    assert all(x.grad is not None and torch.isfinite(x.grad).all() for x in (q, k, v))
+
+
+def _assert_within_bf16_bound(got, want, terms):
+    """Kernel vs twin in bf16: each side rounds every probability to bf16
+    (2**-9 relative), the kernel unnormalised and the twin normalised, and
+    its output once more (2**-8 relative), so |got - want| <= 2**-8 *
+    sum_j p_j |v_j| + 2**-7 |want|; ``terms`` is that sum, the twin on |v|."""
+    err = (got.float() - want.float()).abs()
+    bound = 2.0 ** -8 * terms.float() + 2.0 ** -7 * want.float().abs() + 1e-6
+    assert bool((err <= bound).all()), float((err / bound).max())
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(8, 1024, 8, 16), (3, 200, 8, 16), (2, 256, 4, 64)],
+                         ids=["art", "ragged", "d64"])
+def test_headpacked_kernel_matches_twin_on_card(shape, dtype):
+    """f32: 1e-5, relative and absolute (the sums differ in order; an output
+    near zero is a sum that cancels, whose error scales with its O(1) terms).
+    bf16: within the rounding bound of ``_assert_within_bf16_bound``."""
+    dev = _card()
+    x = [torch.from_numpy(a).to(dev, getattr(torch, dtype)) for a in _qkv(shape, seed=7)]
+    before = attention.launch_count["headpacked_attention"]
+    got = attention.headpacked_attention(*x, 0.25)
+    torch.cuda.synchronize()
+    assert attention.launch_count["headpacked_attention"] == before + 1
+    q, k, v = (t.transpose(1, 2) for t in x)
+    want = attention.attention_reference(q, k, v, 0.25).transpose(1, 2)
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        terms = attention.attention_reference(q, k, v.abs(), 0.25).transpose(1, 2)
+        _assert_within_bf16_bound(got, want, terms)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_matches_twin_on_card():
+    dev = _card()
+    x = [torch.from_numpy(a).to(dev, torch.bfloat16) for a in _qkv((2, 8, 1024, 128), seed=8)]
+    before = attention.launch_count["flash_attention"]
+    got = attention.flash_attention(*x, 1.0 / math.sqrt(128))
+    torch.cuda.synchronize()
+    assert attention.launch_count["flash_attention"] == before + 1
+    want = attention.attention_reference(*x, 1.0 / math.sqrt(128))
+    terms = attention.attention_reference(x[0], x[1], x[2].abs(), 1.0 / math.sqrt(128))
+    _assert_within_bf16_bound(got, want, terms)
+
+
+@pytest.mark.cuda
+def test_kernel_route_raises_on_grad_and_mha_launches_it():
+    dev = _card()
+    mha = MultiHeadAttention(128, 8, device=dev).eval()
+    x = torch.randn(2, 1024, 128, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        mha(x, x, x)
+    before = attention.launch_count["headpacked_attention"]
+    with torch.no_grad():
+        out = mha(x, x, x)
+        plain = mha(x, x, x, return_weights=True)[0]  # the weights force the plain path
+    assert attention.launch_count["headpacked_attention"] == before + 1
+    torch.testing.assert_close(out, plain, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_model,heads,dtype", [(2048, 8, torch.bfloat16),
+                                                 (128, 8, torch.float16)],
+                         ids=["d256_bf16", "f16"])
+def test_kernel_route_raises_without_an_instance(d_model, heads, dtype):
+    """A tileable CUDA call whose head dim or dtype the kernel is not built
+    for raises in the wrapper; it never runs the plain path on the card."""
+    dev = _card()
+    mha = MultiHeadAttention(d_model, heads, device=dev).to(dtype).eval()
+    x = torch.randn(1, 1024, d_model, device=dev, dtype=dtype)
+    before = dict(attention.launch_count)
+    with torch.no_grad(), pytest.raises((ValueError, TypeError), match="head dim|bfloat16"):
+        mha(x, x, x)
+    assert attention.launch_count == before
+
+
+@pytest.fixture
+def _no_tf32():
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+@pytest.mark.cuda
+def test_art_denoiser_launches_the_kernel_on_card(_no_tf32):
+    """Every attention call of a small ART forward (d_k 16; 2 encoder + 2 x 2
+    decoder = 6) launches the head-packed entry point; the card agrees with
+    the same weights on the CPU to 1e-4 (f32, TF32 off for matmuls and cuDNN)."""
+    from eyegaze_tpu_torch.models.art import ArtConfig, ArtifactRemovalTransformer
+    from eyegaze_tpu_torch.serving import ArtDenoiser
+
+    dev = _card()
+    cfg = ArtConfig(in_channels=8, out_channels=8, embedding_size=64, num_encoder_layers=2,
+                    num_decoder_layers=2, num_heads=4, feedforward_size=64, max_len=256)
+    model = ArtifactRemovalTransformer(cfg, device=CPU, generator=torch.Generator().manual_seed(0))
+    noisy = np.random.default_rng(9).normal(size=(5, 8, 256)).astype(np.float32)
+    want = ArtDenoiser(model, device=CPU, batch_buckets=(2, 4)).predict(noisy)["denoised"]
+    den = ArtDenoiser(model, device=dev, batch_buckets=(2, 4))
+    before = attention.launch_count["headpacked_attention"]
+    got = den.predict(noisy)["denoised"]  # chunks of 4 and 1 (padded to 2): 2 forwards
+    assert attention.launch_count["headpacked_attention"] == before + 2 * 6
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
