@@ -90,8 +90,11 @@ def dual_eeg_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
         w.conv("spectrogram_generator.spec_conv.3", "spectrogram_generator", "conv2")
         w.linear("spectrogram_generator.proj.0", "spectrogram_generator", "proj1")
         w.linear("spectrogram_generator.proj.3", "spectrogram_generator", "proj2")
-    if "ibs_generator" in params:
-        raise NotImplementedError("the legacy scalar IBS token is not ported yet")
+    if "ibs_generator" in params:  # the legacy scalar IBS token
+        w.linear("ibs_generator.proj.0", "ibs_generator", "proj1")
+        w.linear("ibs_generator.proj.3", "ibs_generator", "proj2")
+        if "norm" in params["ibs_generator"]:
+            w.norm("ibs_generator.norm", "ibs_generator", "norm")
     if "ibs_tokenizer" in params:
         if "in_scale" in params["ibs_tokenizer"]:
             w.put("ibs_tokenizer.instance_norm.weight", w.get("ibs_tokenizer", "in_scale"))

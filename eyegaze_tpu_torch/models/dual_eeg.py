@@ -2,13 +2,14 @@
 
 Port of ``eyegaze_tpu/models/dual_eeg.py``.  Token sequence at the full
 configuration (C = 32): [CLS | IBS x42 | Spec x32 | conv x64] = 139 tokens.
-The connectivity block runs the phase-metrics kernel (K1) on CUDA.
+The connectivity block runs the phase-metrics kernel (K1) on CUDA.  With
+``use_robust_ibs=False`` the 42 IBS tokens give way to the legacy scalar IBS
+token, one token from 4 bands x 7 global features, which runs no kernel.
 
 Parameter names are the reference torch model's (the names
 ``eyegaze_tpu.models.torch_port.export_dual_eeg_state_dict`` emits), so a
 state_dict from ``eyegaze_tpu_torch.models.convert`` loads with
-``strict=True``.  The legacy scalar IBS token (``use_robust_ibs=False``) is
-not ported yet.
+``strict=True``.
 """
 
 from __future__ import annotations
@@ -24,8 +25,18 @@ from eyegaze_tpu_torch.models.transformer import (
     init_weights_,
     normal_,
 )
-from eyegaze_tpu_torch.ops.connectivity import connectivity_matrices, feature_indices_for
-from eyegaze_tpu_torch.ops.spectral import BAND_DEFS_6, hann_window, stft_log_magnitude
+from eyegaze_tpu_torch.ops.connectivity import (
+    FEATURE_NAMES,
+    connectivity_matrices,
+    connectivity_scalars,
+    feature_indices_for,
+)
+from eyegaze_tpu_torch.ops.spectral import (
+    BAND_DEFS_4,
+    BAND_DEFS_6,
+    hann_window,
+    stft_log_magnitude,
+)
 
 
 def adaptive_avg_pool_2d(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
@@ -85,6 +96,30 @@ class SpectrogramTokenGenerator(nn.Module):
                                  self.hop_length, self.freq_bins, window=self.window)
         h = adaptive_avg_pool_2d(self.spec_conv(mag[:, None]), 4, 4)
         return self.proj(h.reshape(b * c, -1)).reshape(b, c, -1)
+
+
+class IBSTokenGenerator(nn.Module):
+    """Legacy scalar IBS token: (B, C, T) pairs -> (B, d).
+
+    ``connectivity_scalars`` over 4 bands x 7 features -> Linear 28 -> 2d,
+    ReLU, dropout, Linear 2d -> d, then an optional LayerNorm (eps 1e-6, the
+    JAX module's), which the model never turns on.
+    """
+
+    def __init__(self, d_model: int, sampling_rate: float = 256.0,
+                 use_layernorm: bool = False, dropout: float = 0.1, *, device: torch.device):
+        super().__init__()
+        self.sampling_rate = sampling_rate
+        features = len(BAND_DEFS_4) * len(FEATURE_NAMES)
+        self.proj = nn.Sequential(
+            nn.Linear(features, d_model * 2, device=device), nn.ReLU(), nn.Dropout(dropout),
+            nn.Linear(d_model * 2, d_model, device=device),
+        )
+        self.norm = nn.LayerNorm(d_model, eps=1e-6, device=device) if use_layernorm else None
+
+    def forward(self, eeg1: torch.Tensor, eeg2: torch.Tensor) -> torch.Tensor:
+        h = self.proj(connectivity_scalars(eeg1, eeg2, self.sampling_rate, BAND_DEFS_4))
+        return h if self.norm is None else self.norm(h)
 
 
 class RobustIBSTokenizer(nn.Module):
@@ -151,7 +186,9 @@ class DualEEGTransformer(nn.Module):
     ``forward(eeg1, eeg2)`` on (B, C, T) pairs returns {'logits', 'cls1',
     'cls2', 'z_fuse'} plus {'ibs_logits', 'ibs_token'} when ``use_ibs``.
     Weights are drawn from ``generator`` (a CPU ``torch.Generator``), so one
-    seed gives the same model on every device.
+    seed gives the same model on every device.  ``mask_band`` >= 0 zeroes
+    that band of the connectivity matrices before the tokenizer (the
+    frequency-sensitivity analysis); it has no effect on the legacy token.
     """
 
     def __init__(
@@ -177,18 +214,21 @@ class DualEEGTransformer(nn.Module):
         use_cross_attention: bool = True,
         ibs_instance_norm: bool = True,
         ibs_feature_type: str = "all",
+        mask_band: int = -1,
         *,
         device: torch.device,
         generator: torch.Generator,
     ):
         super().__init__()
-        if use_ibs and not use_robust_ibs:
-            raise NotImplementedError("the legacy scalar IBS token is not ported yet")
+        if mask_band >= len(BAND_DEFS_6):
+            raise ValueError(f"mask_band {mask_band} is not a band index below {len(BAND_DEFS_6)}")
         self.in_channels = in_channels
         self.sampling_rate = sampling_rate
         self.ibs_feature_type = ibs_feature_type
-        self.num_ibs_tokens = (6 * len(feature_indices_for(ibs_feature_type))
-                               if use_ibs else 0)
+        self.mask_band = mask_band
+        robust = use_ibs and use_robust_ibs
+        self.num_ibs_tokens = (len(BAND_DEFS_6) * len(feature_indices_for(ibs_feature_type))
+                               if robust else int(use_ibs))
 
         self.temporal_conv = TemporalConvFrontend(
             in_channels, d_model, conv_kernel_size, conv_stride, conv_layers, dropout,
@@ -196,7 +236,10 @@ class DualEEGTransformer(nn.Module):
         self.ibs_tokenizer = (RobustIBSTokenizer(
             in_channels, d_model, ibs_instance_norm,
             len(feature_indices_for(ibs_feature_type)), len(BAND_DEFS_6), dropout,
-            device=device) if use_ibs else None)
+            device=device) if robust else None)
+        self.ibs_generator = (IBSTokenGenerator(d_model, sampling_rate, dropout=dropout,
+                                                device=device)
+                              if use_ibs and not use_robust_ibs else None)
         self.spectrogram_generator = (SpectrogramTokenGenerator(
             d_model, spec_n_fft, spec_hop_length, spec_freq_bins, dropout, device=device)
             if use_spectrogram else None)
@@ -227,10 +270,16 @@ class DualEEGTransformer(nn.Module):
         h2 = self.temporal_conv(eeg2)
         cls = self.cls_token.expand(b, -1, -1)
         seq1, seq2 = [cls], [cls]
+        ibs_tokens = None
         if self.ibs_tokenizer is not None:
             matrices = connectivity_matrices(eeg1, eeg2, self.sampling_rate, BAND_DEFS_6,
                                              feature_type=self.ibs_feature_type)
+            if self.mask_band >= 0:
+                matrices[:, self.mask_band] = 0.0
             ibs_tokens = self.ibs_tokenizer(matrices)
+        elif self.ibs_generator is not None:
+            ibs_tokens = self.ibs_generator(eeg1, eeg2)[:, None, :]
+        if ibs_tokens is not None:
             seq1.append(ibs_tokens)
             seq2.append(ibs_tokens)
         if self.spectrogram_generator is not None:

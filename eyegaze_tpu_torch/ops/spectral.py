@@ -18,7 +18,14 @@ import functools
 import numpy as np
 import torch
 
-# Band definitions (Hz) of the connectivity matrices.
+# Band definitions (Hz): four for the scalar IBS token, six for the
+# connectivity matrices.
+BAND_DEFS_4 = (
+    ("theta", 4.0, 8.0),
+    ("alpha", 8.0, 13.0),
+    ("beta", 13.0, 30.0),
+    ("gamma", 30.0, 45.0),
+)
 BAND_DEFS_6 = (
     ("broadband", 0.5, 45.0),
     ("delta", 0.5, 4.0),
@@ -57,6 +64,12 @@ def _band_consts(n: int, sampling_rate: float, bands: tuple, device: torch.devic
     masks = band_masks_np(n, sampling_rate, bands)
     return (torch.as_tensor(masks, device=device),
             torch.as_tensor(masks * _quad_gain_np(n), device=device))
+
+
+def band_masks(n: int, sampling_rate: float, bands, device: torch.device) -> torch.Tensor:
+    """Inclusive rfft-bin masks, (num_bands, n//2 + 1) float32, on ``device``
+    (made once per argument set and shared: do not write to it)."""
+    return _band_consts(n, float(sampling_rate), tuple(bands), device)[0]
 
 
 def analytic_band_parts(x: torch.Tensor, sampling_rate: float, bands):

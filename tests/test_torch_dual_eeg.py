@@ -34,6 +34,8 @@ ABLATIONS = {
     "phase_no_cross_no_norm": dict(ibs_feature_type="phase", use_cross_attention=False,
                                    ibs_instance_norm=False),
     "no_ibs_no_spec": dict(use_ibs=False, use_spectrogram=False),
+    "legacy_ibs": dict(use_robust_ibs=False),
+    "mask_band_2": dict(mask_band=2),
 }
 CPU = torch.device("cpu")
 
@@ -142,7 +144,7 @@ def _assert_predictors_agree(jm, params, tm, w1, w2, jw1, jw2, *, preprocess):
     pred = Predictor(tm, device=CPU, batch_buckets=(2, 4), preprocess=preprocess)
     pred.warmup(C, T)
     assert w1.shape == (12, C, T)
-    before = phase_metrics.launch_count
+    before = dict(phase_metrics.launch_count)
     for n in (3, 12):
         want = jpred.predict(jw1[:n], jw2[:n])
         got = pred.predict(w1[:n], w2[:n])
@@ -152,3 +154,65 @@ def _assert_predictors_agree(jm, params, tm, w1, w2, jw1, jw2, *, preprocess):
         np.testing.assert_array_equal(got["preds"], want["preds"])
         assert got["labels"] == want["labels"]
     assert phase_metrics.launch_count == before  # the CPU path never launches the kernel
+
+
+def test_legacy_state_dict_matches_reference_exporter():
+    _, params, _ = _pair(ABLATIONS["legacy_ibs"])
+    got = dual_eeg_state_dict_from_flax(params)
+    want = export_dual_eeg_state_dict(params)
+    assert set(got) == set(want) and "ibs_generator.proj.0.weight" in got
+    assert not any(k.startswith("ibs_tokenizer") for k in got)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_mask_band_zeroes_one_band(full_pair):
+    """Masking a band changes the output of the same weights, and an index
+    past the six bands is refused."""
+    _, _, tm = full_pair
+    masked = DualEEGTransformer(**GEOMETRY, mask_band=2, device=CPU,
+                                generator=torch.Generator().manual_seed(1)).eval()
+    masked.load_state_dict(tm.state_dict(), strict=True)
+    r = np.random.default_rng(8)
+    e1, e2 = (torch.from_numpy(r.normal(size=(2, C, T)).astype(np.float32)) for _ in range(2))
+    with torch.inference_mode():
+        assert (tm(e1, e2)["ibs_token"] - masked(e1, e2)["ibs_token"]).abs().max() > 1e-4
+    with pytest.raises(ValueError, match="mask_band"):
+        DualEEGTransformer(**GEOMETRY, mask_band=6, device=CPU, generator=torch.Generator())
+
+
+def test_legacy_serving_path_matches_jax():
+    """The legacy IBS configuration through both Predictors; it launches no
+    phase-metrics kernel."""
+    jm, params, tm = _pair(ABLATIONS["legacy_ibs"])
+    assert tm.num_ibs_tokens == 1 and tm.ibs_tokenizer is None
+    r = np.random.default_rng(15)
+    w1, w2 = (r.normal(size=(12, C, T)).astype(np.float32) for _ in range(2))
+    _assert_predictors_agree(jm, params, tm, torch.from_numpy(w1), torch.from_numpy(w2), w1, w2,
+                             preprocess=False)
+
+
+def test_ibs_token_generator_layernorm_matches_jax():
+    """The legacy token's optional LayerNorm (which the model leaves off):
+    JAX module and port on the same weights, through the converter's
+    ``ibs_generator/norm`` names."""
+    from eyegaze_tpu.models.dual_eeg import IBSTokenGenerator as JaxIBSTokenGenerator
+    from eyegaze_tpu_torch.models.dual_eeg import IBSTokenGenerator
+
+    r = np.random.default_rng(16)
+    e1, e2 = (r.normal(size=(2, C, T)).astype(np.float32) for _ in range(2))
+    jm = JaxIBSTokenGenerator(32, 256.0, use_layernorm=True)
+    ibs = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(1), e1, e2)["params"])
+    ibs["norm"] = {"scale": r.normal(size=32).astype(np.float32),
+                   "bias": r.normal(size=32).astype(np.float32)}
+    _, params, _ = _pair(ABLATIONS["legacy_ibs"])
+    state = dual_eeg_state_dict_from_flax({**params, "ibs_generator": ibs})
+    want_state = export_dual_eeg_state_dict({**params, "ibs_generator": ibs})
+    assert set(state) == set(want_state) and "ibs_generator.norm.weight" in state
+    tm = IBSTokenGenerator(32, 256.0, use_layernorm=True, device=CPU).eval()
+    tm.load_state_dict({k[len("ibs_generator."):]: torch.tensor(v) for k, v in state.items()
+                        if k.startswith("ibs_generator.")}, strict=True)
+    want = np.asarray(jm.apply({"params": ibs}, e1, e2))
+    with torch.inference_mode():
+        got = tm(torch.from_numpy(e1), torch.from_numpy(e2)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-3)

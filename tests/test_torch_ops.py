@@ -2,7 +2,7 @@
 
 Same numpy inputs through both; tolerances from docs/PARITY.md: 1e-3 for
 the filtfilt preprocessing, 1e-4 for the fft-route spectral ops, 5e-4 for
-PLV / correlations / coherence.
+PLV / correlations / coherence, and for every scalar IBS feature.
 """
 
 import numpy as np
@@ -92,7 +92,7 @@ def test_connectivity_matrices_match_jax(feature_type):
     e2[:, :2] += e1[:, :2]  # shared components: nonzero synchrony
     want = np.asarray(jconn.connectivity_matrices(jnp.asarray(e1), jnp.asarray(e2), 256.0,
                                                   feature_type=feature_type))
-    before = phase_metrics.launch_count
+    before = dict(phase_metrics.launch_count)
     got = connectivity.connectivity_matrices(torch.from_numpy(e1), torch.from_numpy(e2), 256.0,
                                              feature_type=feature_type).numpy()
     assert got.shape == want.shape
@@ -102,4 +102,50 @@ def test_connectivity_matrices_match_jax(feature_type):
         # PLI too: docs/PARITY.md allows it 0.1, but the phases agree here
         # closely enough that no sign flips.
         np.testing.assert_allclose(got[:, :, k], want[:, :, k], rtol=5e-4, atol=5e-4,
+                                   err_msg=name)
+
+
+def test_band_masks_match_jax():
+    for bands in (spectral.BAND_DEFS_4, spectral.BAND_DEFS_6):
+        got = spectral.band_masks(512, 256.0, bands, torch.device("cpu"))
+        assert got.dtype == torch.float32 and got.shape == (len(bands), 257)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jspec.band_masks(512, 256.0, bands)))
+    assert spectral.BAND_DEFS_4 == jspec.BAND_DEFS_4
+
+
+def test_coherence_matrix_matches_jax():
+    """The single-band per-pair coherence, on masked power spectra of
+    (2, 8, 512) signals, one band at a time as the six-pass route runs it."""
+    e1, e2 = _normal((2, 8, 512), 8), _normal((2, 8, 512), 9)
+    p1, p2 = (np.abs(np.fft.rfft(e, axis=-1)).astype(np.float32) ** 2 for e in (e1, e2))
+    for m in jspec.band_masks_np(512, 256.0, jspec.BAND_DEFS_6):
+        want = np.asarray(jconn._coherence_matrix(jnp.asarray(p1 * m), jnp.asarray(p2 * m), 1e-8))
+        got = connectivity._coherence_matrix(torch.from_numpy(p1 * m), torch.from_numpy(p2 * m),
+                                             1e-8)
+        np.testing.assert_allclose(got.numpy(), want, rtol=5e-4, atol=5e-4)
+
+
+def test_coherence_passes_match_fused_contraction():
+    """Six single-band passes give what the one masked contraction gives."""
+    r = np.random.default_rng(10)
+    pxx, pyy = (torch.from_numpy(r.uniform(0.1, 10.0, (2, 8, 257)).astype(np.float32))
+                for _ in range(2))
+    masks = spectral.band_masks(512, 256.0, spectral.BAND_DEFS_6, torch.device("cpu"))
+    six = torch.stack([connectivity._coherence_matrix(pxx * m, pyy * m, 1e-8) for m in masks], 1)
+    fused = connectivity._coherence_all_bands(
+        pxx, pyy, spectral.band_masks_np(512, 256.0, spectral.BAND_DEFS_6), 1e-8)
+    torch.testing.assert_close(six, fused, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("coupled", [False, True], ids=["independent", "coupled"])
+def test_connectivity_scalars_match_jax(coupled):
+    e1 = _normal((2, 8, 512), 11)
+    e2 = _normal((2, 8, 512), 12)
+    if coupled:
+        e2[:, :3] += 0.8 * e1[:, :3]  # shared components: nonzero synchrony
+    want = np.asarray(jconn.connectivity_scalars(jnp.asarray(e1), jnp.asarray(e2), 256.0))
+    got = connectivity.connectivity_scalars(torch.from_numpy(e1), torch.from_numpy(e2), 256.0)
+    assert got.shape == want.shape == (2, 4 * 7)
+    for k, name in enumerate(connectivity.FEATURE_NAMES):
+        np.testing.assert_allclose(got.numpy()[:, k::7], want[:, k::7], rtol=5e-4, atol=5e-4,
                                    err_msg=name)
