@@ -6,7 +6,9 @@ Run from the repository root on a machine with a CUDA card:
 
 It builds the port's CUDA kernels from ``eyegaze_tpu_torch/csrc`` with nvcc,
 one process per source, all at once, and prints each kernel's registers and
-spills.  Then, each phase raising on any failure:
+spills, and the tensor-core instructions (``HMMA``) in the SASS of each
+instance of the attention kernel: a bf16 instance with none fails the run.
+Then, each phase raising on any failure:
 
 1. K1 (phase metrics) against its plain PyTorch version on the card at the
    shapes the EEG serving run launches it with, and at a ragged one, timed
@@ -18,9 +20,13 @@ spills.  Then, each phase raising on any failure:
    sign and Phase_Diff 0 and mean cos 1: padded samples add nothing.
 3. The attention kernel (K3 and K4) against its plain twin: the head-packed
    entry point at ART's serving shapes (B, 1024, 8, 16) for B = 1, 8, 32 and
-   at a ragged (3, 200, 8, 16), the flash entry point at (2, 8, 1024, 128),
-   in f32 and bf16, timed in turns at the serving shapes beside
-   ``F.scaled_dot_product_attention``, a yardstick no path of the port calls.
+   at a ragged (3, 200, 8, 16), in f32 and bf16, the flash entry point at
+   (2, 8, 1024, 128) bf16, timed in turns at the serving shapes beside
+   ``F.scaled_dot_product_attention``, a yardstick no path of the port calls:
+   one call between CUDA events, 20 back-to-back calls between one pair
+   (where the host's enqueue time hides behind the device's work, if the
+   device's is longer), and 20 calls captured in a CUDA graph and replayed
+   (device time alone).
 4. The flagship EEG serving path at full width (DualEEGTransformer d_model
    256, 6 layers, 8 heads, random weights from a seed): raw (trials, 32,
    3250) pairs -> ``preprocess_eeg`` -> ``sliding_windows`` ->
@@ -32,24 +38,32 @@ spills.  Then, each phase raising on any failure:
    (N, 32, 1024) windows for N = 1, 5 and 16.  Every one of the 18 attention
    calls of each forward launches the head-packed entry point; the card's
    output for one window matches the same weights run on the CPU.
-6. The flash route: a bf16 ``MultiHeadAttention`` with d_k 128, the
+6. ART served in bf16 compute (``ArtifactRemovalTransformer(dtype=
+   torch.bfloat16)``, the JAX ``from_checkpoint`` default), the same weights
+   and requests as phase 5: 18 launches of the head-packed entry point's
+   bf16 instance per forward and no flash launch; the card's output for one
+   window matches the same weights served in bf16 on the CPU.
+7. The flash route: a bf16 ``MultiHeadAttention`` with d_k 128, the
    counterpart of the JAX call site of the stock flash kernel, launches the
    flash entry point on every forward and matches its own plain path.
-7. The connectivity shootout, ``eyegaze_tpu_torch.bench_connectivity.main``
+8. The connectivity shootout, ``eyegaze_tpu_torch.bench_connectivity.main``
    at its defaults: K1 against its plain version, PLV by four matrix
    products plus K1 against K2 alone, six coherence passes against one; its
    JSON line is printed and every difference held to its bound.  It is the
    path that launches K2.
-8. The legacy IBS configuration at full width (``use_robust_ibs=False``):
+9. The legacy IBS configuration at full width (``use_robust_ibs=False``):
    3-trial requests through ``Predictor``, no phase-metrics launch, logits
    within the flagship's tolerance of the same weights on the CPU.
 
 Every phase runs in float32 (TF32 off) unless it says bf16.  There is no
 CPU fallback: without a CUDA device the script exits non-zero and prints no
 result.  For each kernel it prints the least time the card could take for
-the same work (``bound_ms``, set by bytes or by operations) and its launches
-per request.  The second-to-last line of stdout is a JSON object with each
-kernel entry point's launches, error, times and bound; the last line is
+the same work (``bound_ms``, set by bytes or by operations at the card's
+peak rate for their type; for attention the operations are the matmuls)
+and its launches per request; for attention also the time its
+exponentials take on the SFU alone (``sfu_ex2_ms``, not a floor).  The
+second-to-last line of stdout is a JSON object with each kernel entry
+point's launches, error, times and bound; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -57,9 +71,11 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -82,6 +98,12 @@ ART_REQUESTS = (1, 5, 16)  # windows per request: buckets 1, 8 and 32
 ART_BUCKETS = (1, 8, 32)
 ART_ATTENTION_CALLS = 18  # 6 encoder self + 6 decoder self + 6 decoder cross, per forward
 ART_TOL = 2e-3  # card vs CPU, float32 both (the flagship's cross-device tolerance)
+# Card vs CPU, bf16 compute both: a share of the largest output, 8 bf16 steps
+# there.  The two sum in another order and the kernel rounds unnormalised
+# probabilities, so single bf16 roundings flip, and each post-LN block
+# spreads a flip over its row: tests/test_torch_art.py holds the port to the
+# JAX bf16 model by the same bound on the CPU.
+ART_BF16_TOL_SHARE = 2.0 ** -5
 ATTN_HEADS, ATTN_DK = 8, 16  # ART's attention geometry at T = 1024
 ATTN_RAGGED = (3, 200, 8, 16)
 FLASH_SHAPE = (2, 8, 1024, 128)  # (B, H, T, d)
@@ -90,6 +112,7 @@ FLASH_CALLS = 3
 # output near zero is a sum that cancels, whose error scales with its O(1)
 # terms, hence the absolute part.
 ATTN_F32_TOL = dict(rtol=1e-5, atol=1e-5)
+BACK_TO_BACK = 20  # calls between one pair of CUDA events
 
 # K2 at the shootout's default shape and at the largest N the EEG serving run
 # launches K1 with (6 bands x bucket 128), where the widened route would run.
@@ -112,6 +135,8 @@ LEGACY_TRIALS = 3
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12     # float32 on the CUDA cores
 BF16_OPS_PER_S = 989e12   # bf16 on the tensor cores
+SMS = 132                 # streaming multiprocessors
+SFU_EX2_PER_CLOCK = 16    # exponentials per clock per SM (the SFU)
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
@@ -132,14 +157,28 @@ def phase_bound(shape, plv: bool) -> tuple[float, str]:
     return bound(4 * (4 * n * c * t + outs * n * c * c), ops, F32_OPS_PER_S)
 
 
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.split()[0]) * 1e6
+
+
 def attention_bound(b, h, t, d, dtype) -> tuple[float, str]:
-    """(B, H, T, d) attention: Q, K, V read once and O written once;
-    4 * B * H * T^2 * d matmul operations (the softmax's exponentials, about
-    1/(4d) of that, not counted), at the f32 CUDA-core or the bf16
+    """(B, H, T, d) attention: Q, K, V read once and O written once, against
+    4 * B * H * T^2 * d matmul operations at the f32 CUDA-core or the bf16
     tensor-core peak."""
     size = 4 if dtype == torch.float32 else 2
     rate = F32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
     return bound(4 * b * h * t * d * size, 4 * b * h * t * t * d, rate)
+
+
+def sfu_ex2_ms(b, h, t, clock_hz) -> float:
+    """ms for one exponential per score, B * H * T^2, on the SFU alone (16 a
+    clock per SM on 132 SMs at ``clock_hz``).  A diagnostic, not a floor:
+    the FMA pipes can compute exp2 as a polynomial too."""
+    return b * h * t * t / (SFU_EX2_PER_CLOCK * SMS * clock_hz) * 1e3
 
 
 def path_kernel_shapes() -> tuple:
@@ -155,16 +194,18 @@ def path_kernel_shapes() -> tuple:
                  for trials in REQUESTS)
 
 
-def cuda_ms(fn, reps: int) -> list[float]:
-    """Per-call device times of ``fn`` in ms, from CUDA events."""
+def cuda_ms(fn, reps: int, calls: int = 1) -> list[float]:
+    """Per-call device times of ``fn`` in ms, from CUDA events around
+    ``calls`` calls in a row."""
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return times
 
 
@@ -379,21 +420,40 @@ def assert_within_bf16_bound(got, want, terms) -> float:
     return share
 
 
-def alternate_ms(*fns, rounds: int = 10) -> list[float]:
-    """Median CUDA-event ms of each function, timed in turns after a warm-up."""
+def graph_ms(fn, calls: int = BACK_TO_BACK, reps: int = 10) -> float:
+    """Median device ms per call of ``fn``, ``calls`` calls captured in one
+    CUDA graph and replayed between CUDA events: no host enqueue time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the default stream before capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return statistics.median(cuda_ms(graph.replay, reps)) / calls
+
+
+def alternate_ms(*fns, rounds: int = 10, calls: int = 1) -> list[float]:
+    """Median CUDA-event ms per call of each function, timed in turns after
+    a warm-up, ``calls`` calls between one pair of events."""
     for _ in range(3):
         for fn in fns:
             fn()
     times = [[] for _ in fns]
     for _ in range(rounds):  # in turns, so drift in clocks hits all alike
         for fn, acc in zip(fns, times):
-            acc += cuda_ms(fn, 2)
+            acc += cuda_ms(fn, 2, calls)
     return [statistics.median(t) for t in times]
 
 
-def attention_phase(device) -> dict:
+def attention_phase(device, clock_hz) -> dict:
     """Both attention entry points against the twin; timings at ART's
-    serving shapes.  Returns the JSON fields of each entry point."""
+    serving shapes and K4's, one call and ``BACK_TO_BACK`` calls between
+    events.  Returns the JSON fields of each (entry point, dtype) the paths
+    launch."""
     from eyegaze_tpu_torch.kernels import attention
 
     serving = [(b, WINDOW, ATTN_HEADS, ATTN_DK) for b in ART_BUCKETS]
@@ -436,40 +496,60 @@ def attention_phase(device) -> dict:
         else:
             qt, kt, vt = q, k, v
             kernel = lambda: attention.flash_attention(q, k, v, scale)  # noqa: E731
+        library = lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale)  # noqa: E731
         ms, plain_ms, library_ms = alternate_ms(
-            kernel, lambda: attention.attention_reference(qt, kt, vt, scale),
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale))
+            kernel, lambda: attention.attention_reference(qt, kt, vt, scale), library)
+        ms_b2b, library_ms_b2b = alternate_ms(kernel, library, calls=BACK_TO_BACK)
+        ms_graph, library_ms_graph = graph_ms(kernel), graph_ms(library)
         bound_ms, bound_by = attention_bound(*qt.shape, dt)
+        sfu_ms = sfu_ex2_ms(*qt.shape[:3], clock_hz)
         times[(entry, shape, dt)] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                     "bound_by": bound_by, "library_ms": library_ms}
+                                     "bound_by": bound_by, "sfu_ex2_ms": sfu_ms,
+                                     "library_ms": library_ms, "ms_back_to_back": ms_b2b,
+                                     "library_ms_back_to_back": library_ms_b2b,
+                                     "ms_graph": ms_graph, "library_ms_graph": library_ms_graph}
         print(f"{entry} {shape} {str(dt)[6:]}: kernel median {ms:.4f} ms, twin median "
               f"{plain_ms:.4f} ms, F.scaled_dot_product_attention median {library_ms:.4f} ms "
-              f"over 20 calls each (CUDA events); bound {bound_ms:.4f} ms ({bound_by})")
+              f"over 20 calls each (CUDA events, one call between them); back to back "
+              f"({BACK_TO_BACK} calls between events) kernel {ms_b2b:.4f} ms, library "
+              f"{library_ms_b2b:.4f} ms; replayed from a CUDA graph of {BACK_TO_BACK} calls "
+              f"kernel {ms_graph:.4f} ms, library {library_ms_graph:.4f} ms; "
+              f"bound {bound_ms:.4f} ms ({bound_by}); exponentials on the SFU alone "
+              f"{sfu_ms:.4f} ms (not a floor)")
         del q, k, v, qt, kt, vt
     largest = serving[-1]  # the 16-window request's bucket
     fields = {}
     for entry, shape, dt in (("headpacked_attention", largest, torch.float32),
+                             ("headpacked_attention", largest, torch.bfloat16),
                              ("flash_attention", FLASH_SHAPE, torch.bfloat16)):
-        errs = {str(d)[6:]: e for (name, d), e in err.items() if name == entry}
-        fields[entry] = {"max_abs_err": max(errs.values()), **times[(entry, shape, dt)],
-                         "shape": list(shape), "dtype": str(dt)[6:],
-                         "max_abs_err_by_dtype": errs}
+        fields[entry, dt] = {"max_abs_err": err[entry, dt], **times[(entry, shape, dt)],
+                             "shape": list(shape), "dtype": str(dt)[6:]}
     return fields
 
 
-def art_phase(device):
-    """Serve (N, 32, 1024) windows through ArtDenoiser at full width.
+def reset_attention_counts() -> None:
+    from eyegaze_tpu_torch.kernels import attention
 
-    Returns the head-packed launches of the run, the first request's input
-    and output, and the model's state_dict.
+    for counts in (attention.launch_count, attention.bf16_launch_count):
+        counts.update(headpacked_attention=0, flash_attention=0)
+
+
+def art_phase(device, dtype=torch.float32):
+    """Serve (N, 32, 1024) windows through ArtDenoiser at full width, in
+    ``dtype`` compute.
+
+    Every launch must be of the head-packed entry point's instance for
+    ``dtype``.  Returns those launches, the median wall ms of each request
+    size, the first request's input and output, and the model's state_dict.
     """
     from eyegaze_tpu_torch.kernels import attention
     from eyegaze_tpu_torch.models.art import ArtConfig, ArtifactRemovalTransformer
     from eyegaze_tpu_torch.serving import ArtDenoiser
 
-    model = ArtifactRemovalTransformer(ArtConfig(), device=device,
+    name = f"ART ({str(dtype)[6:]} compute)"
+    model = ArtifactRemovalTransformer(ArtConfig(), device=device, dtype=dtype,
                                        generator=torch.Generator().manual_seed(0))
-    print(f"ArtifactRemovalTransformer {ArtConfig()}: "
+    print(f"{name} {ArtConfig()}: "
           f"{sum(p.numel() for p in model.parameters()):,} parameters on {device}")
     den = ArtDenoiser(model, device=device, batch_buckets=ART_BUCKETS)
     t0 = time.perf_counter()
@@ -478,49 +558,79 @@ def art_phase(device):
     noisy = np.random.default_rng(1).normal(
         size=(max(ART_REQUESTS), CHANNELS, WINDOW)).astype(np.float32)
 
-    first = None
-    attention.launch_count.update(headpacked_attention=0, flash_attention=0)
+    def instance_launches() -> int:  # head-packed launches of the dtype's instance
+        bf16 = attention.bf16_launch_count["headpacked_attention"]
+        return bf16 if dtype == torch.bfloat16 else (
+            attention.launch_count["headpacked_attention"] - bf16)
+
+    first, medians = None, {}
+    reset_attention_counts()
     for n in ART_REQUESTS:
         walls = []
         for _ in range(REPEATS):
-            before = attention.launch_count["headpacked_attention"]
+            before = instance_launches()
             t0 = time.perf_counter()
             out = den.predict(noisy[:n])["denoised"]
             walls.append((time.perf_counter() - t0) * 1e3)
             forwards = math.ceil(n / ART_BUCKETS[-1])
-            launched = attention.launch_count["headpacked_attention"] - before
+            launched = instance_launches() - before
             if launched != ART_ATTENTION_CALLS * forwards:
-                raise RuntimeError(f"{forwards} forwards launched the attention kernel "
-                                   f"{launched} times, not {ART_ATTENTION_CALLS * forwards}")
+                raise RuntimeError(f"{forwards} forwards launched the attention kernel's "
+                                   f"{str(dtype)[6:]} instance {launched} times, not "
+                                   f"{ART_ATTENTION_CALLS * forwards}")
             if out.shape != (n, CHANNELS, WINDOW) or not np.isfinite(out).all():
                 raise RuntimeError(f"bad output: shape {out.shape}, finite "
                                    f"{np.isfinite(out).all()}")
             if first is None:
                 first = out
-        print(f"ART request of {n} window(s): wall ms {[round(w, 3) for w in walls]}, "
-              f"median {statistics.median(walls):.3f} (predict; output back on the host)")
-    launches = attention.launch_count["headpacked_attention"]
-    if launches == 0 or attention.launch_count["flash_attention"] != 0:
-        raise RuntimeError(f"ART's attention launches: {attention.launch_count}")
-    print(f"head-packed attention launches during the ART run: {launches}")
-    return launches, noisy[:ART_REQUESTS[0]], first, model.state_dict()
+        medians[n] = statistics.median(walls)
+        print(f"{name} request of {n} window(s): wall ms {[round(w, 3) for w in walls]}, "
+              f"median {medians[n]:.3f} (predict; output back on the host)")
+    launches = instance_launches()
+    if (launches == 0 or launches != attention.launch_count["headpacked_attention"]
+            or attention.launch_count["flash_attention"] != 0):
+        raise RuntimeError(f"{name}'s attention launches: {attention.launch_count}, of them "
+                           f"bf16 {attention.bf16_launch_count}")
+    print(f"head-packed attention launches ({str(dtype)[6:]} instance) during the {name} "
+          f"run: {launches}")
+    return launches, medians, noisy[:ART_REQUESTS[0]], first, model.state_dict()
 
 
-def art_cpu_parity(noisy, denoised, state) -> None:
-    """The first request's card output against the same weights on the CPU."""
+def art_cpu_parity(noisy, denoised, state, dtype=torch.float32) -> np.ndarray:
+    """The first request's card output against the same weights, served in
+    the same compute type on the CPU; returns the CPU's output."""
     from eyegaze_tpu_torch.models.art import ArtConfig, ArtifactRemovalTransformer
     from eyegaze_tpu_torch.serving import ArtDenoiser
 
     cpu = torch.device("cpu")
-    model = ArtifactRemovalTransformer(ArtConfig(), device=cpu,
+    model = ArtifactRemovalTransformer(ArtConfig(), device=cpu, dtype=dtype,
                                        generator=torch.Generator().manual_seed(1))
     model.load_state_dict({k: v.cpu() for k, v in state.items()}, strict=True)
     want = ArtDenoiser(model, device=cpu, batch_buckets=ART_BUCKETS).predict(noisy)["denoised"]
-    torch.testing.assert_close(torch.from_numpy(denoised), torch.from_numpy(want),
-                               rtol=ART_TOL, atol=ART_TOL)
-    print(f"1-window ART output, card vs CPU (plain attention twin): max |diff| "
-          f"{float(np.abs(denoised - want).max()):.3e}, |out| max "
-          f"{float(np.abs(want).max()):.3f}, tolerance {ART_TOL}")
+    if dtype == torch.float32:
+        tol = dict(rtol=ART_TOL, atol=ART_TOL)
+    else:
+        tol = dict(rtol=0, atol=ART_BF16_TOL_SHARE * float(np.abs(want).max()))
+    torch.testing.assert_close(torch.from_numpy(denoised), torch.from_numpy(want), **tol)
+    print(f"1-window ART output ({str(dtype)[6:]} compute), card vs CPU (plain attention "
+          f"twin): max |diff| {float(np.abs(denoised - want).max()):.3e}, |out| max "
+          f"{float(np.abs(want).max()):.3f}, tolerance {tol}")
+    return want
+
+
+def art_bf16_phase(device, f32_medians, f32_denoised):
+    """ART served in bf16 compute: the same weights and requests as the f32
+    phase, 18 bf16 head-packed launches per forward, the 1-window output
+    against the CPU's bf16 run.  Returns the launches of the run."""
+    launches, medians, noisy, denoised, state = art_phase(device, torch.bfloat16)
+    for n in ART_REQUESTS:
+        print(f"ART request of {n} window(s), median wall ms: bf16 {medians[n]:.3f}, "
+              f"f32 {f32_medians[n]:.3f} ({f32_medians[n] / medians[n]:.2f}x)")
+    want = art_cpu_parity(noisy, denoised, state, torch.bfloat16)
+    print(f"1-window ART output, bf16 vs f32 compute, same weights: max |diff| on the card "
+          f"{float(np.abs(denoised - f32_denoised).max()):.3e}, on the CPU's bf16 against "
+          f"the card's f32 {float(np.abs(want - f32_denoised).max()):.3e}")
+    return launches
 
 
 def flash_route_phase(device) -> int:
@@ -530,19 +640,21 @@ def flash_route_phase(device) -> int:
     from eyegaze_tpu_torch.models.transformer import MultiHeadAttention, init_weights_
 
     b, h, t, d = FLASH_SHAPE
-    mha = MultiHeadAttention(h * d, h, device=device)
+    mha = MultiHeadAttention(h * d, h, device=device, dtype=torch.bfloat16)
     init_weights_(mha, torch.Generator().manual_seed(2))
-    mha = mha.to(torch.bfloat16).eval()
+    mha.eval()
     x = torch.randn(b, t, h * d, generator=torch.Generator().manual_seed(3)).to(
         device, torch.bfloat16)
-    attention.launch_count.update(headpacked_attention=0, flash_attention=0)
+    reset_attention_counts()
     with torch.inference_mode():
         outs = [mha(x, x, x) for _ in range(FLASH_CALLS)]
-        launches = dict(attention.launch_count)
+        launches, bf16 = dict(attention.launch_count), dict(attention.bf16_launch_count)
         plain = mha(x, x, x, return_weights=True)[0]
     torch.cuda.synchronize()
-    if launches != {"headpacked_attention": 0, "flash_attention": FLASH_CALLS}:
-        raise RuntimeError(f"{FLASH_CALLS} bf16 d_k-128 forwards: {launches}")
+    if launches != bf16 or launches != {"headpacked_attention": 0,
+                                        "flash_attention": FLASH_CALLS}:
+        raise RuntimeError(f"{FLASH_CALLS} bf16 d_k-128 forwards: {launches}, of them "
+                           f"bf16 {bf16}")
     # The contexts agree to the bf16 bound of the attention phase; out_proj
     # sums 1024 of them with weights of std 1/32 and rounds once more to bf16.
     torch.testing.assert_close(outs[0].float(), plain.float(), rtol=2.0 ** -7, atol=2.0 ** -6)
@@ -608,6 +720,32 @@ def legacy_phase(device):
     return raw1, raw2, logits, model.state_dict()
 
 
+def tensor_core_proof(lib) -> dict:
+    """HMMA (tensor-core) instructions in the SASS of each instance of the
+    attention kernel, from ``cuobjdump --dump-sass`` of the built library.
+    Raises unless every bf16 instance has some."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cuobjdump = Path(CUDA_HOME) / "bin" / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        header = re.search(r"Function : \S*attention_kernel(_bf16)?I(f)?Li(\d+)E", line)
+        if header:
+            name = f"{'bf16' if header.group(1) else 'f32'} d={header.group(3)}"
+            counts[name] = 0
+        elif "Function : " in line:
+            name = None
+        elif name and "HMMA" in line:
+            counts[name] += 1
+    print(f"HMMA instructions per attention_kernel instance: {counts}")
+    bf16 = {k: n for k, n in counts.items() if k.startswith("bf16")}
+    if len(bf16) != 4 or not all(bf16.values()):
+        raise RuntimeError(f"a bf16 attention instance runs no tensor-core instruction: {counts}")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; it has no CPU mode")
@@ -618,11 +756,14 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
+    clock_hz = sm_clock_hz()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
+          f"max SM clock {clock_hz / 1e6:.0f} MHz")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print("TF32 off for matmuls and cuDNN convolutions: every phase runs in full float32")
+    print("TF32 off for matmuls and cuDNN convolutions: every phase runs in full float32 "
+          "unless it says bf16")
 
     t0 = time.perf_counter()
     built = build.build_all(SOURCES)
@@ -633,21 +774,23 @@ def main() -> None:
         for line in report.splitlines():
             if "Compiling entry function" in line or "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
+    tensor_core_proof(built["attention"][0])
 
     from eyegaze_tpu_torch.kernels import attention
 
     k1_timing = kernel_phase(device)
     k2_timing = plv_kernel_phase(device)
-    attn_timing = attention_phase(device)
+    attn_timing = attention_phase(device, clock_hz)
 
-    attention.launch_count.update(headpacked_attention=0, flash_attention=0)
+    reset_attention_counts()
     k1_launches, raw1, raw2, logits, state = slice_phase(device)
     if any(attention.launch_count.values()):
         raise RuntimeError("the flagship's 139-token attention launched the attention kernel")
     cpu_parity(raw1, raw2, logits, state)
 
-    art_launches, noisy, denoised, art_state = art_phase(device)
+    art_launches, art_medians, noisy, denoised, art_state = art_phase(device)
     art_cpu_parity(noisy, denoised, art_state)
+    art_bf16_launches = art_bf16_phase(device, art_medians, denoised)
     flash_launches = flash_route_phase(device)
 
     _, shootout_launches = shootout_phase()
@@ -656,6 +799,7 @@ def main() -> None:
 
     phase_source = "eyegaze_tpu_torch/csrc/phase_metrics.cu"
     source = "eyegaze_tpu_torch/csrc/attention.cu"
+    art_forwards = len(ART_REQUESTS) * REPEATS
     kernels = [
         {"name": "pairwise_phase_metrics", "route": "cuda", "source": phase_source,
          "replaces": "eyegaze_tpu/ops/pallas_kernels.py:74", "launches": k1_launches,
@@ -668,18 +812,23 @@ def main() -> None:
          "launches_per_request": shootout_launches["phase_plv_metric_sums"], **k2_timing},
         {"name": "headpacked_attention", "route": "cuda", "source": source,
          "replaces": "eyegaze_tpu/ops/attn_kernels.py:78", "launches": art_launches,
-         "path": "ART serving",
-         "launches_per_request": art_launches / (len(ART_REQUESTS) * REPEATS),
-         **attn_timing["headpacked_attention"]},
+         "path": "ART serving", "launches_per_request": art_launches / art_forwards,
+         **attn_timing["headpacked_attention", torch.float32]},
         {"name": "flash_attention", "route": "cuda", "source": source,
          "replaces": "eyegaze_tpu/models/transformer.py:232", "launches": flash_launches,
          "path": "bf16 MultiHeadAttention, d_k 128",
-         "launches_per_request": flash_launches / FLASH_CALLS, **attn_timing["flash_attention"]},
+         "launches_per_request": flash_launches / FLASH_CALLS,
+         **attn_timing["flash_attention", torch.bfloat16]},
+        {"name": "headpacked_attention", "route": "cuda", "source": source,
+         "replaces": "eyegaze_tpu/ops/attn_kernels.py:78", "launches": art_bf16_launches,
+         "path": "ART serving, bf16", "launches_per_request": art_bf16_launches / art_forwards,
+         **attn_timing["headpacked_attention", torch.bfloat16]},
     ]
     for k in kernels:
         library = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
-        print(f"{k['name']} at {k['shape']}: {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
-              f"(set by {k['bound_by']}), plain {k['plain_ms']:.4f} ms, library call {library}; "
+        print(f"{k['name']} ({k['path']}) at {k['shape']}: {k['ms']:.4f} ms, bound "
+              f"{k['bound_ms']:.4f} ms (set by {k['bound_by']}), plain "
+              f"{k['plain_ms']:.4f} ms, library call {library}; "
               f"{k['launches_per_request']:g} launches per request of its path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

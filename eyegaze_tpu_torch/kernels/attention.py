@@ -15,17 +15,25 @@ strides, never with a transposed copy.  Numerics: f32 or bf16 operands;
 scores, softmax and the PV sums in f32; probabilities rounded to the operand
 type before PV; output in the operand type.
 
-What bounds it on an H100: 4 * B * H * Tq * Tk * d FLOP on the CUDA cores
-(about 17 GFLOP at ART's B = 32, T = 1024, H = 8, d = 16) against only the
-bytes of Q, K, V and the output, so its FMA and shared-memory load stream,
-not device memory.  The plain twin instead writes and reads the (B, H, Tq, Tk)
-f32 score tensor (1 GiB at that shape) several times.  Both times sit in
-PERF.md.
+What bounds it on an H100: 4 * B * H * Tq * Tk * d matmul operations and
+B * H * Tq * Tk exponentials (about 17 GFLOP and 268 M at ART's B = 32,
+T = 1024, H = 8, d = 16) against only the bytes of Q, K, V and the output,
+so operations, not device memory.  The f32 instance runs its FMAs on the
+CUDA cores; the bf16 instance runs both products on the tensor cores
+(``mma.sync``), and at d = 16 its exponentials, all on the SFU, take longer
+than the products (the card's floor is lower: the FMA pipes could compute
+part of them as a polynomial).  The plain twin instead writes and reads
+the (B, H, Tq, Tk) f32 score tensor (1 GiB at that shape) several times.
+All three times sit in PERF.md.  A bf16 launch stages rows with 16-byte copies, so it wants
+16-byte aligned pointers and batch, time and head strides that are
+multiples of 8 elements; every layout the model's projections give has
+them, and the wrapper raises for the rest.
 
 A CPU tensor goes to the plain twin ``attention_reference``; a CUDA tensor
 launches the kernel, or raises.  The kernel has no backward: a CUDA input
 that requires grad raises.  ``launch_count`` counts the kernel's launches,
-one count for each entry point.
+one count for each entry point, and ``bf16_launch_count`` those of them that
+ran the bf16 instance.
 """
 
 from __future__ import annotations
@@ -42,8 +50,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's dtype argume
 DTYPES = tuple(_DTYPE_CODE)
 _MAX_GRID_YZ = 65535  # heads and batch run on the grid's y and z axes
 
-# Kernel launches since import (or since a caller reset them), by entry point.
+# Kernel launches since import (or since a caller reset them), by entry point;
+# bf16_launch_count counts the launches of the bf16 instance among them.
 launch_count = {"headpacked_attention": 0, "flash_attention": 0}
+bf16_launch_count = {"headpacked_attention": 0, "flash_attention": 0}
 
 
 def attention_reference(q, k, v, scale: float):
@@ -104,15 +114,23 @@ def _launch(entry: str, q, k, v, scale: float, t_dim: int, h_dim: int):
     out = torch.empty_like(q)  # same strides as q: the caller's layout
     if out.numel() == 0:
         return out
-    strides = [s for x in (q, k, v, out) for s in (x.stride(0), x.stride(t_dim), x.stride(h_dim))]
-    launch = _launcher()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     _DTYPE_CODE[q.dtype], b, h, tq, tk, d, *strides, scale, stream)
+    strides = [s[a] for s in (x.stride() for x in (q, k, v, out)) for a in (0, t_dim, h_dim)]
+    ptrs = [x.data_ptr() for x in (q, k, v, out)]
+    if q.dtype == torch.bfloat16 and (any(s % 8 for s in strides) or any(p % 16 for p in ptrs)):
+        raise ValueError("a bf16 launch wants 16-byte aligned rows: pointers aligned to "
+                         "16 bytes and batch, time and head strides multiples of 8")
+    args = (*ptrs, _DTYPE_CODE[q.dtype], b, h, tq, tk, d, *strides, scale,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if q.device.index == torch.cuda.current_device():
+        err = _launcher()(*args)
+    else:  # the runtime launches on its current device
+        with torch.cuda.device(q.device):
+            err = _launcher()(*args)
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
     launch_count[entry] += 1
+    if q.dtype == torch.bfloat16:
+        bf16_launch_count[entry] += 1
     return out
 
 

@@ -7,8 +7,15 @@ reference torch model as ``export_art_state_dict`` writes them
 (``src_embed.0.conv``, ``src_embed.1.pos_embed``, ``encoder.layers.i``,
 ``decoder.layers.i``, ``reconstructor.proj``), so the state_dict of
 ``eyegaze_tpu_torch.models.convert.art_state_dict_from_flax`` loads with
-``strict=True``.  This slice runs float32; training and bf16 compute come
-later.
+``strict=True``.
+
+``dtype`` is the compute type, the Flax model's ``dtype`` field (the JAX
+``ArtDenoiser.from_checkpoint`` serves bfloat16): parameters stay float32,
+every Dense (the 1x1 conv, the projections, the FFN, the head) computes in
+``dtype``, the positional table is cast to it, every LayerNorm runs in
+float32, attention forms f32 scores and rounds P to ``dtype`` (the kernel
+route's contract too), the head's log-softmax and z-score run in ``dtype``,
+and the output is float32.  Training comes later.
 """
 
 from __future__ import annotations
@@ -20,9 +27,11 @@ import torch
 from torch import nn
 
 from eyegaze_tpu_torch.models.transformer import (
+    Dense,
     PositionalEmbedding,
     TransformerDecoder,
     TransformerEncoder,
+    cast_params,
     init_weights_,
 )
 
@@ -52,26 +61,31 @@ class ExpandConv1x1(nn.Module):
 
     Holds the reference's ``Conv1d(C, E, 1)`` and computes it as a linear
     product on the squeezed weight (cuDNN would pick its own algorithm for a
-    1x1 convolution).
+    1x1 convolution), in ``dtype`` as ``Dense`` does.
     """
 
-    def __init__(self, in_channels: int, out_channels: int, *, device: torch.device):
+    def __init__(self, in_channels: int, out_channels: int, *, device: torch.device,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv = nn.Conv1d(in_channels, out_channels, 1, device=device)
+        self.dtype = dtype
+        self._cast = (None, None)  # cast_params' cache
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return nn.functional.linear(x.transpose(1, 2), self.conv.weight[:, :, 0], self.conv.bias)
+        w, b = cast_params(self, (self.conv.weight[:, :, 0], self.conv.bias), self.dtype)
+        return nn.functional.linear(x.transpose(1, 2).to(self.dtype), w, b)
 
 
 class Reconstructor(nn.Module):
     """Linear head + optional log-softmax + optional z-score (unbiased, eps 1e-10)."""
 
     def __init__(self, d_model: int, out_channels: int, log_softmax: bool = False,
-                 zscore: Optional[str] = None, eps: float = 1e-10, *, device: torch.device):
+                 zscore: Optional[str] = None, eps: float = 1e-10, *, device: torch.device,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if zscore not in (None, "batch", "time"):
             raise ValueError(f"Unsupported zscore mode: {zscore}")
-        self.proj = nn.Linear(d_model, out_channels, device=device)
+        self.proj = Dense(d_model, out_channels, device=device, dtype=dtype)
         self.log_softmax = log_softmax
         self.zscore = zscore
         self.eps = eps
@@ -97,26 +111,33 @@ class ArtifactRemovalTransformer(nn.Module):
     ``src``, as in serving.  ``src_mask`` (B, Tk) and ``tgt_mask`` (B, Tk) or
     (B, Tq, Tk) are True where a position is masked out.  Weights are drawn
     from ``generator`` (a CPU ``torch.Generator``), so one seed gives the same
-    model on every device.
+    model on every device.  ``dtype`` (float32 or bfloat16) is the compute
+    type (module docstring); the parameters are float32 in either, so one
+    state_dict loads into both.
     """
 
     def __init__(self, config: ArtConfig, *, device: torch.device,
-                 generator: torch.Generator):
+                 generator: torch.Generator, dtype: torch.dtype = torch.float32):
         super().__init__()
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute dtype must be float32 or bfloat16, got {dtype}")
         cfg = self.config = config
+        self.dtype = dtype
         e = cfg.embedding_size
         ad = cfg.dropout if cfg.attn_dropout is None else cfg.attn_dropout
         for side in ("src", "tgt"):
             self.add_module(f"{side}_embed", nn.Sequential(
-                ExpandConv1x1(cfg.in_channels, e, device=device),
+                ExpandConv1x1(cfg.in_channels, e, device=device, dtype=dtype),
                 PositionalEmbedding(cfg.max_len, e, cfg.pos_mode, device=device),
                 nn.Dropout(cfg.dropout)))
         self.encoder = TransformerEncoder(e, cfg.num_encoder_layers, cfg.num_heads,
-                                          cfg.feedforward_size, cfg.dropout, ad, device=device)
+                                          cfg.feedforward_size, cfg.dropout, ad, device=device,
+                                          dtype=dtype)
         self.decoder = TransformerDecoder(e, cfg.num_decoder_layers, cfg.num_heads,
-                                          cfg.feedforward_size, cfg.dropout, ad, device=device)
+                                          cfg.feedforward_size, cfg.dropout, ad, device=device,
+                                          dtype=dtype)
         self.reconstructor = Reconstructor(e, cfg.out_channels, cfg.recon_log_softmax,
-                                           cfg.recon_zscore, device=device)
+                                           cfg.recon_zscore, device=device, dtype=dtype)
         init_weights_(self, generator)
 
     def forward(self, src: torch.Tensor, tgt: Optional[torch.Tensor] = None,

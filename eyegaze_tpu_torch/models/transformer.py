@@ -11,6 +11,14 @@ On a CUDA device, unmasked attention whose shapes tile runs the port's
 attention kernel (``eyegaze_tpu_torch.kernels.attention``) through the route
 ``attention_route`` picks, the counterpart of the JAX package's
 ``_flash_eligible`` and ``_headpack_eligible``.
+
+The counterpart of the Flax modules' ``dtype`` field is ``dtype`` here
+(float32 by default, as in Flax).  Parameters stay float32, as Flax keeps
+them; every ``Dense`` casts its input, weight and
+bias to ``dtype`` and returns ``dtype``, and every ``LayerNorm`` normalises
+in float32 and returns float32 whatever its input, as Flax's
+``nn.LayerNorm()`` does.  So in bf16 the residual stream is float32 after
+the first LayerNorm and each projection recasts it.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from eyegaze_tpu_torch.kernels import attention
@@ -49,23 +58,63 @@ def attention_route(device_type: str, dtype: torch.dtype, tq: int, tk: int, d_k:
     return "plain"
 
 
+class Dense(nn.Linear):
+    """``nn.Linear`` that computes in ``dtype``, Flax's ``nn.Dense(dtype=...)``:
+    the input, the float32 weight and the bias cast to ``dtype``, the output
+    in ``dtype``.  Without autograd the cast weight and bias are kept until
+    the parameters change (their version or storage), so a served forward
+    casts nothing but its input."""
+
+    def __init__(self, in_features: int, out_features: int, *, device: torch.device,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, device=device)
+        self.compute_dtype = dtype
+        self._cast = (None, None)  # (key of the parameters cast, (weight, bias))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), *cast_params(self, (self.weight, self.bias), dt))
+
+
+def cast_params(module: nn.Module, params, dtype: torch.dtype):
+    """``params`` cast to ``dtype``; without autograd the casts are kept on
+    ``module`` and reused until a parameter changes."""
+    if all(p.dtype == dtype for p in params):
+        return params
+    if torch.is_grad_enabled():
+        return tuple(p.to(dtype) for p in params)
+    key = tuple((p._version, p.data_ptr()) for p in params)  # in place / replaced
+    if module._cast[0] != key:
+        module._cast = (key, tuple(p.to(dtype) for p in params))
+    return module._cast[1]
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` that normalises in float32 and returns float32, as
+    Flax's ``nn.LayerNorm()`` (no dtype) does on a bf16 input."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float())
+
+
 class MultiHeadAttention(nn.Module):
     """Scaled dot-product attention with q/k/v/out projections.
 
     ``attn_mask`` broadcasts against the (B, H, Tq, Tk) scores; where it is
-    0 the score becomes -1e9 before the softmax.
+    0 the score becomes -1e9 before the softmax.  The projections compute in
+    ``dtype`` (``Dense``).
     """
 
     def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0, *,
-                 device: torch.device):
+                 device: torch.device, dtype: torch.dtype = torch.float32):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} is not divisible by num_heads {num_heads}")
         self.num_heads = num_heads
-        self.q_proj = nn.Linear(d_model, d_model, device=device)
-        self.k_proj = nn.Linear(d_model, d_model, device=device)
-        self.v_proj = nn.Linear(d_model, d_model, device=device)
-        self.out_proj = nn.Linear(d_model, d_model, device=device)
+        self.q_proj = Dense(d_model, d_model, device=device, dtype=dtype)
+        self.k_proj = Dense(d_model, d_model, device=device, dtype=dtype)
+        self.v_proj = Dense(d_model, d_model, device=device, dtype=dtype)
+        self.out_proj = Dense(d_model, d_model, device=device, dtype=dtype)
         self.dropout = nn.Dropout(dropout)  # on the softmax weights, as the reference
 
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -74,6 +123,11 @@ class MultiHeadAttention(nn.Module):
         tk = k.shape[1]
         h = self.num_heads
         d_k = d_model // h
+        cast = {}  # each distinct input cast once (self-attention passes one)
+        for x in (q, k, v):
+            if id(x) not in cast:
+                cast[id(x)] = x.to(self.q_proj.compute_dtype)
+        q, k, v = cast[id(q)], cast[id(k)], cast[id(v)]
         qh = self.q_proj(q).reshape(b, tq, h, d_k)
         kh = self.k_proj(k).reshape(b, tk, h, d_k)
         vh = self.v_proj(v).reshape(b, tk, h, d_k)
@@ -105,10 +159,10 @@ class FeedForward(nn.Module):
     """Linear -> ReLU -> Dropout -> Linear -> Dropout."""
 
     def __init__(self, d_model: int, d_ff: int, dropout: float = 0.0, *,
-                 device: torch.device):
+                 device: torch.device, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.linear1 = nn.Linear(d_model, d_ff, device=device)
-        self.linear2 = nn.Linear(d_ff, d_model, device=device)
+        self.linear1 = Dense(d_model, d_ff, device=device, dtype=dtype)
+        self.linear2 = Dense(d_ff, d_model, device=device, dtype=dtype)
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -120,12 +174,13 @@ class TransformerEncoderBlock(nn.Module):
     """x = LN(x + drop(MHA(x))); x = LN(x + drop(FFN(x)))."""
 
     def __init__(self, d_model: int, num_heads: int, d_ff: int, dropout: float = 0.0,
-                 attn_dropout: float = 0.0, *, device: torch.device):
+                 attn_dropout: float = 0.0, *, device: torch.device,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.mha = MultiHeadAttention(d_model, num_heads, attn_dropout, device=device)
-        self.ln1 = nn.LayerNorm(d_model, eps=1e-5, device=device)
-        self.ffn = FeedForward(d_model, d_ff, dropout, device=device)
-        self.ln2 = nn.LayerNorm(d_model, eps=1e-5, device=device)
+        self.mha = MultiHeadAttention(d_model, num_heads, attn_dropout, device=device, dtype=dtype)
+        self.ln1 = LayerNorm(d_model, eps=1e-5, device=device)
+        self.ffn = FeedForward(d_model, d_ff, dropout, device=device, dtype=dtype)
+        self.ln2 = LayerNorm(d_model, eps=1e-5, device=device)
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor, attn_mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -137,14 +192,15 @@ class TransformerEncoder(nn.Module):
     """Stack of encoder blocks + final LayerNorm."""
 
     def __init__(self, d_model: int, num_layers: int, num_heads: int, d_ff: int,
-                 dropout: float = 0.0, attn_dropout: float = 0.0, *, device: torch.device):
+                 dropout: float = 0.0, attn_dropout: float = 0.0, *, device: torch.device,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.layers = nn.ModuleList([
             TransformerEncoderBlock(d_model, num_heads, d_ff, dropout, attn_dropout,
-                                    device=device)
+                                    device=device, dtype=dtype)
             for _ in range(num_layers)
         ])
-        self.norm = nn.LayerNorm(d_model, eps=1e-5, device=device)
+        self.norm = LayerNorm(d_model, eps=1e-5, device=device)
 
     def forward(self, x: torch.Tensor, attn_mask: torch.Tensor | None = None) -> torch.Tensor:
         for layer in self.layers:
@@ -156,14 +212,17 @@ class TransformerDecoderBlock(nn.Module):
     """Post-LN decoder block: self-attention, cross-attention, FFN."""
 
     def __init__(self, d_model: int, num_heads: int, d_ff: int, dropout: float = 0.0,
-                 attn_dropout: float = 0.0, *, device: torch.device):
+                 attn_dropout: float = 0.0, *, device: torch.device,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.self_mha = MultiHeadAttention(d_model, num_heads, attn_dropout, device=device)
-        self.ln1 = nn.LayerNorm(d_model, eps=1e-5, device=device)
-        self.cross_mha = MultiHeadAttention(d_model, num_heads, attn_dropout, device=device)
-        self.ln2 = nn.LayerNorm(d_model, eps=1e-5, device=device)
-        self.ffn = FeedForward(d_model, d_ff, dropout, device=device)
-        self.ln3 = nn.LayerNorm(d_model, eps=1e-5, device=device)
+        self.self_mha = MultiHeadAttention(d_model, num_heads, attn_dropout, device=device,
+                                           dtype=dtype)
+        self.ln1 = LayerNorm(d_model, eps=1e-5, device=device)
+        self.cross_mha = MultiHeadAttention(d_model, num_heads, attn_dropout, device=device,
+                                            dtype=dtype)
+        self.ln2 = LayerNorm(d_model, eps=1e-5, device=device)
+        self.ffn = FeedForward(d_model, d_ff, dropout, device=device, dtype=dtype)
+        self.ln3 = LayerNorm(d_model, eps=1e-5, device=device)
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor, memory: torch.Tensor,
@@ -178,14 +237,15 @@ class TransformerDecoder(nn.Module):
     """Stack of decoder blocks + final LayerNorm."""
 
     def __init__(self, d_model: int, num_layers: int, num_heads: int, d_ff: int,
-                 dropout: float = 0.0, attn_dropout: float = 0.0, *, device: torch.device):
+                 dropout: float = 0.0, attn_dropout: float = 0.0, *, device: torch.device,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.layers = nn.ModuleList([
             TransformerDecoderBlock(d_model, num_heads, d_ff, dropout, attn_dropout,
-                                    device=device)
+                                    device=device, dtype=dtype)
             for _ in range(num_layers)
         ])
-        self.norm = nn.LayerNorm(d_model, eps=1e-5, device=device)
+        self.norm = LayerNorm(d_model, eps=1e-5, device=device)
 
     def forward(self, x: torch.Tensor, memory: torch.Tensor,
                 self_attn_mask: torch.Tensor | None = None,

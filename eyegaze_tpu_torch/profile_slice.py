@@ -2,7 +2,7 @@
 
     python -m eyegaze_tpu_torch.profile_slice
 
-It profiles both serving paths in turn.
+It profiles both serving paths in turn, ART in float32 and in bf16 compute.
 
 EEG: builds the full-width DualEEGTransformer (random weights from seed 0)
 and serves raw (trials, 32, 3250) pairs through ``preprocess_eeg`` ->
@@ -12,7 +12,8 @@ CUDA-event time of each stage at the request's padded bucket (preprocessing
 of both players, the model's blocks, the whole forward).
 
 ART: builds the full-width ART denoiser (``ArtConfig()``, random weights
-from seed 0) behind ``ArtDenoiser``.  For requests of 1 and 32 windows
+from seed 0, float32 and then bf16 compute) behind ``ArtDenoiser``.  For
+requests of 1 and 32 windows
 (buckets 1 and 32) it prints the median CUDA-event time of the embeddings,
 the encoder, the decoder, the reconstructor, the whole forward, and the
 forward's 18 attention kernel launches alone.
@@ -20,8 +21,8 @@ forward's 18 attention kernel launches alone.
 For each request both print the median synchronized wall time and, from
 ``torch.profiler`` over 5 requests, the summed CUDA-kernel time against the
 wall time (the device's busy share), the attention kernel's share of the
-kernel time (ART), and the operators with the most device time.  Float32
-with TF32 off.  It needs a CUDA device.
+kernel time (ART), and the operators with the most device time.  TF32 is
+off.  It needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -127,8 +128,8 @@ def eeg(dev: torch.device) -> None:
         wall_and_profile(request)
 
 
-def art(dev: torch.device) -> None:
-    model = ArtifactRemovalTransformer(ArtConfig(), device=dev,
+def art(dev: torch.device, dtype: torch.dtype) -> None:
+    model = ArtifactRemovalTransformer(ArtConfig(), device=dev, dtype=dtype,
                                        generator=torch.Generator().manual_seed(0))
     den = ArtDenoiser(model, device=dev, batch_buckets=ART_BUCKETS)
     den.warmup(CHANNELS, WINDOW)
@@ -144,7 +145,7 @@ def art(dev: torch.device) -> None:
             src, tgt = model.src_embed(x), model.tgt_embed(x)
             memory = model.encoder(src)
             out = model.decoder(tgt, memory)
-            qkv = [torch.randn(b, WINDOW, heads, d_k, device=dev) for _ in range(3)]
+            qkv = [torch.randn(b, WINDOW, heads, d_k, device=dev, dtype=dtype) for _ in range(3)]
             stages = {
                 "model forward": lambda: model(x),
                 "  embeddings, src and tgt": lambda: (model.src_embed(x), model.tgt_embed(x)),
@@ -155,7 +156,8 @@ def art(dev: torch.device) -> None:
                     attention.headpacked_attention(*qkv, 1.0 / math.sqrt(d_k))
                     for _ in range(18)],
             }
-            print(f"--- ART, {n} window(s), bucket {b}: median CUDA-event ms")
+            print(f"--- ART ({str(dtype)[6:]} compute), {n} window(s), bucket {b}: "
+                  "median CUDA-event ms")
             for name, fn in stages.items():
                 print(f"  {name}: {median_cuda_ms(fn):.3f}")
         wall_and_profile(lambda: den.predict(noisy[:n]), kernel_share="attention_kernel")
@@ -170,7 +172,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     eeg(dev)
-    art(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        art(dev, dtype)
 
 
 if __name__ == "__main__":

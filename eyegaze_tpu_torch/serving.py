@@ -89,7 +89,9 @@ class ArtDenoiser:
     the batch (``recon_zscore='batch'``) would give every sample an output
     that depends on the request's other rows and on the zero padding, so it
     is always served one sample at a time: its buckets are ``(1,)`` whatever
-    the caller passes.
+    the caller passes.  The model may compute in float32 or bf16
+    (``ArtifactRemovalTransformer(dtype=...)``; the JAX ``from_checkpoint``
+    serves bf16): requests come in and go out as float32 either way.
     """
 
     def __init__(self, model: torch.nn.Module, *, device: torch.device,

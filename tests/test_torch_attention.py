@@ -100,6 +100,10 @@ GATES = {  # name: (device, dtype, tq, tk, d_k, mask, dropout, weights) -> route
     "art_self_attention": (("cuda", torch.float32, 1024, 1024, 16, False, False, False),
                            "headpacked"),
     "art_bf16": (("cuda", torch.bfloat16, 1024, 1024, 16, False, False, False), "headpacked"),
+    # ART's bf16 compute at its positional table's full length, and on the CPU.
+    "art_bf16_max_len": (("cuda", torch.bfloat16, 2048, 2048, 16, False, False, False),
+                         "headpacked"),
+    "art_bf16_cpu": (("cpu", torch.bfloat16, 1024, 1024, 16, False, False, False), "plain"),
     "flagship_139_tokens": (("cuda", torch.float32, 139, 139, 32, False, False, False), "plain"),
     "mask": (("cuda", torch.float32, 1024, 1024, 16, True, False, False), "plain"),
     "attention_dropout": (("cuda", torch.float32, 1024, 1024, 16, False, True, False), "plain"),
@@ -133,15 +137,15 @@ def test_attention_route_gates(case):
                            return_weights=weights) == want
 
 
-def _jax_mha_pair(d_model, heads, x, jdtype=None):
+def _jax_mha_pair(d_model, heads, x, dtype="float32"):
     import jax
     import jax.numpy as jnp
 
     from eyegaze_tpu.models.transformer import MultiHeadAttention as JaxMHA
 
-    jm = JaxMHA(d_model, heads, dtype=jdtype or jnp.float32)
+    jm = JaxMHA(d_model, heads, dtype=getattr(jnp, dtype))
     params = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(0), x, x, x)["params"])
-    tm = MultiHeadAttention(d_model, heads, device=CPU)
+    tm = MultiHeadAttention(d_model, heads, device=CPU, dtype=getattr(torch, dtype))
     tm.load_state_dict({f"{n}.{p}": torch.tensor(params[n]["kernel"].T if p == "weight"
                                                  else params[n]["bias"])
                         for n in ("q_proj", "k_proj", "v_proj", "out_proj")
@@ -173,19 +177,19 @@ def test_masked_mha_matches_jax(mask_shape):
 
 
 def test_bf16_mha_matches_jax():
-    """bf16 module and inputs against the JAX MHA at dtype bf16, with scores
+    """bf16 compute and inputs against the JAX MHA at dtype bf16, with scores
     of several units: f32 scores from bf16 operands (the JAX contract) agree
     to one bf16 rounding of the largest output; scores rounded to bf16 first
     would be 0.0625 off here."""
     import jax.numpy as jnp
 
     x = (np.random.default_rng(5).normal(size=(2, 128, 64)) * 2).astype(np.float32)
-    jm, params, tm = _jax_mha_pair(64, 4, x, jnp.bfloat16)
+    jm, params, tm = _jax_mha_pair(64, 4, x, "bfloat16")
     xb = jnp.asarray(x, jnp.bfloat16)
     want = np.asarray(jm.apply({"params": params}, xb, xb, xb).astype(jnp.float32))
     xt = torch.from_numpy(x).to(torch.bfloat16)
     with torch.no_grad():
-        got = tm.to(torch.bfloat16)(xt, xt, xt)
+        got = tm(xt, xt, xt)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
                                atol=2.0 ** -8 * np.abs(want).max())
@@ -233,20 +237,38 @@ def _card():
     return torch.device("cuda", 0)
 
 
+# (B, Tq, H, d) and Tk (None: Tq): every head dim, and Tq, Tk in {1, 200,
+# 1000, 1024}, ragged against the kernel's 64-row and 64- or 32-key tiles.
+KERNEL_CASES = {
+    "art": ((8, 1024, 8, 16), None),
+    "ragged": ((3, 200, 8, 16), None),
+    "d64": ((2, 256, 4, 64), None),
+    "d16_tq1_tk1": ((3, 1, 8, 16), 1),
+    "d32_tq1000_tk1024": ((2, 1000, 4, 32), 1024),
+    "d32_tq1024_tk200": ((2, 1024, 4, 32), 200),
+    "d64_tq1_tk1000": ((2, 1, 4, 64), 1000),
+    "d128_tq200_tk1": ((2, 200, 2, 128), 1),
+    "d128_tq1024_tk1000": ((2, 1024, 2, 128), 1000),
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(8, 1024, 8, 16), (3, 200, 8, 16), (2, 256, 4, 64)],
-                         ids=["art", "ragged", "d64"])
-def test_headpacked_kernel_matches_twin_on_card(shape, dtype):
+@pytest.mark.parametrize("shape,kv_len", list(KERNEL_CASES.values()), ids=list(KERNEL_CASES))
+def test_headpacked_kernel_matches_twin_on_card(shape, kv_len, dtype):
     """f32: 1e-5, relative and absolute (the sums differ in order; an output
     near zero is a sum that cancels, whose error scales with its O(1) terms).
     bf16: within the rounding bound of ``_assert_within_bf16_bound``."""
     dev = _card()
-    x = [torch.from_numpy(a).to(dev, getattr(torch, dtype)) for a in _qkv(shape, seed=7)]
+    x = [torch.from_numpy(a).to(dev, getattr(torch, dtype))
+         for a in _qkv(shape, seed=7, kv_len=kv_len)]
     before = attention.launch_count["headpacked_attention"]
+    before_bf16 = attention.bf16_launch_count["headpacked_attention"]
     got = attention.headpacked_attention(*x, 0.25)
     torch.cuda.synchronize()
     assert attention.launch_count["headpacked_attention"] == before + 1
+    assert (attention.bf16_launch_count["headpacked_attention"]
+            == before_bf16 + (dtype == "bfloat16"))
     q, k, v = (t.transpose(1, 2) for t in x)
     want = attention.attention_reference(q, k, v, 0.25).transpose(1, 2)
     if dtype == "float32":
@@ -257,15 +279,27 @@ def test_headpacked_kernel_matches_twin_on_card(shape, dtype):
 
 
 @pytest.mark.cuda
-def test_flash_kernel_matches_twin_on_card():
+@pytest.mark.parametrize("views", [False, True], ids=["contiguous", "transposed_views"])
+@pytest.mark.parametrize("shape,kv_len", [((2, 8, 1024, 128), None), ((2, 4, 1000, 64), 1),
+                                          ((1, 8, 200, 16), 1000)],
+                         ids=["k4", "d64_tk1", "d16_tq200_tk1000"])
+def test_flash_kernel_matches_twin_on_card(shape, kv_len, views):
+    """bf16 (B, H, T, d) inputs, contiguous or, as the flash route passes
+    them, (B, T, H, d) tensors seen through ``transpose(1, 2)``."""
     dev = _card()
-    x = [torch.from_numpy(a).to(dev, torch.bfloat16) for a in _qkv((2, 8, 1024, 128), seed=8)]
+    b, h, t, d = shape
+    x = [torch.from_numpy(a).to(dev, torch.bfloat16)
+         for a in _qkv((b, t, h, d), seed=8, kv_len=kv_len)]
+    x = [a.transpose(1, 2) if views else a.transpose(1, 2).contiguous() for a in x]
+    assert x[0].is_contiguous() != views
     before = attention.launch_count["flash_attention"]
-    got = attention.flash_attention(*x, 1.0 / math.sqrt(128))
+    before_bf16 = attention.bf16_launch_count["flash_attention"]
+    got = attention.flash_attention(*x, 1.0 / math.sqrt(d))
     torch.cuda.synchronize()
     assert attention.launch_count["flash_attention"] == before + 1
-    want = attention.attention_reference(*x, 1.0 / math.sqrt(128))
-    terms = attention.attention_reference(x[0], x[1], x[2].abs(), 1.0 / math.sqrt(128))
+    assert attention.bf16_launch_count["flash_attention"] == before_bf16 + 1
+    want = attention.attention_reference(*x, 1.0 / math.sqrt(d))
+    terms = attention.attention_reference(x[0], x[1], x[2].abs(), 1.0 / math.sqrt(d))
     _assert_within_bf16_bound(got, want, terms)
 
 
@@ -292,7 +326,7 @@ def test_kernel_route_raises_without_an_instance(d_model, heads, dtype):
     """A tileable CUDA call whose head dim or dtype the kernel is not built
     for raises in the wrapper; it never runs the plain path on the card."""
     dev = _card()
-    mha = MultiHeadAttention(d_model, heads, device=dev).to(dtype).eval()
+    mha = MultiHeadAttention(d_model, heads, device=dev, dtype=dtype).eval()
     x = torch.randn(1, 1024, d_model, device=dev, dtype=dtype)
     before = dict(attention.launch_count)
     with torch.no_grad(), pytest.raises((ValueError, TypeError), match="head dim|bfloat16"):
@@ -311,21 +345,35 @@ def _no_tf32():
 
 
 @pytest.mark.cuda
-def test_art_denoiser_launches_the_kernel_on_card(_no_tf32):
-    """Every attention call of a small ART forward (d_k 16; 2 encoder + 2 x 2
-    decoder = 6) launches the head-packed entry point; the card agrees with
-    the same weights on the CPU to 1e-4 (f32, TF32 off for matmuls and cuDNN)."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_art_denoiser_launches_the_kernel_on_card(_no_tf32, dtype):
+    """Every attention call of an ART forward with ART's 6 + 6 layers at a
+    small width (d_k 16; 6 encoder + 2 x 6 decoder = 18) launches the
+    head-packed entry point's instance of the compute type.  f32: the card
+    agrees with the same weights on the CPU to 1e-4 (TF32 off for matmuls
+    and cuDNN).  bf16: to 2**-5 of the largest output (8 bf16 steps there),
+    the bound tests/test_torch_art.py sets between the port and JAX: the card
+    sums in another order and rounds the kernel's probabilities unnormalised,
+    and each flipped bf16 rounding spreads over its row through the post-LN
+    blocks."""
     from eyegaze_tpu_torch.models.art import ArtConfig, ArtifactRemovalTransformer
     from eyegaze_tpu_torch.serving import ArtDenoiser
 
     dev = _card()
-    cfg = ArtConfig(in_channels=8, out_channels=8, embedding_size=64, num_encoder_layers=2,
-                    num_decoder_layers=2, num_heads=4, feedforward_size=64, max_len=256)
-    model = ArtifactRemovalTransformer(cfg, device=CPU, generator=torch.Generator().manual_seed(0))
+    cfg = ArtConfig(in_channels=8, out_channels=8, embedding_size=64, num_heads=4,
+                    feedforward_size=64, max_len=256)
+    model = ArtifactRemovalTransformer(cfg, device=CPU, generator=torch.Generator().manual_seed(0),
+                                       dtype=getattr(torch, dtype))
     noisy = np.random.default_rng(9).normal(size=(5, 8, 256)).astype(np.float32)
     want = ArtDenoiser(model, device=CPU, batch_buckets=(2, 4)).predict(noisy)["denoised"]
     den = ArtDenoiser(model, device=dev, batch_buckets=(2, 4))
-    before = attention.launch_count["headpacked_attention"]
+    before, before_bf16 = dict(attention.launch_count), dict(attention.bf16_launch_count)
     got = den.predict(noisy)["denoised"]  # chunks of 4 and 1 (padded to 2): 2 forwards
-    assert attention.launch_count["headpacked_attention"] == before + 2 * 6
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    assert attention.launch_count == {**before,
+                                      "headpacked_attention": before["headpacked_attention"] + 36}
+    bf16_launches = 36 if dtype == "bfloat16" else 0
+    assert attention.bf16_launch_count == {
+        **before_bf16,
+        "headpacked_attention": before_bf16["headpacked_attention"] + bf16_launches}
+    tol = 1e-4 if dtype == "float32" else 2.0 ** -5 * float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=0 if dtype == "bfloat16" else tol, atol=tol)
