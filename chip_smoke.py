@@ -7,7 +7,8 @@ Run from the repository root on a machine with a CUDA card:
 It builds the port's CUDA kernels from ``eyegaze_tpu_torch/csrc`` with nvcc,
 one process per source, all at once, and prints each kernel's registers and
 spills, and the tensor-core instructions (``HMMA``) in the SASS of each
-instance of the attention kernel: a bf16 instance with none fails the run.
+instance of the attention kernel: an f32 instance that spills or holds any
+(a TF32 product in the f32 path), or a bf16 instance with none, fails the run.
 Then, each phase raising on any failure:
 
 1. K1 (phase metrics) against its plain PyTorch version on the card at the
@@ -22,7 +23,8 @@ Then, each phase raising on any failure:
    entry point at ART's serving shapes (B, 1024, 8, 16) for B = 1, 8, 32 and
    at a ragged (3, 200, 8, 16), in f32 and bf16, the flash entry point at
    (2, 8, 1024, 128) bf16, timed in turns at the serving shapes beside
-   ``F.scaled_dot_product_attention``, a yardstick no path of the port calls:
+   ``F.scaled_dot_product_attention``, a yardstick no path of the port calls
+   (f32 with the query rows per thread the launch picked at each shape):
    one call between CUDA events, 20 back-to-back calls between one pair
    (where the host's enqueue time hides behind the device's work, if the
    device's is longer), and 20 calls captured in a CUDA graph and replayed
@@ -36,8 +38,9 @@ Then, each phase raising on any failure:
 5. ART serving at full width (``ArtConfig()``: 6 + 6 layers, embed 128, ff
    2048, 8 heads, random weights from a seed): ``ArtDenoiser.predict`` on
    (N, 32, 1024) windows for N = 1, 5 and 16.  Every one of the 18 attention
-   calls of each forward launches the head-packed entry point; the card's
-   output for one window matches the same weights run on the CPU.
+   calls of each forward launches the head-packed entry point, with the
+   query rows per thread printed for each bucket; the card's output for one
+   window matches the same weights run on the CPU.
 6. ART served in bf16 compute (``ArtifactRemovalTransformer(dtype=
    torch.bfloat16)``, the JAX ``from_checkpoint`` default), the same weights
    and requests as phase 5: 18 launches of the head-packed entry point's
@@ -508,7 +511,12 @@ def attention_phase(device, clock_hz) -> dict:
                                      "library_ms": library_ms, "ms_back_to_back": ms_b2b,
                                      "library_ms_back_to_back": library_ms_b2b,
                                      "ms_graph": ms_graph, "library_ms_graph": library_ms_graph}
-        print(f"{entry} {shape} {str(dt)[6:]}: kernel median {ms:.4f} ms, twin median "
+        tiling = ""
+        if dt == torch.float32:
+            rows = attention.f32_rows_per_thread(shape[0], shape[2], shape[1], shape[3])
+            times[(entry, shape, dt)]["rows_per_thread"] = rows
+            tiling = f" ({rows} query rows per thread)"
+        print(f"{entry} {shape} {str(dt)[6:]}{tiling}: kernel median {ms:.4f} ms, twin median "
               f"{plain_ms:.4f} ms, F.scaled_dot_product_attention median {library_ms:.4f} ms "
               f"over 20 calls each (CUDA events, one call between them); back to back "
               f"({BACK_TO_BACK} calls between events) kernel {ms_b2b:.4f} ms, library "
@@ -563,6 +571,11 @@ def art_phase(device, dtype=torch.float32):
         return bf16 if dtype == torch.bfloat16 else (
             attention.launch_count["headpacked_attention"] - bf16)
 
+    if dtype == torch.float32:
+        rows = {b: attention.f32_rows_per_thread(b, ATTN_HEADS, WINDOW, ATTN_DK)
+                for b in ART_BUCKETS}
+        print(f"{name}: the f32 attention instance's query rows per thread at each bucket: "
+              f"{rows}")
     first, medians = None, {}
     reset_attention_counts()
     for n in ART_REQUESTS:
@@ -720,10 +733,26 @@ def legacy_phase(device):
     return raw1, raw2, logits, model.state_dict()
 
 
+F32_INSTANCES = {(16, 4), (16, 1), (32, 2), (32, 1), (64, 1), (128, 1)}  # (d, rows per thread)
+BF16_HEAD_DIMS = {16, 32, 64, 128}
+
+
+def assert_no_f32_spill(report: str) -> None:
+    """Raises if nvcc's ptxas report shows a spill in an f32 attention
+    instance (an empty report, from a library built earlier, shows none)."""
+    name = None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "attention_kernel_f32" in line else None
+        elif name and re.search(r"[1-9]\d* bytes spill (stores|loads)", line):
+            raise RuntimeError(f"ptxas spills in {name}: {line.strip()}")
+
+
 def tensor_core_proof(lib) -> dict:
     """HMMA (tensor-core) instructions in the SASS of each instance of the
     attention kernel, from ``cuobjdump --dump-sass`` of the built library.
-    Raises unless every bf16 instance has some."""
+    Raises unless every f32 instance has none (no TF32 product in the f32
+    path) and every bf16 instance has some."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     cuobjdump = Path(CUDA_HOME) / "bin" / "cuobjdump"
@@ -731,19 +760,27 @@ def tensor_core_proof(lib) -> dict:
                           text=True, check=True, timeout=120).stdout
     counts, name = {}, None
     for line in sass.splitlines():
-        header = re.search(r"Function : \S*attention_kernel(_bf16)?I(f)?Li(\d+)E", line)
+        header = re.search(r"Function : \S*attention_kernel_(f32|bf16)ILi(\d+)E(?:Li(\d+)E)?", line)
         if header:
-            name = f"{'bf16' if header.group(1) else 'f32'} d={header.group(3)}"
+            kind, d, rows = header.groups()
+            name = (kind, int(d), int(rows)) if kind == "f32" else (kind, int(d))
             counts[name] = 0
         elif "Function : " in line:
             name = None
         elif name and "HMMA" in line:
             counts[name] += 1
-    print(f"HMMA instructions per attention_kernel instance: {counts}")
-    bf16 = {k: n for k, n in counts.items() if k.startswith("bf16")}
-    if len(bf16) != 4 or not all(bf16.values()):
-        raise RuntimeError(f"a bf16 attention instance runs no tensor-core instruction: {counts}")
-    return counts
+    printable = {(f"f32 d={k[1]} R={k[2]}" if k[0] == "f32" else f"bf16 d={k[1]}"): n
+                 for k, n in counts.items()}
+    print(f"HMMA instructions per attention kernel instance: {printable}")
+    f32 = {k[1:]: n for k, n in counts.items() if k[0] == "f32"}
+    bf16 = {k[1]: n for k, n in counts.items() if k[0] == "bf16"}
+    if set(f32) != F32_INSTANCES or any(f32.values()):
+        raise RuntimeError(f"the f32 attention instances are not the {sorted(F32_INSTANCES)} "
+                           f"without tensor-core instructions: {printable}")
+    if set(bf16) != BF16_HEAD_DIMS or not all(bf16.values()):
+        raise RuntimeError(f"a bf16 attention instance runs no tensor-core instruction: "
+                           f"{printable}")
+    return printable
 
 
 def main() -> None:
@@ -774,6 +811,7 @@ def main() -> None:
         for line in report.splitlines():
             if "Compiling entry function" in line or "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
+    assert_no_f32_spill(built["attention"][1])
     tensor_core_proof(built["attention"][0])
 
     from eyegaze_tpu_torch.kernels import attention

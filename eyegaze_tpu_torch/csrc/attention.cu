@@ -17,10 +17,11 @@
 // strides of the batch, time and head axes; the head dim must have stride 1.
 // The TPU kernel keeps a whole (128, Tk) f32 score tile in VMEM, 512 KB at
 // Tk = 1024, more than twice the 227 KB of shared memory a Hopper block may
-// use.  Here nothing of size Tk is kept: a block owns 64 query rows of one
-// (b, h), walks the keys in tiles staged in shared memory and runs an online
-// softmax over them (a running max and sum per row; the output sums are
-// rescaled when the max grows), so any Tk works.  The exponentials are base
+// use.  Here nothing of size Tk is kept: a block owns 64 query rows (64 R in
+// the f32 instance) of one (b, h), walks the keys in tiles staged in shared
+// memory, two at a time, and runs an online softmax over them (a running max
+// and sum per row; the output sums are rescaled when the max grows), so any
+// Tk works.  The exponentials are base
 // 2 with log2(e) folded into the scale.  Each probability is rounded before
 // the PV product as the plain version rounds it, but unnormalised (divided
 // by the row sum at the end), so the two differ by at most one bf16 rounding
@@ -32,16 +33,33 @@
 // of Q, K, V and O (at ART's (32, 8, 1024, 16), 17 GFLOP and 268 M
 // exponentials against 8 MB in f32), so operations, never device memory.
 //
-// f32 (attention_kernel<float, D>): the FMAs on the CUDA cores (67 TFLOP/s;
-// TF32 tensor cores would change the numerics).  Each thread owns one query
-// row, or a 32-wide slice of it when d > 32 (at d = 128 a whole row would
-// take q (128), the output sums (128) and the tile's 32 scores in registers,
-// over the 255 a thread may have); the d / 32 threads of a row are
-// neighbours in one warp and add their partial dot products with shuffles.
-// Keys come in tiles of 32, staged as f32; each 32-wide slice of a staged row
-// sits 4 floats from the next, so the slices a warp reads at once fall in
-// different banks, and all threads of one slice read the same address (a
-// broadcast), 16 bytes at a time.
+// f32 (attention_kernel_f32<D, R>): the FMAs on the CUDA cores (67 TFLOP/s;
+// TF32 tensor cores would change the numerics, and no f32 instance holds a
+// tensor-core instruction).  A score costs 2 d FMAs, so the FMA pipe, and the
+// issue slots it shares with every other instruction, set the pace: the
+// design spends as few non-FMA instructions per score as it can.
+//   Rows per thread: a thread owns R query rows (R = 4 at d = 16, 2 at d =
+//   32), keeping their q and output sums in registers, so each 16-byte load
+//   of a staged key feeds 4 R FMAs (one row fed 4, and the loads took about a
+//   fifth of the issue slots).  A block is 64 row groups, 64 R rows.  Above
+//   d = 32, R = 1 and a row is split over d / 32 neighbouring threads that
+//   add their partial dot products with shuffles (q and the sums of a whole
+//   row at d = 128 would take 256 of a thread's 255 registers).  At R > 1 a
+//   small grid leaves SMs idle (ART's B = 1 gives 32 blocks at R = 4), so the
+//   launch takes R > 1 only where that grid gives each SM a block, else R = 1.
+//   Staging: K and V come in tiles of 64 keys (2048 / d above d = 32), staged
+//   as f32 by 16-byte cp.async copies into two buffers, so tile j + 1 loads
+//   while tile j computes.  When a K or V row is not 16-byte aligned (a
+//   pointer or a stride that is not a multiple of 4 floats) the same tiles
+//   are staged element by element instead.  Every lane of a warp reads the
+//   same staged key (a broadcast); above d = 32 each 32-wide slice of a
+//   staged key sits 4 floats from the next, so the slices read at once fall
+//   in different banks.
+//   Softmax: the keys of a tile go in chunks of 16 (8 at R = 4, for
+//   registers): R x chunk raw scores, the chunk max, one rescale of the sums,
+//   then per score one FFMA (scale and max folded; a negative scale flips
+//   q's sign, as in the bf16 instance) and one ex2.approx on the SFU.  Keys
+//   past tk are masked only in the last tile.
 //
 // bf16 (attention_kernel_bf16<D>): the tensor cores (989 TFLOP/s dense), and
 // at d = 16, where a score costs 32 tensor-core operations, the exponentials:
@@ -79,125 +97,9 @@
 
 namespace {
 
-constexpr int kRows = 64;  // query rows per block
-constexpr int kKeys = 32;  // keys per staged tile
-constexpr int kPad = 4;    // floats between the 32-wide slices of a staged row
-
-template <int D>
-struct Split {
-  static constexpr int kSlice = D < 32 ? D : 32;  // dims of a row per thread
-  static constexpr int kParts = D / kSlice;       // threads per query row
-  static constexpr int kPitch = kParts * (kSlice + kPad);  // floats per staged key
-  static constexpr int kThreads = kRows * kParts;
-  static_assert(D % kSlice == 0 && kSlice % 4 == 0, "head dim");
-};
-
 struct Strides {
   long long b, t, h;  // element strides of the batch, time and head axes
 };
-
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-// A probability rounded to the operand type (round to nearest even).
-__device__ __forceinline__ float as_operand(float x, const float*) { return x; }
-
-template <typename T, int D>
-__global__ void __launch_bounds__(Split<D>::kThreads)
-attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, Strides sq, Strides sk, Strides sv, Strides so,
-                 int tq, int tk, float scale_log2) {
-  using S = Split<D>;
-  constexpr int kSlice = S::kSlice;
-  __shared__ __align__(16) float k_s[kKeys * S::kPitch];
-  __shared__ __align__(16) float v_s[kKeys * S::kPitch];
-
-  const int tid = threadIdx.x;
-  const int part = tid % S::kParts;
-  const int i = blockIdx.x * kRows + tid / S::kParts;  // query row
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const bool live = i < tq;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
-
-  float qr[kSlice];
-  float acc[kSlice];
-  {
-    const T* qrow = q + b * sq.b + (long long)(live ? i : 0) * sq.t + h * sq.h + part * kSlice;
-#pragma unroll
-    for (int c = 0; c < kSlice; ++c) {
-      qr[c] = live ? load_f32(qrow + c) : 0.f;
-      acc[c] = 0.f;
-    }
-  }
-  float m = -INFINITY;  // running max of the scores (base 2)
-  float l = 0.f;        // running sum of exp2(s - m)
-
-  for (int j0 = 0; j0 < tk; j0 += kKeys) {
-    for (int e = tid; e < kKeys * D; e += S::kThreads) {
-      const int jj = e / D;
-      const int dd = e % D;
-      const int j = j0 + jj;
-      const int at = jj * S::kPitch + (dd / kSlice) * (kSlice + kPad) + dd % kSlice;
-      k_s[at] = j < tk ? load_f32(kb + j * sk.t + dd) : 0.f;
-      v_s[at] = j < tk ? load_f32(vb + j * sv.t + dd) : 0.f;
-    }
-    __syncthreads();
-
-    float s[kKeys];
-    float tile_max = -INFINITY;
-#pragma unroll
-    for (int jj = 0; jj < kKeys; ++jj) {
-      const float4* kr =
-          reinterpret_cast<const float4*>(k_s + jj * S::kPitch + part * (kSlice + kPad));
-      float dot = 0.f;
-#pragma unroll
-      for (int c = 0; c < kSlice / 4; ++c) {
-        const float4 kk = kr[c];
-        dot = fmaf(qr[4 * c], kk.x, dot);
-        dot = fmaf(qr[4 * c + 1], kk.y, dot);
-        dot = fmaf(qr[4 * c + 2], kk.z, dot);
-        dot = fmaf(qr[4 * c + 3], kk.w, dot);
-      }
-#pragma unroll
-      for (int off = S::kParts / 2; off > 0; off /= 2) {
-        dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      }
-      s[jj] = j0 + jj < tk ? dot * scale_log2 : -INFINITY;
-      tile_max = fmaxf(tile_max, s[jj]);
-    }
-
-    const float m_new = fmaxf(m, tile_max);  // finite: every tile holds a key
-    const float alpha = exp2f(m - m_new);    // 0 on the first tile
-    l *= alpha;
-#pragma unroll
-    for (int c = 0; c < kSlice; ++c) acc[c] *= alpha;
-#pragma unroll
-    for (int jj = 0; jj < kKeys; ++jj) {
-      const float p = exp2f(s[jj] - m_new);
-      l += p;
-      const float pv = as_operand(p, k);
-      const float4* vr =
-          reinterpret_cast<const float4*>(v_s + jj * S::kPitch + part * (kSlice + kPad));
-#pragma unroll
-      for (int c = 0; c < kSlice / 4; ++c) {
-        const float4 vv = vr[c];
-        acc[4 * c] = fmaf(pv, vv.x, acc[4 * c]);
-        acc[4 * c + 1] = fmaf(pv, vv.y, acc[4 * c + 1]);
-        acc[4 * c + 2] = fmaf(pv, vv.z, acc[4 * c + 2]);
-        acc[4 * c + 3] = fmaf(pv, vv.w, acc[4 * c + 3]);
-      }
-    }
-    m = m_new;
-    __syncthreads();
-  }
-
-  if (live) {
-    T* orow = o + b * so.b + (long long)i * so.t + h * so.h + part * kSlice;
-#pragma unroll
-    for (int c = 0; c < kSlice; ++c) store(orow + c, acc[c] / l);
-  }
-}
 
 // ---- bf16 on the tensor cores ----
 
@@ -450,15 +352,288 @@ attention_kernel_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, Strides sq,
-                   Strides sk, Strides sv, Strides so, int b, int h, int tq, int tk,
-                   float scale_log2, cudaStream_t stream) {
-  const dim3 grid((tq + kRows - 1) / kRows, h, b);
-  attention_kernel<T, D><<<grid, Split<D>::kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), sq, sk, sv, so, tq, tk, scale_log2);
+// ---- f32 on the CUDA cores ----
+
+namespace cc {
+
+constexpr int kGroups = 64;  // row groups per block; a group is the kParts threads of a row
+
+// Query rows per thread where the grid allows more than one: 4 at d = 16 and 2
+// at d = 32, so that each 16-byte load of a staged key feeds 4 R FMAs; 1 at
+// d = 64 and 128, whose rows are split over threads and which no served path
+// runs in f32.
+constexpr int wide_rows(int d) { return d == 16 ? 4 : d == 32 ? 2 : 1; }
+
+template <int D, int R>
+struct Tiling {
+  static constexpr int kSlice = D < 32 ? D : 32;           // dims of a row per thread
+  static constexpr int kParts = D / kSlice;                // threads per query row
+  static constexpr int kThreads = kGroups * kParts;
+  static constexpr int kRows = kGroups * R;                // query rows per block
+  static constexpr int kKeys = D <= 32 ? 64 : 2048 / D;    // keys per staged tile
+  static constexpr int kChunk = 32 / R < 16 ? 32 / R : 16; // keys per softmax step
+  static constexpr int kPad = kParts > 1 ? 4 : 0;          // floats between the slices of a key
+  static constexpr int kPitch = kParts * (kSlice + kPad);  // floats per staged key
+  static constexpr int kTile = kKeys * kPitch;             // floats per stage
+  static constexpr int kVecs = kKeys * D / 4;              // 16-byte copies per stage
+  static_assert(D % kSlice == 0 && kSlice % 4 == 0, "head dim");
+  static_assert(kKeys % kChunk == 0 && kVecs % kThreads == 0, "tiling");
+  __device__ static __forceinline__ int at(int key, int dim) {  // float offset in a stage
+    return key * kPitch + (dim / kSlice) * (kSlice + kPad) + dim % kSlice;
+  }
+};
+
+// Keys j0 .. j0 + kKeys - 1 of a (tk, D) f32 matrix with row stride `st` into
+// a stage; keys past tk become zeros.  With `vec` (every row 16-byte aligned)
+// by 16-byte cp.async copies, else element by element and synchronously.
+template <int D, int R>
+__device__ __forceinline__ void stage(float* dst, const float* src, long long st, int j0, int tk,
+                                      bool vec) {
+  using L = Tiling<D, R>;
+  if (vec) {  // kept a loop: unrolled, four f32 instances spilled
+#pragma unroll 1
+    for (int i = 0; i < L::kVecs / L::kThreads; ++i) {
+      const int e = threadIdx.x + i * L::kThreads;
+      const int key = e / (D / 4);
+      const int dim = e % (D / 4) * 4;
+      const bool valid = j0 + key < tk;
+      tc::cp_async16(dst + L::at(key, dim), src + (valid ? j0 + key : 0) * st + dim, valid);
+    }
+  } else {
+    for (int e = threadIdx.x; e < L::kKeys * D; e += L::kThreads) {
+      const int key = e / D;
+      const int dim = e % D;
+      dst[L::at(key, dim)] = j0 + key < tk ? src[(j0 + key) * st + dim] : 0.f;
+    }
+  }
+}
+
+}  // namespace cc
+
+// One block per SM is enough (the wide tiling is taken only where the grid
+// fills the SMs): without that bound ptxas kept some instances to fewer
+// registers, and they spilled.
+template <int D, int R>
+__global__ void __launch_bounds__(cc::Tiling<D, R>::kThreads, 1)
+attention_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, Strides sq, Strides sk,
+                     Strides sv, Strides so, int tq, int tk, float scale_log2, bool vec) {
+  using L = cc::Tiling<D, R>;
+  constexpr int kSlice = L::kSlice;
+  constexpr int kChunk = L::kChunk;
+  __shared__ __align__(16) float k_s[2 * L::kTile];  // two stages
+  __shared__ __align__(16) float v_s[2 * L::kTile];
+
+  const int part = threadIdx.x % L::kParts;
+  const int row0 = blockIdx.x * L::kRows + threadIdx.x / L::kParts;  // rows row0 + 64 r
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+
+  cc::stage<D, R>(k_s, kb, sk.t, 0, tk, vec);
+  cc::stage<D, R>(v_s, vb, sv.t, 0, tk, vec);
+  tc::cp_async_commit();
+
+  // As in the bf16 instance, a negative scale flips the sign of Q (exact), so
+  // the max of the raw scores is the max of the scaled ones.
+  const float sc = fabsf(scale_log2);
+  const float q_sign = scale_log2 < 0.f ? -1.f : 1.f;
+  float qr[R][kSlice];
+  float acc[R][kSlice];  // unnormalised output sums
+  float m[R];            // running max of the scaled scores (base 2)
+  float l[R];            // running sum of exp2(s - m)
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = row0 + cc::kGroups * r;
+    const bool live = i < tq;
+    const float* qrow = q + b * sq.b + (long long)(live ? i : 0) * sq.t + h * sq.h + part * kSlice;
+#pragma unroll
+    for (int c = 0; c < kSlice; ++c) {
+      qr[r][c] = live ? q_sign * qrow[c] : 0.f;
+      acc[r][c] = 0.f;
+    }
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+  }
+
+  const int tiles = (tk + L::kKeys - 1) / L::kKeys;
+  for (int j = 0; j < tiles; ++j) {
+    const int cur = j & 1;
+    if (j + 1 < tiles) {  // the next tile loads while this one computes
+      const int at = (j + 1) * L::kKeys;
+      cc::stage<D, R>(k_s + (cur ^ 1) * L::kTile, kb, sk.t, at, tk, vec);
+      cc::stage<D, R>(v_s + (cur ^ 1) * L::kTile, vb, sv.t, at, tk, vec);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    const float* ks = k_s + cur * L::kTile + part * (kSlice + L::kPad);
+    const float* vs = v_s + cur * L::kTile + part * (kSlice + L::kPad);
+    const int keys = min(L::kKeys, tk - j * L::kKeys);  // keys before tk in this tile
+#pragma unroll 1
+    for (int c0 = 0; c0 < keys; c0 += kChunk) {
+      const bool ragged = c0 + kChunk > keys;  // only in the last tile
+
+      // Raw scores of R rows and kChunk keys.  All lanes of a row slice read
+      // the same staged key: a broadcast, 16 bytes at a time.
+      float s[R][kChunk];
+#pragma unroll
+      for (int jj = 0; jj < kChunk; ++jj) {
+        const float4* kr = reinterpret_cast<const float4*>(ks + (c0 + jj) * L::kPitch);
+#pragma unroll
+        for (int r = 0; r < R; ++r) s[r][jj] = 0.f;
+#pragma unroll
+        for (int c = 0; c < kSlice / 4; ++c) {
+          const float4 kk = kr[c];
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            s[r][jj] = fmaf(qr[r][4 * c], kk.x, s[r][jj]);
+            s[r][jj] = fmaf(qr[r][4 * c + 1], kk.y, s[r][jj]);
+            s[r][jj] = fmaf(qr[r][4 * c + 2], kk.z, s[r][jj]);
+            s[r][jj] = fmaf(qr[r][4 * c + 3], kk.w, s[r][jj]);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int off = L::kParts / 2; off > 0; off /= 2)
+            s[r][jj] += __shfl_xor_sync(0xffffffffu, s[r][jj], off);
+      }
+      if (ragged) {  // keys past tk take no part in the max
+#pragma unroll
+        for (int jj = 0; jj < kChunk; ++jj)
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            if (c0 + jj >= keys) s[r][jj] = -INFINITY;
+      }
+
+      // Online softmax: one rescale of the sums per chunk, then per score one
+      // FFMA (scale and max folded) and one ex2.
+      float neg_m[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float mx = s[r][0];
+#pragma unroll
+        for (int jj = 1; jj < kChunk; ++jj) mx = fmaxf(mx, s[r][jj]);
+        const float m_new = fmaxf(m[r], mx * sc);  // finite: the chunk holds a key before tk
+        const float alpha = tc::ex2(m[r] - m_new);  // 0 on the first chunk
+        m[r] = m_new;
+        neg_m[r] = -m_new;
+        l[r] *= alpha;
+#pragma unroll
+        for (int c = 0; c < kSlice; ++c) acc[r][c] *= alpha;
+      }
+#pragma unroll
+      for (int jj = 0; jj < kChunk; ++jj)
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float p = tc::ex2(fmaf(s[r][jj], sc, neg_m[r]));
+          if (ragged && c0 + jj >= keys) p = 0.f;  // NaN when sc = 0
+          s[r][jj] = p;
+          l[r] += p;
+        }
+
+      // O += P V, each staged value row feeding R rows.
+#pragma unroll
+      for (int jj = 0; jj < kChunk; ++jj) {
+        const float4* vr = reinterpret_cast<const float4*>(vs + (c0 + jj) * L::kPitch);
+#pragma unroll
+        for (int c = 0; c < kSlice / 4; ++c) {
+          const float4 vv = vr[c];
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            acc[r][4 * c] = fmaf(s[r][jj], vv.x, acc[r][4 * c]);
+            acc[r][4 * c + 1] = fmaf(s[r][jj], vv.y, acc[r][4 * c + 1]);
+            acc[r][4 * c + 2] = fmaf(s[r][jj], vv.z, acc[r][4 * c + 2]);
+            acc[r][4 * c + 3] = fmaf(s[r][jj], vv.w, acc[r][4 * c + 3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // this stage is overwritten by the load of tile j + 2
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = row0 + cc::kGroups * r;
+    if (i < tq) {
+      float* orow = o + b * so.b + (long long)i * so.t + h * so.h + part * kSlice;
+#pragma unroll
+      for (int c = 0; c < kSlice; ++c) orow[c] = acc[r][c] / l[r];
+    }
+  }
+}
+
+// Query rows per thread of a float32 launch: the wide tiling where its grid
+// still gives each of the device's `sms` SMs a block, else one.
+int f32_rows_per_thread(int b, int h, int tq, int d, int sms) {
+  const int wide = cc::wide_rows(d);
+  const long long row_blocks = (tq + cc::kGroups * wide - 1) / (cc::kGroups * wide);
+  return row_blocks * h * b >= sms ? wide : 1;
+}
+
+cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+template <int D, int R>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, Strides sq,
+                       Strides sk, Strides sv, Strides so, int b, int h, int tq, int tk,
+                       float scale_log2, bool vec, cudaStream_t stream) {
+  using L = cc::Tiling<D, R>;
+  const dim3 grid((tq + L::kRows - 1) / L::kRows, h, b);
+  attention_kernel_f32<D, R><<<grid, L::kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), sq, sk, sv, so, tq, tk, scale_log2, vec);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_f32_rows(int rows, const void* q, const void* k, const void* v, void* o,
+                            Strides sq, Strides sk, Strides sv, Strides so, int b, int h, int tq,
+                            int tk, float scale_log2, bool vec, cudaStream_t stream) {
+  constexpr int kWide = cc::wide_rows(D);
+  if (rows == kWide) {
+    return launch_f32<D, kWide>(q, k, v, o, sq, sk, sv, so, b, h, tq, tk, scale_log2, vec, stream);
+  }
+  return launch_f32<D, 1>(q, k, v, o, sq, sk, sv, so, b, h, tq, tk, scale_log2, vec, stream);
+}
+
+bool rows_aligned16(const void* p, Strides s) {  // every row of a 4-byte type on 16 bytes
+  return reinterpret_cast<unsigned long long>(p) % 16 == 0 && s.b % 4 == 0 && s.t % 4 == 0 &&
+         s.h % 4 == 0;
+}
+
+cudaError_t launch_f32_for_dim(int d, const void* q, const void* k, const void* v, void* o,
+                               Strides sq, Strides sk, Strides sv, Strides so, int b, int h,
+                               int tq, int tk, float scale_log2, cudaStream_t stream) {
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const int rows = f32_rows_per_thread(b, h, tq, d, sms);
+  const bool vec = rows_aligned16(k, sk) && rows_aligned16(v, sv);
+  switch (d) {
+    case 16:
+      return launch_f32_rows<16>(rows, q, k, v, o, sq, sk, sv, so, b, h, tq, tk, scale_log2, vec,
+                                 stream);
+    case 32:
+      return launch_f32_rows<32>(rows, q, k, v, o, sq, sk, sv, so, b, h, tq, tk, scale_log2, vec,
+                                 stream);
+    case 64:
+      return launch_f32_rows<64>(rows, q, k, v, o, sq, sk, sv, so, b, h, tq, tk, scale_log2, vec,
+                                 stream);
+    case 128:
+      return launch_f32_rows<128>(rows, q, k, v, o, sq, sk, sv, so, b, h, tq, tk, scale_log2,
+                                  vec, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <int D>
@@ -484,19 +659,6 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, St
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), sq, sk, sv, so, tq, tk, scale_log2);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_for_dim(int d, const void* q, const void* k, const void* v, void* o,
-                           Strides sq, Strides sk, Strides sv, Strides so, int b, int h,
-                           int tq, int tk, float scale_log2, cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, sq, sk, sv, so, b, h, tq, tk, scale_log2, stream);
-    case 32: return launch<T, 32>(q, k, v, o, sq, sk, sv, so, b, h, tq, tk, scale_log2, stream);
-    case 64: return launch<T, 64>(q, k, v, o, sq, sk, sv, so, b, h, tq, tk, scale_log2, stream);
-    case 128: return launch<T, 128>(q, k, v, o, sq, sk, sv, so, b, h, tq, tk, scale_log2, stream);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 cudaError_t launch_bf16_for_dim(int d, const void* q, const void* k, const void* v, void* o,
@@ -528,11 +690,19 @@ extern "C" int attention_launch(const void* q, const void* k, const void* v, voi
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = launch_for_dim<float>(d, q, k, v, o, sq, sk, sv, so, b, h, tq, tk, scale_log2, s);
+    err = launch_f32_for_dim(d, q, k, v, o, sq, sk, sv, so, b, h, tq, tk, scale_log2, s);
   } else if (dtype == 1) {
     err = launch_bf16_for_dim(d, q, k, v, o, sq, sk, sv, so, b, h, tq, tk, scale_log2, s);
   } else {
     err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// Query rows per thread that attention_launch gives a float32 call of this
+// shape on the current device (1, 2 or 4), or -1 if the device cannot be read.
+extern "C" int attention_f32_rows_per_thread(int b, int h, int tq, int d) {
+  int sms = 0;
+  if (sm_count(&sms) != cudaSuccess) return -1;
+  return f32_rows_per_thread(b, h, tq, d, sms);
 }

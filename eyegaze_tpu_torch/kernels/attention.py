@@ -19,15 +19,19 @@ What bounds it on an H100: 4 * B * H * Tq * Tk * d matmul operations and
 B * H * Tq * Tk exponentials (about 17 GFLOP and 268 M at ART's B = 32,
 T = 1024, H = 8, d = 16) against only the bytes of Q, K, V and the output,
 so operations, not device memory.  The f32 instance runs its FMAs on the
-CUDA cores; the bf16 instance runs both products on the tensor cores
+CUDA cores, each thread holding 4 query rows at d = 16 and 2 at d = 32 where
+the grid still fills the card (``f32_rows_per_thread`` says which tiling a
+call gets); the bf16 instance runs both products on the tensor cores
 (``mma.sync``), and at d = 16 its exponentials, all on the SFU, take longer
 than the products (the card's floor is lower: the FMA pipes could compute
 part of them as a polynomial).  The plain twin instead writes and reads
 the (B, H, Tq, Tk) f32 score tensor (1 GiB at that shape) several times.
-All three times sit in PERF.md.  A bf16 launch stages rows with 16-byte copies, so it wants
-16-byte aligned pointers and batch, time and head strides that are
-multiples of 8 elements; every layout the model's projections give has
-them, and the wrapper raises for the rest.
+All three times sit in PERF.md.  Both instances stage K and V rows with
+16-byte copies.  A bf16 launch wants 16-byte aligned pointers and batch,
+time and head strides that are multiples of 8 elements; every layout the
+model's projections give has them, and the wrapper raises for the rest.  An
+f32 launch whose K or V rows are not 16-byte aligned stages them element by
+element instead.
 
 A CPU tensor goes to the plain twin ``attention_reference``; a CUDA tensor
 launches the kernel, or raises.  The kernel has no backward: a CUDA input
@@ -68,13 +72,33 @@ def attention_reference(q, k, v, scale: float):
     return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
 
 
-@functools.cache
-def _launcher():
-    fn = build.load("attention").attention_launch
+def bind(lib: ctypes.CDLL):
+    """The C entry point ``attention_launch`` of a built attention library."""
+    fn = lib.attention_launch
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    return build.load("attention")
+
+
+@functools.cache
+def _launcher():
+    return bind(_library())
+
+
+def f32_rows_per_thread(b: int, h: int, tq: int, d: int) -> int:
+    """Query rows per thread (1, 2 or 4) of the f32 instance for a call with
+    batch ``b``, ``h`` heads, ``tq`` queries and head dim ``d`` on the
+    current CUDA device: the launch's own choice, read from the library."""
+    rows = _library().attention_f32_rows_per_thread(b, h, tq, d)
+    if rows < 1:
+        raise RuntimeError("attention_f32_rows_per_thread could not read the device")
+    return rows
 
 
 def _check(q, k, v, t_dim: int) -> None:
@@ -98,6 +122,19 @@ def _check(q, k, v, t_dim: int) -> None:
         raise ValueError("attention over zero keys is undefined")
 
 
+def launch_args(q, k, v, out, scale: float, t_dim: int, h_dim: int) -> tuple:
+    """``attention_launch``'s arguments for a call on the current stream with
+    each tensor's own strides; raises for bf16 rows that are not 16-byte aligned."""
+    ptrs = [x.data_ptr() for x in (q, k, v, out)]
+    strides = [s[a] for s in (x.stride() for x in (q, k, v, out)) for a in (0, t_dim, h_dim)]
+    if q.dtype == torch.bfloat16 and (any(s % 8 for s in strides) or any(p % 16 for p in ptrs)):
+        raise ValueError("a bf16 launch wants 16-byte aligned rows: pointers aligned to "
+                         "16 bytes and batch, time and head strides multiples of 8")
+    return (*ptrs, _DTYPE_CODE[q.dtype], q.shape[0], q.shape[h_dim], q.shape[t_dim],
+            k.shape[t_dim], q.shape[-1], *strides, scale,
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
 def _launch(entry: str, q, k, v, scale: float, t_dim: int, h_dim: int):
     """Launch the kernel on the current stream; the output has q's strides."""
     if q.device.type != "cuda":
@@ -114,13 +151,7 @@ def _launch(entry: str, q, k, v, scale: float, t_dim: int, h_dim: int):
     out = torch.empty_like(q)  # same strides as q: the caller's layout
     if out.numel() == 0:
         return out
-    strides = [s[a] for s in (x.stride() for x in (q, k, v, out)) for a in (0, t_dim, h_dim)]
-    ptrs = [x.data_ptr() for x in (q, k, v, out)]
-    if q.dtype == torch.bfloat16 and (any(s % 8 for s in strides) or any(p % 16 for p in ptrs)):
-        raise ValueError("a bf16 launch wants 16-byte aligned rows: pointers aligned to "
-                         "16 bytes and batch, time and head strides multiples of 8")
-    args = (*ptrs, _DTYPE_CODE[q.dtype], b, h, tq, tk, d, *strides, scale,
-            torch.cuda.current_stream(q.device).cuda_stream)
+    args = launch_args(q, k, v, out, scale, t_dim, h_dim)
     if q.device.index == torch.cuda.current_device():
         err = _launcher()(*args)
     else:  # the runtime launches on its current device

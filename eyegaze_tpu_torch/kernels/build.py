@@ -5,7 +5,8 @@ into a shared library without PyTorch's headers, and ``ctypes`` loads it.
 The library lands in ``eyegaze_tpu_torch/_build/``, named by a hash of the
 source and the flags, so an edited source is rebuilt and an unchanged one is
 built once per checkout.  ``build_all`` starts one nvcc per source, all at
-once.
+once; ``build_sources`` does the same for sources elsewhere (another
+version of a kernel, timed beside this one).
 """
 
 from __future__ import annotations
@@ -34,24 +35,24 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def _library(name: str) -> Tuple[Path, Path]:
-    src = CSRC / f"{name}.cu"
+def _library(src: Path) -> Path:
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, BUILD_DIR / f"{name}-{digest}.so"
+    return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 
-def build_all(names: Iterable[str]) -> Dict[str, Tuple[Path, str]]:
-    """Compile each ``csrc/<name>.cu`` whose library is missing, one nvcc
-    process per source, all started together.
+def build_sources(sources: Dict[str, Path]) -> Dict[str, Tuple[Path, str]]:
+    """Compile each source whose library is missing, one nvcc process per
+    source, all started together.
 
-    Returns, per name, the library's path and nvcc's report (register and
-    shared-memory use from ``-Xptxas -v``; empty when the library was already
-    built).  Waits for every process before raising on a failed build.
+    Returns, per key of ``sources``, the library's path and nvcc's report
+    (register and shared-memory use from ``-Xptxas -v``; empty when the
+    library was already built).  Waits for every process before raising on a
+    failed build.
     """
     results: Dict[str, Tuple[Path, str]] = {}
     jobs = {}
-    for name in names:
-        src, lib = _library(name)
+    for name, src in sources.items():
+        lib = _library(src)
         if lib.exists():
             results[name] = (lib, "")
             continue
@@ -71,6 +72,11 @@ def build_all(names: Iterable[str]) -> Dict[str, Tuple[Path, str]]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return results
+
+
+def build_all(names: Iterable[str]) -> Dict[str, Tuple[Path, str]]:
+    """``build_sources`` of ``csrc/<name>.cu`` for each name."""
+    return build_sources({name: CSRC / f"{name}.cu" for name in names})
 
 
 def build(name: str) -> Tuple[Path, str]:

@@ -60,6 +60,8 @@ class Predictor:
 
     @torch.inference_mode()
     def _forward(self, eeg1: torch.Tensor, eeg2: torch.Tensor) -> torch.Tensor:
+        # float32 whatever the request's type, as the JAX Predictor places it.
+        eeg1, eeg2 = eeg1.float(), eeg2.float()
         if self.preprocess:
             eeg1 = zscore(common_average_reference(eeg1))
             eeg2 = zscore(common_average_reference(eeg2))
@@ -74,8 +76,9 @@ class Predictor:
             torch.cuda.synchronize(self.device)
 
     def predict(self, eeg1, eeg2) -> Dict[str, np.ndarray]:
-        """(N, C, T) pairs, numpy or tensors -> {'logits', 'probs', 'preds',
-        'labels'} for any N (padded to the next bucket, chunked above the largest)."""
+        """(N, C, T) pairs, numpy or tensors of any float type, served as
+        float32 -> {'logits', 'probs', 'preds', 'labels'} for any N (padded to
+        the next bucket, chunked above the largest)."""
         logits = _predict_batched(self._forward, self.buckets, eeg1, eeg2,
                                   device=self.device)
         return _logits_to_output(logits)

@@ -145,6 +145,21 @@ def test_denoiser_matches_jax(params, zscore):
                                    rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_denoiser_serves_float64_as_float32(dtype):
+    """A float64 numpy request is served as float32 in either compute type:
+    its output is that of the same request given as float32."""
+    tm = ArtifactRemovalTransformer(ArtConfig(**GEOMETRY), device=CPU,
+                                    dtype=getattr(torch, dtype),
+                                    generator=torch.Generator().manual_seed(2))
+    den = ArtDenoiser(tm, device=CPU, batch_buckets=(2, 4))
+    noisy = np.random.default_rng(7).normal(size=(3, C, T))
+    assert noisy.dtype == np.float64
+    got = den.predict(noisy)["denoised"]
+    assert got.dtype == np.float32 and got.shape == (3, C, T)
+    np.testing.assert_array_equal(got, den.predict(noisy.astype(np.float32))["denoised"])
+
+
 
 # bf16 compute: ART's 2 + 2 layers, embed 32, 4 heads, T = 128.
 BF16_T = 128

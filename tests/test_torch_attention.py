@@ -237,31 +237,46 @@ def _card():
     return torch.device("cuda", 0)
 
 
-# (B, Tq, H, d) and Tk (None: Tq): every head dim, and Tq, Tk in {1, 200,
-# 1000, 1024}, ragged against the kernel's 64-row and 64- or 32-key tiles.
+# (B, Tq, H, d) and Tk (None: Tq): every head dim, and Tq, Tk in {1, 65, 200,
+# 257, 1000, 1024}, ragged against the bf16 instance's 64-row, 64-key tiles
+# and the f32 instance's 64 R-row blocks, 64-key tiles (fewer at d >= 64)
+# and 8- or 16-key softmax chunks.
 KERNEL_CASES = {
     "art": ((8, 1024, 8, 16), None),
+    "d16_b1": ((1, 1024, 8, 16), None),
     "ragged": ((3, 200, 8, 16), None),
+    "d16_tq257_tk65": ((16, 257, 8, 16), 65),
+    "d16_tq1_tk1024": ((3, 1, 8, 16), 1024),
     "d64": ((2, 256, 4, 64), None),
     "d16_tq1_tk1": ((3, 1, 8, 16), 1),
+    "d32_tq1000": ((8, 1000, 4, 32), None),
     "d32_tq1000_tk1024": ((2, 1000, 4, 32), 1024),
     "d32_tq1024_tk200": ((2, 1024, 4, 32), 200),
     "d64_tq1_tk1000": ((2, 1, 4, 64), 1000),
     "d128_tq200_tk1": ((2, 200, 2, 128), 1),
     "d128_tq1024_tk1000": ((2, 1024, 2, 128), 1000),
 }
+# The f32 launch's query rows per thread: 4 at d = 16 and 2 at d = 32 where
+# that grid still gives every SM a block (256 blocks here, against 132 SMs
+# on an H100), else 1 (24-64 blocks).
+F32_ROWS_PER_THREAD = {"art": 4, "d16_b1": 1, "d16_tq257_tk65": 4, "d16_tq1_tk1024": 1,
+                       "d32_tq1000": 2, "d32_tq1000_tk1024": 1}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape,kv_len", list(KERNEL_CASES.values()), ids=list(KERNEL_CASES))
-def test_headpacked_kernel_matches_twin_on_card(shape, kv_len, dtype):
+@pytest.mark.parametrize("case", list(KERNEL_CASES))
+def test_headpacked_kernel_matches_twin_on_card(case, dtype):
     """f32: 1e-5, relative and absolute (the sums differ in order; an output
     near zero is a sum that cancels, whose error scales with its O(1) terms).
     bf16: within the rounding bound of ``_assert_within_bf16_bound``."""
     dev = _card()
+    shape, kv_len = KERNEL_CASES[case]
     x = [torch.from_numpy(a).to(dev, getattr(torch, dtype))
          for a in _qkv(shape, seed=7, kv_len=kv_len)]
+    if dtype == "float32" and case in F32_ROWS_PER_THREAD:
+        b, tq, h, d = shape
+        assert attention.f32_rows_per_thread(b, h, tq, d) == F32_ROWS_PER_THREAD[case]
     before = attention.launch_count["headpacked_attention"]
     before_bf16 = attention.bf16_launch_count["headpacked_attention"]
     got = attention.headpacked_attention(*x, 0.25)
@@ -276,6 +291,28 @@ def test_headpacked_kernel_matches_twin_on_card(shape, kv_len, dtype):
     else:
         terms = attention.attention_reference(q, k, v.abs(), 0.25).transpose(1, 2)
         _assert_within_bf16_bound(got, want, terms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [8, 1], ids=["wide_rows", "one_row"])
+def test_f32_kernel_stages_unaligned_rows_on_card(batch):
+    """Head-packed f32 views into (B, T, H * d + 2) tensors: a time stride of
+    130 floats, not a multiple of 4, so K and V rows are not 16-byte aligned
+    and the kernel stages them element by element; a negative scale and a
+    ragged Tk (1000) besides, at 4 and at 1 query rows per thread."""
+    dev = _card()
+    t, h, d = 1000, 8, 16
+    r = np.random.default_rng(10)
+    x = [torch.from_numpy(r.normal(size=(batch, t, h * d + 2)).astype(np.float32)).to(dev)
+         [..., :h * d].unflatten(-1, (h, d)) for _ in range(3)]
+    assert x[1].stride(1) == h * d + 2 and x[1].stride(1) % 4 != 0
+    assert attention.f32_rows_per_thread(batch, h, t, d) == (4 if batch == 8 else 1)
+    before = attention.launch_count["headpacked_attention"]
+    got = attention.headpacked_attention(*x, -0.25)
+    torch.cuda.synchronize()
+    assert attention.launch_count["headpacked_attention"] == before + 1
+    want = attention.attention_reference(*(a.transpose(1, 2) for a in x), -0.25).transpose(1, 2)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda

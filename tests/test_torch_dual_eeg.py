@@ -156,6 +156,23 @@ def _assert_predictors_agree(jm, params, tm, w1, w2, jw1, jw2, *, preprocess):
     assert phase_metrics.launch_count == before  # the CPU path never launches the kernel
 
 
+@pytest.mark.parametrize("preprocess", [False, True])
+def test_predictor_serves_float64_as_float32(full_pair, preprocess):
+    """A float64 numpy request is served in float32, as the JAX Predictor
+    places it (``jnp.asarray``): its outputs are those of the same request
+    given as float32."""
+    _, _, tm = full_pair
+    r = np.random.default_rng(17)
+    w1, w2 = (r.normal(size=(3, C, T)) * 20.0 + 5.0 for _ in range(2))
+    assert w1.dtype == np.float64
+    pred = Predictor(tm, device=CPU, batch_buckets=(2, 4), preprocess=preprocess)
+    got = pred.predict(w1, w2)
+    want = pred.predict(w1.astype(np.float32), w2.astype(np.float32))
+    assert got["logits"].dtype == np.float32 and got["logits"].shape == (3, 3)
+    for key in ("logits", "probs", "preds"):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
 def test_legacy_state_dict_matches_reference_exporter():
     _, params, _ = _pair(ABLATIONS["legacy_ibs"])
     got = dual_eeg_state_dict_from_flax(params)

@@ -38,3 +38,11 @@ def test_chip_smoke_fails_without_cuda():
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
     assert "needs a CUDA device" in r.stderr
+
+
+def test_compare_attention_fails_without_cuda():
+    r = subprocess.run([sys.executable, "-m", "eyegaze_tpu_torch.compare_attention", "old.cu"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=300,
+                       env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert r.returncode != 0
+    assert "needs a CUDA device" in r.stderr
