@@ -6,19 +6,24 @@ Run from the repository root on a machine with a CUDA card:
 
 It builds the port's CUDA kernels from ``eyegaze_tpu_torch/csrc`` with nvcc,
 one process per source, all at once, and prints each kernel's registers and
-spills, and the tensor-core instructions (``HMMA``) in the SASS of each
-instance of the attention kernel: an f32 instance that spills or holds any
-(a TF32 product in the f32 path), or a bf16 instance with none, fails the run.
-Then, each phase raising on any failure:
+spills, the tensor-core instructions (``HMMA``) in the SASS of each
+instance of the attention kernel, and the arithmetic, LDS and other instructions
+per pair and sample in the main loop of each phase-metrics instance: a
+phase-metrics or f32 attention instance that spills, an f32 attention
+instance with any ``HMMA`` (a TF32 product in the f32 path), or a bf16
+instance with none, fails the run.  Then, each phase raising on any failure:
 
 1. K1 (phase metrics) against its plain PyTorch version on the card at the
-   shapes the EEG serving run launches it with, and at a ragged one, timed
-   in turns with CUDA events.
+   shapes the EEG serving run launches it with, at a ragged one and at one
+   whose T is not a multiple of 4 (rows staged element by element), timed
+   in turns with CUDA events at the serving shapes, one call between the
+   events and 20 calls replayed from a CUDA graph, with the split of T over
+   a block cluster and the block count at each.
 2. K2 (the widened phase metrics, K1's sums plus mean cos and sin of the
-   phase difference) against its plain version at the shootout's
-   (64, 32, 1024), at (768, 32, 1024), the largest N of the EEG serving run,
-   and at the ragged (7, 30, 1000), whose tied pair (0, 0) must give mean
-   sign and Phase_Diff 0 and mean cos 1: padded samples add nothing.
+   phase difference) the same way at the shootout's (64, 32, 1024) and at
+   (768, 32, 1024), the largest N of the EEG serving run.  In both, the
+   tied pair (0, 0) must give mean sign and Phase_Diff 0 (K2: mean cos 1):
+   padded samples add nothing.
 3. The attention kernel (K3 and K4) against its plain twin: the head-packed
    entry point at ART's serving shapes (B, 1024, 8, 16) for B = 1, 8, 32 and
    at a ragged (3, 200, 8, 16), in f32 and bf16, the flash entry point at
@@ -94,6 +99,8 @@ BUCKETS = (1, 8, 32, 128)
 GEOMETRY = dict(in_channels=CHANNELS, num_classes=3, d_model=256, num_layers=6, num_heads=8,
                 d_ff=1024, max_len=256, sampling_rate=SAMPLING_RATE)
 RAGGED_SHAPE = (7, 30, 1000)
+UNALIGNED_SHAPE = (7, 30, 1001)  # T % 4 != 0: K1 and K2 stage rows element by element
+SUM_NAMES = ("mean_sign", "wnum", "pdiff", "mean_cos", "mean_sin")
 SOURCES = ("phase_metrics", "attention")
 LOGIT_TOL = 2e-3  # the repo's cross-framework tolerance for this model (tests/test_torch_port.py)
 
@@ -120,12 +127,6 @@ BACK_TO_BACK = 20  # calls between one pair of CUDA events
 # K2 at the shootout's default shape and at the largest N the EEG serving run
 # launches K1 with (6 bands x bucket 128), where the widened route would run.
 PLV_SHAPES = ((64, 32, 1024), (768, 32, 1024))
-# Mean cos and sin: the kernel forms cos(a - b) as cos a cos b + sin a sin b
-# from sincosf of each sample, the plain version takes cos of the rounded
-# difference; the terms agree to a few ulps of 1, and summing T of them in
-# another order moves a mean by a few 2^-24 more (tests/test_pallas.py's
-# bound, far above both).
-PLV_TOL = dict(rtol=1e-4, atol=1e-5)
 # The shootout's bounds: PLV and coherence 1e-5; PLI, wPLI and Phase_Diff K1's
 # tolerances at the metrics' largest values (PLI atol 1e-6; wPLI <= 1 with
 # rtol 1e-4; Phase_Diff <= 2 pi with rtol 1e-5), so at most 1.1e-4.
@@ -151,12 +152,16 @@ def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
 
 def phase_bound(shape, plv: bool) -> tuple[float, str]:
     """K1 / K2 at (N, C, T): four inputs read once, three or five (N, C, C)
-    outputs written once.  Per pair and sample K1 does 7 operations (the
-    difference, its sign, the sign sum, the |dphi| sum, pw1 + pw2 and an
-    FMA); K2 four FMAs more (8), plus a sin and a cos of each phase sample."""
+    outputs written once.  Per pair and sample K1 issues 7 FP32 instructions
+    (the difference, the sign as a compare and a sign-bit OR, the sign sum,
+    the |dphi| sum, two FMAs for sign * pw1 and sign * pw2), K2 four FMAs
+    more (11), plus a sin and a cos of each phase sample.  Each instruction
+    takes one lane-cycle of the SM's FP32 lanes, as an FMA does, and the
+    peak counts an FMA as two operations: so 2 operations per instruction,
+    14 (K1) or 22 (K2) per pair and sample, against ``F32_OPS_PER_S``."""
     n, c, t = shape
     outs = 5 if plv else 3
-    ops = (15 if plv else 7) * n * c * c * t + (4 * n * c * t if plv else 0)
+    ops = 2 * (11 if plv else 7) * n * c * c * t + (4 * n * c * t if plv else 0)
     return bound(4 * (4 * n * c * t + outs * n * c * c), ops, F32_OPS_PER_S)
 
 
@@ -223,99 +228,61 @@ def phase_inputs(shape, device, seed):
     return [torch.from_numpy(a).to(device) for a in (ph1, ph2, pw1, pw2)]
 
 
-def kernel_phase(device) -> dict:
-    """K1 against its plain version at the serving run's shapes and a ragged one.
+def phase_kernel_phase(device, plv: bool) -> dict:
+    """K1 (K2 with ``plv``) against its plain version at its timed shapes,
+    at RAGGED_SHAPE and at UNALIGNED_SHAPE, whose rows the kernel stages
+    element by element.  The tied pair (0, 0) must give mean sign and
+    Phase_Diff 0 (and mean cos 1): padded samples add nothing.
 
-    Both are timed at each of the serving run's shapes; the returned times
-    are those at the largest, the 16-trial request's.
+    Timed shapes: K1 the serving run's (``path_kernel_shapes``), K2
+    PLV_SHAPES.  Kernel and plain version are timed in turns, one call
+    between CUDA events, and the kernel again as 20 calls replayed from a
+    CUDA graph (device time alone).  Returns the JSON fields at the largest
+    timed shape.
     """
     from eyegaze_tpu_torch.kernels import phase_metrics
 
-    path_shapes = path_kernel_shapes()
+    name = "K2" if plv else "K1"
+    kernel = phase_metrics.phase_plv_metric_sums if plv else phase_metrics.phase_metric_sums
+    plain = (phase_metrics.pairwise_phase_plv_metrics_reference if plv
+             else phase_metrics.pairwise_phase_metrics_reference)
+    timed = PLV_SHAPES if plv else path_kernel_shapes()
     max_err = 0.0
-    for seed, shape in enumerate(path_shapes + (RAGGED_SHAPE,)):
+    for seed, shape in enumerate(timed + (RAGGED_SHAPE, UNALIGNED_SHAPE)):
         x = phase_inputs(shape, device, seed)
-        got = phase_metrics.phase_metric_sums(*x)
+        got = kernel(*x)
         torch.cuda.synchronize()
-        want = phase_metrics.pairwise_phase_metrics_reference(*x)
-        den = (x[2].sum(-1)[:, :, None] + x[3].sum(-1)[:, None, :]) * 0.5
-        # mean sign: sums of +-1 are exact in f32.  pdiff and wnum: summation
-        # order differs; wnum is a signed sum whose rounding error scales with
-        # the sum of its terms' magnitudes (den), not with |wnum|.
-        torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-6)
-        torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-6 * float(den.max()))
-        torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-6)
-        errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+        errs = phase_metrics.assert_sums_close(got, plain(*x), x[2], x[3])
         max_err = max(max_err, *errs)
-        print(f"K1 {shape}: max |kernel - plain| mean_sign {errs[0]:.3e} "
-              f"wnum {errs[1]:.3e} (|wnum| max {float(want[1].abs().max()):.1f}) "
-              f"pdiff {errs[2]:.3e}: within tolerance")
-
-    for seed, shape in enumerate(path_shapes):
-        x = phase_inputs(shape, device, seed)
-        for _ in range(3):  # warm both
-            phase_metrics.phase_metric_sums(*x)
-            phase_metrics.pairwise_phase_metrics_reference(*x)
-        kernel, plain = [], []
-        for _ in range(10):  # in turns, so drift in clocks hits both alike
-            kernel += cuda_ms(lambda: phase_metrics.phase_metric_sums(*x), 2)
-            plain += cuda_ms(lambda: phase_metrics.pairwise_phase_metrics_reference(*x), 2)
-        ms, plain_ms = statistics.median(kernel), statistics.median(plain)
-        bound_ms, bound_by = phase_bound(shape, plv=False)
-        print(f"K1 {shape}: kernel median {ms:.4f} ms, plain median {plain_ms:.4f} ms "
-              f"over {len(kernel)} calls each (CUDA events); bound {bound_ms:.4f} ms ({bound_by})")
-        del x
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "shape": list(shape)}
-
-
-def plv_kernel_phase(device) -> dict:
-    """K2 against its plain version at PLV_SHAPES and the ragged shape.
-
-    Both are timed at PLV_SHAPES; the returned times are those at
-    (768, 32, 1024).
-    """
-    from eyegaze_tpu_torch.kernels import phase_metrics
-
-    max_err = 0.0
-    for seed, shape in enumerate(PLV_SHAPES + (RAGGED_SHAPE,)):
-        x = phase_inputs(shape, device, seed)
-        got = phase_metrics.phase_plv_metric_sums(*x)
-        torch.cuda.synchronize()
-        want = phase_metrics.pairwise_phase_plv_metrics_reference(*x)
-        den = (x[2].sum(-1)[:, :, None] + x[3].sum(-1)[:, None, :]) * 0.5
-        # K1's three sums at K1's tolerances (see kernel_phase).
-        torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-6)
-        torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-6 * float(den.max()))
-        torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-6)
-        torch.testing.assert_close(got[3], want[3], **PLV_TOL)
-        torch.testing.assert_close(got[4], want[4], **PLV_TOL)
-        # Pair (0, 0) has equal phases: every real sample adds sign 0, |dphi|
-        # 0 and cos 1, and a padded sample past a ragged T must add nothing.
-        tie_cos = float((got[3][:, 0, 0] - 1.0).abs().max())
-        if got[0][:, 0, 0].any() or got[2][:, 0, 0].any() or tie_cos > PLV_TOL["atol"]:
-            raise RuntimeError(f"K2 {shape}: tied pair (0, 0) gives mean sign "
+        tie_cos = float((got[3][:, 0, 0] - 1.0).abs().max()) if plv else 0.0
+        if (got[0][:, 0, 0].any() or got[2][:, 0, 0].any()
+                or tie_cos > phase_metrics.PLV_TOL["atol"]):
+            raise RuntimeError(f"{name} {shape}: tied pair (0, 0) gives mean sign "
                                f"{got[0][:, 0, 0].tolist()}, pdiff {got[2][:, 0, 0].tolist()}, "
                                f"|mean cos - 1| {tie_cos:.3e}")
-        errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
-        max_err = max(max_err, *errs)
-        print(f"K2 {shape}: max |kernel - plain| mean_sign {errs[0]:.3e} wnum {errs[1]:.3e} "
-              f"pdiff {errs[2]:.3e} mean_cos {errs[3]:.3e} mean_sin {errs[4]:.3e}; tied pair: "
-              f"|mean cos - 1| {tie_cos:.3e}: within tolerance")
-        del x, got, want
+        print(f"{name} {shape}: max |kernel - plain| "
+              + ", ".join(f"{k} {e:.3e}" for k, e in zip(SUM_NAMES, errs))
+              + f" (|wnum| max {float(got[1].abs().max()):.1f}); tied pair (0, 0) mean sign and "
+              + "pdiff 0" + (f", |mean cos - 1| {tie_cos:.3e}" if plv else "")
+              + ": within tolerance")
+        del x, got
 
-    for seed, shape in enumerate(PLV_SHAPES):
+    for seed, shape in enumerate(timed):
         x = phase_inputs(shape, device, seed)
-        ms, plain_ms = alternate_ms(
-            lambda: phase_metrics.phase_plv_metric_sums(*x),
-            lambda: phase_metrics.pairwise_phase_plv_metrics_reference(*x))
-        bound_ms, bound_by = phase_bound(shape, plv=True)
-        print(f"K2 {shape}: kernel median {ms:.4f} ms, plain median {plain_ms:.4f} ms over 20 "
-              f"calls each (CUDA events); bound {bound_ms:.4f} ms ({bound_by}); "
-              f"{shape[0] * math.ceil(shape[1] / 32) ** 2} blocks on 132 SMs")
+        ms, plain_ms = alternate_ms(lambda: kernel(*x), lambda: plain(*x))
+        ms_graph = graph_ms(lambda: kernel(*x))
+        split = phase_metrics.split(*shape)
+        blocks = phase_metrics.grid_blocks(shape[0], shape[1], split)
+        bound_ms, bound_by = phase_bound(shape, plv)
+        print(f"{name} {shape}: kernel median {ms:.4f} ms, plain median {plain_ms:.4f} ms over "
+              f"20 calls each (CUDA events, one call between them); replayed from a CUDA graph "
+              f"of {BACK_TO_BACK} calls {ms_graph:.4f} ms, {bound_ms / ms_graph:.0%} of the "
+              f"bound {bound_ms:.4f} ms ({bound_by}); T split over {split} block(s) of a "
+              f"cluster, {blocks} blocks on {SMS} SMs")
         del x
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "shape": list(shape)}
+            "bound_by": bound_by, "library_ms": None, "ms_graph": ms_graph, "split": split,
+            "shape": list(shape)}
 
 
 def windows(raw: np.ndarray, device) -> torch.Tensor:
@@ -737,15 +704,76 @@ F32_INSTANCES = {(16, 4), (16, 1), (32, 2), (32, 1), (64, 1), (128, 1)}  # (d, r
 BF16_HEAD_DIMS = {16, 32, 64, 128}
 
 
-def assert_no_f32_spill(report: str) -> None:
-    """Raises if nvcc's ptxas report shows a spill in an f32 attention
-    instance (an empty report, from a library built earlier, shows none)."""
+def assert_no_spill(report: str, kernel: str) -> None:
+    """Raises if nvcc's ptxas report shows a spill in an instance of a
+    kernel whose name holds ``kernel`` (an empty report, from a library
+    built earlier, shows none)."""
     name = None
     for line in report.splitlines():
         if "Compiling entry function" in line:
-            name = line.split("'")[1] if "attention_kernel_f32" in line else None
+            name = line.split("'")[1] if kernel in line else None
         elif name and re.search(r"[1-9]\d* bytes spill (stores|loads)", line):
             raise RuntimeError(f"ptxas spills in {name}: {line.strip()}")
+
+
+def dump_sass(lib) -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cuobjdump = Path(CUDA_HOME) / "bin" / "cuobjdump"
+    return subprocess.run([str(cuobjdump), "--dump-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+
+
+# The arithmetic of the work: FP32 instructions and LOP3, the bit OR that
+# gives the sign its sign bit (address arithmetic uses LOP3 too).
+WORK_OPCODES = {"FADD", "FMUL", "FFMA", "FSET", "FSETP", "FSEL", "FMNMX", "LOP3"}
+# Pairs per thread x samples per thread in one chunk of the main loop.
+PAIR_SAMPLES_PER_ITERATION = 8 * 16
+
+
+def phase_loop_counts(lib) -> dict:
+    """Arithmetic (``WORK_OPCODES``), LDS and other instructions per pair and
+    sample in the main loop
+    of K1's and K2's instances, from the SASS: the body of the backward
+    branch whose range holds the most arithmetic (one chunk: its
+    staging, K2's sincos pass and the unrolled arithmetic).  Static counts:
+    the code of both staging paths counts once, K2's sincos loop once."""
+    code, name = {}, None
+    for line in dump_sass(lib).splitlines():
+        head = re.search(r"Function : \S*phase_metrics_kernelILb([01])E", line)
+        if head:
+            name = "K2" if head.group(1) == "1" else "K1"
+            code[name] = []
+        elif "Function : " in line:
+            name = None
+        elif name:
+            ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?\w+\s+)?([A-Z][A-Z0-9_.]*)(.*?);",
+                           line)
+            if ins:
+                code[name].append((int(ins.group(1), 16), ins.group(2).split(".")[0],
+                                   ins.group(3)))
+    counts = {}
+    for name, ins in sorted(code.items()):
+        best = None
+        for addr, op, rest in ins:
+            target = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+            if target and int(target.group(1), 16) < addr:
+                body = [o for a, o, _ in ins if int(target.group(1), 16) <= a <= addr]
+                fp32 = sum(o in WORK_OPCODES for o in body)
+                if best is None or fp32 > best[0]:
+                    best = (fp32, sum(o == "LDS" for o in body), len(body))
+        if best is None:
+            raise RuntimeError(f"no loop found in the SASS of {name}")
+        per = PAIR_SAMPLES_PER_ITERATION
+        counts[name] = {"arithmetic": best[0] / per, "lds": best[1] / per,
+                        "other": (best[2] - best[0] - best[1]) / per}
+    if set(counts) != {"K1", "K2"}:
+        raise RuntimeError(f"phase-metrics instances in the SASS: {sorted(counts)}")
+    print("main-loop instructions per pair and sample (static SASS counts): "
+          + "; ".join(f"{k} arithmetic {v['arithmetic']:.2f}, LDS {v['lds']:.2f}, "
+                      f"other {v['other']:.2f}"
+                      for k, v in counts.items()))
+    return counts
 
 
 def tensor_core_proof(lib) -> dict:
@@ -753,13 +781,8 @@ def tensor_core_proof(lib) -> dict:
     attention kernel, from ``cuobjdump --dump-sass`` of the built library.
     Raises unless every f32 instance has none (no TF32 product in the f32
     path) and every bf16 instance has some."""
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    cuobjdump = Path(CUDA_HOME) / "bin" / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib)], capture_output=True,
-                          text=True, check=True, timeout=120).stdout
     counts, name = {}, None
-    for line in sass.splitlines():
+    for line in dump_sass(lib).splitlines():
         header = re.search(r"Function : \S*attention_kernel_(f32|bf16)ILi(\d+)E(?:Li(\d+)E)?", line)
         if header:
             kind, d, rows = header.groups()
@@ -811,13 +834,15 @@ def main() -> None:
         for line in report.splitlines():
             if "Compiling entry function" in line or "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
-    assert_no_f32_spill(built["attention"][1])
+    assert_no_spill(built["attention"][1], "attention_kernel_f32")
+    assert_no_spill(built["phase_metrics"][1], "phase_metrics_kernel")
     tensor_core_proof(built["attention"][0])
+    loop_counts = phase_loop_counts(built["phase_metrics"][0])
 
     from eyegaze_tpu_torch.kernels import attention
 
-    k1_timing = kernel_phase(device)
-    k2_timing = plv_kernel_phase(device)
+    k1_timing = phase_kernel_phase(device, plv=False)
+    k2_timing = phase_kernel_phase(device, plv=True)
     attn_timing = attention_phase(device, clock_hz)
 
     reset_attention_counts()
@@ -842,12 +867,13 @@ def main() -> None:
         {"name": "pairwise_phase_metrics", "route": "cuda", "source": phase_source,
          "replaces": "eyegaze_tpu/ops/pallas_kernels.py:74", "launches": k1_launches,
          "path": "EEG serving", "launches_per_request": k1_launches / (len(REQUESTS) * REPEATS),
-         **k1_timing},
+         "sass_per_pair_sample": loop_counts["K1"], **k1_timing},
         {"name": "pairwise_phase_plv_metrics", "route": "cuda", "source": phase_source,
          "replaces": "eyegaze_tpu/ops/pallas_kernels.py:151",
          "launches": shootout_launches["phase_plv_metric_sums"],
          "path": "connectivity shootout (bench_connectivity)",
-         "launches_per_request": shootout_launches["phase_plv_metric_sums"], **k2_timing},
+         "launches_per_request": shootout_launches["phase_plv_metric_sums"],
+         "sass_per_pair_sample": loop_counts["K2"], **k2_timing},
         {"name": "headpacked_attention", "route": "cuda", "source": source,
          "replaces": "eyegaze_tpu/ops/attn_kernels.py:78", "launches": art_launches,
          "path": "ART serving", "launches_per_request": art_launches / art_forwards,

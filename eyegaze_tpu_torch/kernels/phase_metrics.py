@@ -14,10 +14,13 @@ modulus is the PLV.  Both are instances of one template in
 
 What bounds them on an H100: each kernel reads its four inputs once,
 4 * N * C * T * 4 bytes (about 403 MB at N = 768, C = 32, T = 1024: six bands
-of a 128-window serving bucket), and does about N * C^2 * T sign/abs/FMA steps
-on the CUDA cores (K2 four FMAs more per pair and sample, from cos and sin
-taken once per staged sample), with no tensor-core work.  Their measured
-times sit in PERF.md beside the plain versions'.
+of a 128-window serving bucket), and issues 7 FP32 instructions per pair and
+sample on the CUDA cores (K2 11, from cos and sin taken once per staged
+sample), with no tensor-core work.  At N = 768 the instructions bound K1,
+the bytes close behind.  Where the grid would leave SMs idle (small N), a
+launch splits T over the blocks of a thread-block cluster; ``split`` says
+over how many.  Their measured times sit in PERF.md beside the plain
+versions'.
 
 ``phase_metric_sums`` (K1) and ``phase_plv_metric_sums`` (K2) are the
 wrappers: a CPU tensor goes to the plain version; a CUDA tensor launches the
@@ -78,12 +81,57 @@ def pairwise_phase_plv_metrics_reference(phase1, phase2, power1, power2,
     return tuple(torch.cat(s, dim=1) for s in sums)
 
 
-@functools.cache
-def _launcher(entry: str, outputs: int):
-    fn = getattr(build.load("phase_metrics"), entry)
+# C entry point and (N, C, C) outputs of each wrapper.
+ENTRIES = {"phase_metric_sums": ("phase_metrics_launch", 3),
+           "phase_plv_metric_sums": ("phase_plv_metrics_launch", 5)}
+TILE = 32  # channel pairs per block side
+
+
+def bind(lib: ctypes.CDLL, entry: str, outputs: int):
+    """The C entry point ``entry`` of a built phase-metrics library, with
+    ``outputs`` (N, C, C) outputs."""
+    fn = getattr(lib, entry)
     fn.argtypes = [ctypes.c_void_p] * (4 + outputs) + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    return build.load("phase_metrics")
+
+
+@functools.cache
+def _launcher(entry: str, outputs: int):
+    return bind(_library(), entry, outputs)
+
+
+def split(n: int, c: int, t: int) -> int:
+    """Blocks of one cluster (1, 2, 4 or 8) over which K1 and K2 split the T
+    axis at (N, C, T) on the current CUDA device: the launch's own choice,
+    read from the library."""
+    if min(n, c, t) < 1 or max(n, c, t) >= 2**31:
+        raise ValueError(f"no launch at shape {(n, c, t)}")
+    s = _library().phase_metrics_split(n, c, t)
+    if s < 1:
+        raise RuntimeError("phase_metrics_split could not read the device")
+    return s
+
+
+def grid_blocks(n: int, c: int, split: int) -> int:
+    """Blocks of a launch at N, C whose T axis is split ``split`` ways: one
+    per n, 32 x 32 tile of pairs and share of T."""
+    if min(n, c, split) < 1:
+        raise ValueError(f"no launch with n={n}, c={c}, split={split}")
+    return n * split * ((c + TILE - 1) // TILE) ** 2
+
+
+def launch_args(tensors, outs) -> tuple:
+    """A C entry point's arguments for a launch on the current stream of the
+    tensors' device: four (N, C, T) inputs, then the (N, C, C) outputs."""
+    n, c, t = tensors[0].shape
+    return (*(x.data_ptr() for x in tensors), *(o.data_ptr() for o in outs), n, c, t,
+            torch.cuda.current_stream(tensors[0].device).cuda_stream)
 
 
 def _check(tensors) -> None:
@@ -101,11 +149,12 @@ def _check(tensors) -> None:
             raise ValueError("inputs must be contiguous")
 
 
-def _sums(wrapper: str, entry: str, outputs: int, reference, tensors):
+def _sums(wrapper: str, reference, tensors):
     """Checks the inputs, then runs ``reference`` on a CPU tensor or launches
-    the C entry point ``entry`` with ``outputs`` (N, C, C) outputs on a CUDA
-    tensor.  Any other device raises."""
+    the wrapper's C entry point (``ENTRIES``) on a CUDA tensor.  Any other
+    device raises."""
     _check(tensors)
+    entry, outputs = ENTRIES[wrapper]
     device = tensors[0].device
     if device.type == "cpu":
         return reference(*tensors)
@@ -119,9 +168,7 @@ def _sums(wrapper: str, entry: str, outputs: int, reference, tensors):
         raise ValueError(f"shape {tuple(tensors[0].shape)} exceeds the kernel's int indexing")
     launch = _launcher(entry, outputs)
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = launch(*(x.data_ptr() for x in tensors), *(o.data_ptr() for o in outs),
-                     n, c, t, stream)
+        err = launch(*launch_args(tensors, outs))
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
     launch_count[wrapper] += 1
@@ -134,8 +181,8 @@ def phase_metric_sums(phase1, phase2, power1, power2):
     On a CUDA tensor this launches the kernel on the current stream; on a CPU
     tensor it runs the plain version.  Any other device raises.
     """
-    return _sums("phase_metric_sums", "phase_metrics_launch", 3,
-                 pairwise_phase_metrics_reference, (phase1, phase2, power1, power2))
+    return _sums("phase_metric_sums", pairwise_phase_metrics_reference,
+                 (phase1, phase2, power1, power2))
 
 
 def phase_plv_metric_sums(phase1, phase2, power1, power2):
@@ -145,8 +192,32 @@ def phase_plv_metric_sums(phase1, phase2, power1, power2):
     On a CUDA tensor this launches the kernel on the current stream; on a CPU
     tensor it runs the plain version.  Any other device raises.
     """
-    return _sums("phase_plv_metric_sums", "phase_plv_metrics_launch", 5,
-                 pairwise_phase_plv_metrics_reference, (phase1, phase2, power1, power2))
+    return _sums("phase_plv_metric_sums", pairwise_phase_plv_metrics_reference,
+                 (phase1, phase2, power1, power2))
+
+
+# Mean cos and sin: the kernel forms cos(a - b) as cos a cos b + sin a sin b
+# from sincosf of each sample, the plain version takes cos of the rounded
+# difference; the terms agree to a few ulps of 1, and summing T of them in
+# another order moves a mean by a few 2^-24 more (tests/test_pallas.py's
+# bound, far above both).
+PLV_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def assert_sums_close(got, want, power1, power2) -> list:
+    """Holds a kernel's sums (K1's three or K2's five) to the plain
+    version's; returns the largest |got - want| of each.
+
+    Mean sign: sums of +-1 are exact in float32.  pdiff: the two sum in
+    another order.  wnum is a signed sum whose rounding error scales with the
+    sum of its terms' magnitudes (the wPLI denominator), not with |wnum|.
+    """
+    den = (power1.sum(-1)[:, :, None] + power2.sum(-1)[:, None, :]) * 0.5
+    tols = (dict(rtol=0, atol=1e-6), dict(rtol=1e-4, atol=1e-6 * float(den.max())),
+            dict(rtol=1e-5, atol=1e-6), PLV_TOL, PLV_TOL)
+    for g, w, tol in zip(got, want, tols):
+        torch.testing.assert_close(g, w, **tol)
+    return [float((g - w).abs().max()) for g, w in zip(got, want)]
 
 
 def assemble_phase_metrics(mean_sgn, wnum, pdiff, power1, power2, eps: float = 1e-8):

@@ -15,7 +15,8 @@ ROOT = Path(__file__).resolve().parent.parent
 def test_port_imports_without_jax():
     modules = sorted(m.name for m in pkgutil.walk_packages(eyegaze_tpu_torch.__path__,
                                                            "eyegaze_tpu_torch."))
-    assert "eyegaze_tpu_torch.kernels.phase_metrics" in modules
+    assert {"eyegaze_tpu_torch.kernels.phase_metrics",
+            "eyegaze_tpu_torch.compare_phase_metrics"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None  # any 'import jax' now raises ImportError\n"
@@ -46,3 +47,12 @@ def test_compare_attention_fails_without_cuda():
                        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert r.returncode != 0
     assert "needs a CUDA device" in r.stderr
+
+
+def test_compare_phase_metrics_fails_without_cuda():
+    r = subprocess.run([sys.executable, "-m", "eyegaze_tpu_torch.compare_phase_metrics", "old.cu"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=300,
+                       env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert r.returncode != 0
+    assert "needs a CUDA device" in r.stderr
+    assert '"shapes"' not in r.stdout

@@ -104,23 +104,126 @@ def test_wrapper_rejects_bad_inputs():
     assert phase_metrics.launch_count == before
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(48, 32, 1024), (7, 30, 1000)], ids=["slice", "ragged"])
-def test_kernel_matches_reference_on_card(shape):
+# The EEG serving run's N = 6 x bucket at C = 32, T = 1024, a ragged shape and
+# one whose T is not a multiple of 4 (rows staged element by element).
+CARD_SHAPES = [(48, 32, 1024), (7, 30, 1000), (6, 32, 1024), (192, 32, 1024), (768, 32, 1024),
+               (7, 30, 1001)]
+CARD_IDS = ["slice", "ragged", "n6", "n192", "n768", "t1001"]
+PLV_CARD_SHAPES = [(64, 32, 1024), (7, 30, 1000), (768, 32, 1024), (48, 32, 1024),
+                   (7, 30, 1001)]
+PLV_CARD_IDS = ["shootout", "ragged", "n768", "split", "t1001"]
+WRAPPERS = ["phase_metric_sums", "phase_plv_metric_sums"]
+REFERENCES = {"phase_metric_sums": phase_metrics.pairwise_phase_metrics_reference,
+              "phase_plv_metric_sums": phase_metrics.pairwise_phase_plv_metrics_reference}
+
+
+def _needs_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    arrays = _inputs(*shape, seed=3)
-    x = [torch.from_numpy(a).cuda() for a in arrays]
-    before = phase_metrics.launch_count["phase_metric_sums"]
-    got = phase_metrics.phase_metric_sums(*x)
+
+
+def _check_on_card(wrapper, x):
+    """One launch against the plain version, the tied pair (0, 0), and a
+    second launch that must give the same bits."""
+    kernel = getattr(phase_metrics, wrapper)
+    before = phase_metrics.launch_count[wrapper]
+    got = kernel(*x)
     torch.cuda.synchronize()
-    assert phase_metrics.launch_count["phase_metric_sums"] == before + 1
-    want = phase_metrics.pairwise_phase_metrics_reference(*x)
-    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-6)
-    den = (x[2].sum(-1)[:, :, None] + x[3].sum(-1)[:, None, :]) * 0.5
-    # wnum is a signed sum: its rounding error scales with sum |terms| = den.
-    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-6 * float(den.max()))
-    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-6)
+    assert phase_metrics.launch_count[wrapper] == before + 1
+    phase_metrics.assert_sums_close(got, REFERENCES[wrapper](*x), x[2], x[3])
+    # Identical phases on pair (0, 0): sign 0 and |dphi| 0 at every sample, and
+    # samples past a ragged T add nothing, so the mean cos is 1.
+    assert not got[0][:, 0, 0].any() and not got[2][:, 0, 0].any()
+    if len(got) == 5:
+        torch.testing.assert_close(got[3][:, 0, 0], torch.ones_like(got[3][:, 0, 0]), rtol=0,
+                                   atol=1e-5)
+    again = kernel(*x)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), "two launches differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CARD_SHAPES, ids=CARD_IDS)
+def test_kernel_matches_reference_on_card(shape):
+    _needs_card()
+    _check_on_card("phase_metric_sums",
+                   [torch.from_numpy(a).cuda() for a in _inputs(*shape, seed=3)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", WRAPPERS)
+def test_kernel_stages_unaligned_rows_on_card(wrapper):
+    """Contiguous views 4 bytes past a 16-byte boundary: the kernel stages
+    their rows element by element."""
+    _needs_card()
+    x = []
+    for a in _inputs(5, 32, 256, seed=8):
+        base = torch.empty(a.size + 1, device="cuda")
+        view = base[1:].view(a.shape)
+        view.copy_(torch.from_numpy(a))
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        x.append(view)
+    _check_on_card(wrapper, x)
+
+
+@pytest.mark.cuda
+def test_split_on_card():
+    """T is split over a cluster where the grid would leave SMs idle, and
+    not at the 16-trial request's N = 768."""
+    _needs_card()
+    assert phase_metrics.split(48, 32, 1024) > 1
+    assert phase_metrics.split(768, 32, 1024) == 1
+    assert 1 <= phase_metrics.split(1, 32, 64) <= 2  # each block keeps a chunk of 32
+
+
+@pytest.mark.parametrize("n, c, split, blocks", [(48, 32, 8, 384), (768, 32, 1, 768),
+                                                 (7, 30, 2, 14), (2, 33, 1, 8)])
+def test_grid_blocks(n, c, split, blocks):
+    assert phase_metrics.grid_blocks(n, c, split) == blocks
+
+
+@pytest.mark.parametrize("shape", [(0, 32, 1024), (1, 0, 8), (1, 32, 2**31)])
+def test_split_rejects_a_shape_without_a_launch(shape):
+    """Checked before the library is loaded, so it raises here, without nvcc."""
+    with pytest.raises(ValueError, match="no launch"):
+        phase_metrics.split(*shape)
+    if min(shape[:2]) < 1:
+        with pytest.raises(ValueError, match="no launch"):
+            phase_metrics.grid_blocks(shape[0], shape[1], 1)
+
+
+@pytest.mark.parametrize("index", range(5), ids=["mean_sign", "wnum", "pdiff", "cos", "sin"])
+def test_assert_sums_close_holds_each_sum(index):
+    """The kernels' tolerance check passes the plain sums and fails each sum
+    moved past its tolerance."""
+    x = [torch.from_numpy(a) for a in _inputs(2, 8, 128, seed=9)]
+    want = phase_metrics.pairwise_phase_plv_metrics_reference(*x)
+    errs = phase_metrics.assert_sums_close(want, want, x[2], x[3])
+    assert errs == [0.0] * 5
+    got = list(want)
+    got[index] = got[index].clone()
+    got[index][1, 2, 3] += 1e-2 if index != 1 else 1.0
+    with pytest.raises(AssertionError):
+        phase_metrics.assert_sums_close(got, want, x[2], x[3])
+
+
+def test_cpu_wrapper_takes_a_view_at_an_offset():
+    arrays = _inputs(2, 8, 101, seed=10)
+    x = []
+    for a in arrays:
+        base = torch.zeros(a.size + 1)
+        base[1:] = torch.from_numpy(a.ravel())
+        x.append(base[1:].view(a.shape))
+    for wrapper in WRAPPERS:
+        got = getattr(phase_metrics, wrapper)(*x)
+        want = REFERENCES[wrapper](*(torch.from_numpy(a) for a in arrays))
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_entries_match_the_wrappers():
+    assert set(phase_metrics.ENTRIES) == set(phase_metrics.launch_count) == set(WRAPPERS)
+    assert [phase_metrics.ENTRIES[w][1] for w in WRAPPERS] == [3, 5]
 
 
 def _assert_plv_metrics_close(got, want):
@@ -194,26 +297,8 @@ def test_plv_wrapper_rejects_bad_inputs():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(64, 32, 1024), (7, 30, 1000)], ids=["shootout", "ragged"])
+@pytest.mark.parametrize("shape", PLV_CARD_SHAPES, ids=PLV_CARD_IDS)
 def test_plv_kernel_matches_reference_on_card(shape):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    arrays = _inputs(*shape, seed=7)
-    x = [torch.from_numpy(a).cuda() for a in arrays]
-    before = phase_metrics.launch_count["phase_plv_metric_sums"]
-    got = phase_metrics.phase_plv_metric_sums(*x)
-    torch.cuda.synchronize()
-    assert phase_metrics.launch_count["phase_plv_metric_sums"] == before + 1
-    want = phase_metrics.pairwise_phase_plv_metrics_reference(*x)
-    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-6)
-    den = (x[2].sum(-1)[:, :, None] + x[3].sum(-1)[:, None, :]) * 0.5
-    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-6 * float(den.max()))
-    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-6)
-    # cos(a - b) from sincosf of each sample against cos of the difference:
-    # a few ulps per term (tests/test_pallas.py's bound).
-    torch.testing.assert_close(got[3], want[3], rtol=1e-4, atol=1e-5)
-    torch.testing.assert_close(got[4], want[4], rtol=1e-4, atol=1e-5)
-    # The tied pair (0, 0): samples past a ragged T add nothing, so mean cos is 1.
-    assert not got[0][:, 0, 0].any() and not got[2][:, 0, 0].any()
-    torch.testing.assert_close(got[3][:, 0, 0], torch.ones_like(got[3][:, 0, 0]), rtol=0,
-                               atol=1e-5)
+    _needs_card()
+    _check_on_card("phase_plv_metric_sums",
+                   [torch.from_numpy(a).cuda() for a in _inputs(*shape, seed=7)])
