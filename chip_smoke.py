@@ -40,26 +40,44 @@ instance with none, fails the run.  Then, each phase raising on any failure:
    ``Predictor.predict`` for requests of 1, 3 and 16 trials.  Every forward
    launches K1; its 139-token attention stays on the plain path; the card's
    logits for one trial match the same weights run on the CPU.
-5. ART serving at full width (``ArtConfig()``: 6 + 6 layers, embed 128, ff
+5. The flagship as the JAX package serves it: the same weights saved as a
+   state_dict plus ``.meta.json`` in a temporary directory, loaded by
+   ``Predictor.from_checkpoint`` (bf16 compute) and served the same
+   requests.  K1 launches once per forward; the card's logits for one trial
+   are within 2**-5 of the largest |logit| of the same bf16 model on the
+   CPU, printed beside the gap between bf16 and f32 on the card, and each
+   request's median wall time beside the f32 path's.
+6. The same checkpoint behind ``python -m eyegaze_tpu_torch.serve
+   --dynamic-batch`` (its ``main`` in a thread, 127.0.0.1, port 0, one
+   bucket of 128): 16 concurrent single-trial requests (5 windows each) over
+   HTTP.  Each answer equals, to the bit, a direct ``predict`` of its rows
+   at the same bucket, labels included; the requests take fewer dispatches
+   than there are requests, and K1 launches once per dispatch.  Prints the
+   p50 and p99 of the request wall times.
+7. ART serving at full width (``ArtConfig()``: 6 + 6 layers, embed 128, ff
    2048, 8 heads, random weights from a seed): ``ArtDenoiser.predict`` on
    (N, 32, 1024) windows for N = 1, 5 and 16.  Every one of the 18 attention
    calls of each forward launches the head-packed entry point, with the
    query rows per thread printed for each bucket; the card's output for one
    window matches the same weights run on the CPU.
-6. ART served in bf16 compute (``ArtifactRemovalTransformer(dtype=
+8. ART served in bf16 compute (``ArtifactRemovalTransformer(dtype=
    torch.bfloat16)``, the JAX ``from_checkpoint`` default), the same weights
    and requests as phase 5: 18 launches of the head-packed entry point's
    bf16 instance per forward and no flash launch; the card's output for one
    window matches the same weights served in bf16 on the CPU.
-7. The flash route: a bf16 ``MultiHeadAttention`` with d_k 128, the
+9. ART from a checkpoint: phase 8's weights saved as a state_dict plus
+   meta, loaded by ``ArtDenoiser.from_checkpoint`` (bf16) and served the
+   16-window request at bucket 32: 18 launches of the bf16 instance, and the
+   output equal to the bit to phase 8's for the same windows.
+10. The flash route: a bf16 ``MultiHeadAttention`` with d_k 128, the
    counterpart of the JAX call site of the stock flash kernel, launches the
    flash entry point on every forward and matches its own plain path.
-8. The connectivity shootout, ``eyegaze_tpu_torch.bench_connectivity.main``
+11. The connectivity shootout, ``eyegaze_tpu_torch.bench_connectivity.main``
    at its defaults: K1 against its plain version, PLV by four matrix
    products plus K1 against K2 alone, six coherence passes against one; its
    JSON line is printed and every difference held to its bound.  It is the
    path that launches K2.
-9. The legacy IBS configuration at full width (``use_robust_ibs=False``):
+12. The legacy IBS configuration at full width (``use_robust_ibs=False``):
    3-trial requests through ``Predictor``, no phase-metrics launch, logits
    within the flagship's tolerance of the same weights on the CPU.
 
@@ -77,12 +95,18 @@ point's launches, error, times and bound; the last line is
 
 from __future__ import annotations
 
+import dataclasses
+import io
 import json
 import math
 import re
 import statistics
 import subprocess
+import tempfile
+import threading
 import time
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -103,6 +127,24 @@ UNALIGNED_SHAPE = (7, 30, 1001)  # T % 4 != 0: K1 and K2 stage rows element by e
 SUM_NAMES = ("mean_sign", "wnum", "pdiff", "mean_cos", "mean_sin")
 SOURCES = ("phase_metrics", "attention")
 LOGIT_TOL = 2e-3  # the repo's cross-framework tolerance for this model (tests/test_torch_port.py)
+# bf16 compute, card vs CPU: a share of the largest |logit|, the bound that
+# tests/test_torch_dual_eeg_bf16.py holds the port to against Flax's bf16
+# model on the CPU (single bf16 roundings flip and spread).
+LOGIT_BF16_TOL_SHARE = 2.0 ** -5
+# What the JAX package's trainer writes beside an orbax checkpoint, for the
+# seeded flagship at GEOMETRY (max_len comes from the positional table).
+FLAGSHIP_META = {"config": {
+    "model": {"in_channels": CHANNELS, "num_labels": 3, "d_model": 256, "num_layers": 6,
+              "num_heads": 8, "d_ff": 1024},
+    "ablation": {"use_spectrogram": True, "use_ibs": True, "ibs_mode": "robust",
+                 "use_cross_attention": True, "ibs_instance_norm": True,
+                 "ibs_feature_type": "all"},
+    "data": {"sampling_rate": SAMPLING_RATE, "enable_preprocessing": False}}}
+HTTP_REQUESTS = 16  # concurrent single-trial requests, 5 windows each
+# One bucket for the HTTP run: every dispatch, coalesced or not, and every
+# direct predict it is held against pad to the same shape, so the rows
+# must agree to the bit.
+HTTP_BUCKET = 128
 
 ART_REQUESTS = (1, 5, 16)  # windows per request: buckets 1, 8 and 32
 ART_BUCKETS = (1, 8, 32)
@@ -292,33 +334,29 @@ def windows(raw: np.ndarray, device) -> torch.Tensor:
     return sliding_windows(x, WINDOW, STRIDE).reshape(-1, CHANNELS, WINDOW)
 
 
-def slice_phase(device):
-    """Drive raw trials -> windows -> Predictor on ``device``.
-
-    Returns the kernel launches of the run, the raw pair of the first
-    request, its logits and the model's state_dict.
-    """
-    from eyegaze_tpu_torch.kernels import phase_metrics
-    from eyegaze_tpu_torch.models.dual_eeg import DualEEGTransformer
-    from eyegaze_tpu_torch.serving import Predictor
-
-    model = DualEEGTransformer(**GEOMETRY, device=device,
-                               generator=torch.Generator().manual_seed(0))
-    print(f"DualEEGTransformer: {sum(p.numel() for p in model.parameters()):,} parameters "
-          f"on {device}")
+def flagship_raw() -> tuple[np.ndarray, np.ndarray]:
+    """The raw (TRIALS, 32, 3250) pairs every flagship phase serves."""
     rng = np.random.default_rng(0)
-    raw1 = rng.normal(size=(TRIALS, CHANNELS, RAW_SAMPLES)).astype(np.float32)
-    raw2 = rng.normal(size=(TRIALS, CHANNELS, RAW_SAMPLES)).astype(np.float32)
-    pred = Predictor(model, device=device, batch_buckets=BUCKETS, preprocess=False)
+    return tuple(rng.normal(size=(TRIALS, CHANNELS, RAW_SAMPLES)).astype(np.float32)
+                 for _ in range(2))
+
+
+def serve_flagship(pred, device, name: str):
+    """Warm ``pred`` up and drive raw trials -> windows -> ``pred.predict``
+    for each request size of REQUESTS, REPEATS times.  Every forward must
+    launch K1 once.  Returns the K1 launches of the run (counted from 0),
+    the median wall ms of each request size and the first request's logits."""
+    from eyegaze_tpu_torch.kernels import phase_metrics
+
+    raw1, raw2 = flagship_raw()
     t0 = time.perf_counter()
     pred.warmup(CHANNELS, WINDOW)
-    print(f"warmup of buckets {BUCKETS}: {time.perf_counter() - t0:.2f} s")
-
+    print(f"{name}: warmup of buckets {BUCKETS}: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     windows(raw1[:1], device)  # the filter's constants are made once per signal length
-    print(f"first preprocess call: {time.perf_counter() - t0:.2f} s")
+    print(f"{name}: first preprocess call: {time.perf_counter() - t0:.2f} s")
 
-    first = None
+    first, medians = None, {}
     phase_metrics.launch_count.update(phase_metric_sums=0, phase_plv_metric_sums=0)
     for trials in REQUESTS:
         walls = []
@@ -340,15 +378,147 @@ def slice_phase(device):
                 raise RuntimeError("probs do not sum to 1")
             if first is None:
                 first = logits
-        print(f"request of {trials} trial(s) = {n} windows: wall ms "
-              f"{[round(w, 3) for w in walls]}, median {statistics.median(walls):.3f} "
+        medians[trials] = statistics.median(walls)
+        print(f"{name}: request of {trials} trial(s) = {n} windows: wall ms "
+              f"{[round(w, 3) for w in walls]}, median {medians[trials]:.3f} "
               f"(preprocess + windows + predict; logits back on the host)")
     launches = phase_metrics.launch_count["phase_metric_sums"]
     if launches == 0 or phase_metrics.launch_count["phase_plv_metric_sums"] != 0:
         raise RuntimeError(f"the serving path's phase-metrics launches: "
                            f"{phase_metrics.launch_count}")
-    print(f"K1 launches during the serving run: {launches}")
-    return launches, raw1[:1], raw2[:1], first, model.state_dict()
+    print(f"K1 launches during the {name} run: {launches}")
+    return launches, medians, first
+
+
+def slice_phase(device):
+    """Drive raw trials -> windows -> Predictor on ``device`` (float32).
+
+    Returns the kernel launches of the run, the median wall ms of each
+    request size, the raw pair of the first request, its logits and the
+    model's state_dict.
+    """
+    from eyegaze_tpu_torch.models.dual_eeg import DualEEGTransformer
+    from eyegaze_tpu_torch.serving import Predictor
+
+    model = DualEEGTransformer(**GEOMETRY, device=device,
+                               generator=torch.Generator().manual_seed(0))
+    print(f"DualEEGTransformer: {sum(p.numel() for p in model.parameters()):,} parameters "
+          f"on {device}")
+    pred = Predictor(model, device=device, batch_buckets=BUCKETS, preprocess=False)
+    launches, medians, first = serve_flagship(pred, device, "flagship (f32)")
+    raw1, raw2 = flagship_raw()
+    return launches, medians, raw1[:1], raw2[:1], first, model.state_dict()
+
+
+def save_checkpoint(state, meta: dict, path: Path) -> Path:
+    """``state`` as the export script writes it (a CPU state_dict saved with
+    ``torch.save``) and ``meta`` beside it as ``.meta.json``."""
+    torch.save({k: v.cpu() for k, v in state.items()}, path)
+    path.with_suffix(".meta.json").write_text(json.dumps(meta))
+    return path
+
+
+def flagship_bf16_phase(device, tmp: Path, state, f32_medians, f32_logits):
+    """Serve the f32 phase's weights as the JAX package serves them: from a
+    checkpoint, in bf16 compute.  Returns the K1 launches of the run and the
+    checkpoint's path."""
+    from eyegaze_tpu_torch.kernels import attention
+    from eyegaze_tpu_torch.serving import Predictor
+
+    path = save_checkpoint(state, FLAGSHIP_META, tmp / "flagship.pt")
+    pred = Predictor.from_checkpoint(path, device=device, batch_buckets=BUCKETS)
+    if pred.model.dtype != torch.bfloat16 or pred.preprocess:
+        raise RuntimeError(f"from_checkpoint built dtype {pred.model.dtype}, preprocess "
+                           f"{pred.preprocess}")
+    reset_attention_counts()
+    launches, medians, logits = serve_flagship(pred, device, "flagship (bf16, from a checkpoint)")
+    if any(attention.launch_count.values()):
+        raise RuntimeError("the flagship's 139-token attention launched the attention kernel")
+    for trials in REQUESTS:
+        print(f"flagship request of {trials} trial(s), median wall ms: bf16 {medians[trials]:.3f}, "
+              f"f32 {f32_medians[trials]:.3f}")
+    cpu = torch.device("cpu")
+    raw1, raw2 = flagship_raw()
+    want = Predictor.from_checkpoint(path, device=cpu, batch_buckets=BUCKETS).predict(
+        windows(raw1[:1], cpu), windows(raw2[:1], cpu))["logits"]
+    gap = float(np.abs(logits - want).max())
+    tol = LOGIT_BF16_TOL_SHARE * float(np.abs(want).max())
+    print(f"1-trial logits, bf16 compute: card vs CPU max |diff| {gap:.3e} (tolerance {tol:.3e}, "
+          f"2**-5 of the largest |logit| {float(np.abs(want).max()):.3f}); bf16 vs f32 on the "
+          f"card {float(np.abs(logits - f32_logits).max()):.3e}")
+    if not gap <= tol:
+        raise RuntimeError(f"bf16 flagship, card vs CPU: {gap:.3e} over {tol:.3e}")
+    return launches, path
+
+
+def http_phase(device, path: Path) -> None:
+    """``eyegaze_tpu_torch.serve --dynamic-batch`` on the bf16 checkpoint, in
+    a thread: HTTP_REQUESTS concurrent single-trial requests, each answer
+    held to a direct ``predict`` of its rows."""
+    from eyegaze_tpu_torch import serve
+    from eyegaze_tpu_torch.kernels import phase_metrics
+    from eyegaze_tpu_torch.serving import Predictor
+
+    raw1, raw2 = flagship_raw()
+    w1, w2 = (windows(r[:HTTP_REQUESTS], device).cpu().numpy() for r in (raw1, raw2))
+    rows = [slice(i * WINDOWS_PER_TRIAL, (i + 1) * WINDOWS_PER_TRIAL)
+            for i in range(HTTP_REQUESTS)]
+    direct = Predictor.from_checkpoint(path, device=device, batch_buckets=(HTTP_BUCKET,))
+    want = [direct.predict(w1[r], w2[r]) for r in rows]
+    del direct
+
+    bound = []
+    argv = ["--checkpoint", str(path), "--device", str(device), "--host", "127.0.0.1",
+            "--port", "0", "--buckets", str(HTTP_BUCKET), "--dynamic-batch"]
+    thread = threading.Thread(target=serve.main, args=(argv, bound.append), daemon=True)
+    thread.start()
+    for _ in range(600):
+        if bound or not thread.is_alive():
+            break
+        thread.join(0.5)
+    if not bound:
+        raise RuntimeError("eyegaze_tpu_torch.serve did not start")
+    server = bound[0]
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        phase_metrics.launch_count.update(phase_metric_sums=0, phase_plv_metric_sums=0)
+
+        def post(r):
+            buf = io.BytesIO()
+            np.savez(buf, eeg1=w1[r], eeg2=w2[r])
+            req = urllib.request.Request(f"{base}/predict", data=buf.getvalue(), method="POST")
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                out = json.load(resp)
+            return out, (time.perf_counter() - t0) * 1e3
+
+        with ThreadPoolExecutor(HTTP_REQUESTS) as pool:
+            answers = list(pool.map(post, rows))
+        launches = phase_metrics.launch_count["phase_metric_sums"]
+        with urllib.request.urlopen(f"{base}/metrics", timeout=60) as resp:
+            metrics = json.load(resp)
+    finally:
+        server.shutdown()
+        thread.join(60)
+    for i, ((got, _), ref) in enumerate(zip(answers, want)):
+        logits = np.asarray(got["logits"], np.float32)
+        if not np.array_equal(logits, ref["logits"]) or got["labels"] != ref["labels"]:
+            raise RuntimeError(f"request {i}: answer {got['labels']} / max |diff| "
+                               f"{float(np.abs(logits - ref['logits']).max()):.3e} is not the "
+                               f"direct predict's {ref['labels']}")
+    batch = metrics["dynamic_batch"]
+    if batch["requests"] != HTTP_REQUESTS or not batch["dispatches"] < HTTP_REQUESTS:
+        raise RuntimeError(f"{HTTP_REQUESTS} requests took {batch['dispatches']} dispatches")
+    if launches != batch["dispatches"]:
+        raise RuntimeError(f"{batch['dispatches']} dispatches launched K1 {launches} times")
+    walls = np.array([ms for _, ms in answers])
+    print(f"HTTP, {HTTP_REQUESTS} concurrent single-trial requests ({WINDOWS_PER_TRIAL} windows "
+          f"each) through eyegaze_tpu_torch.serve --dynamic-batch, bucket {HTTP_BUCKET}: every "
+          f"answer equals the direct predict of its rows, labels included; "
+          f"{batch['dispatches']} dispatches of {batch['max_coalesced']} requests at most, "
+          f"{launches} K1 launches; request wall ms p50 {np.percentile(walls, 50):.3f}, "
+          f"p99 {np.percentile(walls, 99):.3f}, all {sorted(round(float(w), 3) for w in walls)}; "
+          f"server phases {batch['phase_breakdown']}")
 
 
 def cpu_parity(raw1, raw2, logits, state, **flags) -> None:
@@ -515,7 +685,8 @@ def art_phase(device, dtype=torch.float32):
 
     Every launch must be of the head-packed entry point's instance for
     ``dtype``.  Returns those launches, the median wall ms of each request
-    size, the first request's input and output, and the model's state_dict.
+    size, the windows served, each request size's output (its last repeat)
+    and the model's state_dict.
     """
     from eyegaze_tpu_torch.kernels import attention
     from eyegaze_tpu_torch.models.art import ArtConfig, ArtifactRemovalTransformer
@@ -543,7 +714,7 @@ def art_phase(device, dtype=torch.float32):
                 for b in ART_BUCKETS}
         print(f"{name}: the f32 attention instance's query rows per thread at each bucket: "
               f"{rows}")
-    first, medians = None, {}
+    outs, medians = {}, {}
     reset_attention_counts()
     for n in ART_REQUESTS:
         walls = []
@@ -561,8 +732,7 @@ def art_phase(device, dtype=torch.float32):
             if out.shape != (n, CHANNELS, WINDOW) or not np.isfinite(out).all():
                 raise RuntimeError(f"bad output: shape {out.shape}, finite "
                                    f"{np.isfinite(out).all()}")
-            if first is None:
-                first = out
+        outs[n] = out
         medians[n] = statistics.median(walls)
         print(f"{name} request of {n} window(s): wall ms {[round(w, 3) for w in walls]}, "
               f"median {medians[n]:.3f} (predict; output back on the host)")
@@ -573,7 +743,7 @@ def art_phase(device, dtype=torch.float32):
                            f"bf16 {attention.bf16_launch_count}")
     print(f"head-packed attention launches ({str(dtype)[6:]} instance) during the {name} "
           f"run: {launches}")
-    return launches, medians, noisy[:ART_REQUESTS[0]], first, model.state_dict()
+    return launches, medians, noisy, outs, model.state_dict()
 
 
 def art_cpu_parity(noisy, denoised, state, dtype=torch.float32) -> np.ndarray:
@@ -601,16 +771,48 @@ def art_cpu_parity(noisy, denoised, state, dtype=torch.float32) -> np.ndarray:
 def art_bf16_phase(device, f32_medians, f32_denoised):
     """ART served in bf16 compute: the same weights and requests as the f32
     phase, 18 bf16 head-packed launches per forward, the 1-window output
-    against the CPU's bf16 run.  Returns the launches of the run."""
-    launches, medians, noisy, denoised, state = art_phase(device, torch.bfloat16)
+    against the CPU's bf16 run.  Returns the launches of the run, the
+    windows, the outputs of each request size and the state_dict."""
+    launches, medians, noisy, outs, state = art_phase(device, torch.bfloat16)
     for n in ART_REQUESTS:
         print(f"ART request of {n} window(s), median wall ms: bf16 {medians[n]:.3f}, "
               f"f32 {f32_medians[n]:.3f} ({f32_medians[n] / medians[n]:.2f}x)")
-    want = art_cpu_parity(noisy, denoised, state, torch.bfloat16)
+    n = ART_REQUESTS[0]
+    want = art_cpu_parity(noisy[:n], outs[n], state, torch.bfloat16)
     print(f"1-window ART output, bf16 vs f32 compute, same weights: max |diff| on the card "
-          f"{float(np.abs(denoised - f32_denoised).max()):.3e}, on the CPU's bf16 against "
+          f"{float(np.abs(outs[n] - f32_denoised).max()):.3e}, on the CPU's bf16 against "
           f"the card's f32 {float(np.abs(want - f32_denoised).max()):.3e}")
-    return launches
+    return launches, noisy, outs, state
+
+
+def art_checkpoint_phase(device, tmp: Path, state, noisy, outs) -> int:
+    """``ArtDenoiser.from_checkpoint`` (bf16) on the bf16 phase's weights,
+    saved as a state_dict plus meta: the 16-window request at bucket 32
+    launches the bf16 instance 18 times and gives, to the bit, the bf16
+    phase's output for the same windows.  Returns the launches."""
+    from eyegaze_tpu_torch.kernels import attention
+    from eyegaze_tpu_torch.models.art import ArtConfig
+    from eyegaze_tpu_torch.serving import ArtDenoiser
+
+    meta = {"config": {"model": dataclasses.asdict(ArtConfig())}}
+    den = ArtDenoiser.from_checkpoint(save_checkpoint(state, meta, tmp / "art.pt"),
+                                      device=device, batch_buckets=ART_BUCKETS)
+    den.warmup(CHANNELS, WINDOW)
+    n = ART_REQUESTS[-1]
+    reset_attention_counts()
+    out = den.predict(noisy[:n])["denoised"]
+    launches, bf16 = dict(attention.launch_count), dict(attention.bf16_launch_count)
+    if den.model.dtype != torch.bfloat16 or launches != bf16 or launches != {
+            "headpacked_attention": ART_ATTENTION_CALLS, "flash_attention": 0}:
+        raise RuntimeError(f"ArtDenoiser.from_checkpoint ({den.model.dtype}), one forward at "
+                           f"bucket {ART_BUCKETS[-1]}: {launches}, of them bf16 {bf16}")
+    if not np.array_equal(out, outs[n]):
+        raise RuntimeError(f"ART from a checkpoint differs from the bf16 phase's output for the "
+                           f"same weights: max |diff| {float(np.abs(out - outs[n]).max()):.3e}")
+    print(f"ART from a checkpoint (bf16), {n} windows at bucket {ART_BUCKETS[-1]}: "
+          f"{bf16['headpacked_attention']} bf16 head-packed launches, output equal to the bit "
+          "to the bf16 phase's")
+    return bf16["headpacked_attention"]
 
 
 def flash_route_phase(device) -> int:
@@ -846,14 +1048,21 @@ def main() -> None:
     attn_timing = attention_phase(device, clock_hz)
 
     reset_attention_counts()
-    k1_launches, raw1, raw2, logits, state = slice_phase(device)
+    k1_launches, medians, raw1, raw2, logits, state = slice_phase(device)
     if any(attention.launch_count.values()):
         raise RuntimeError("the flagship's 139-token attention launched the attention kernel")
     cpu_parity(raw1, raw2, logits, state)
 
-    art_launches, art_medians, noisy, denoised, art_state = art_phase(device)
-    art_cpu_parity(noisy, denoised, art_state)
-    art_bf16_launches = art_bf16_phase(device, art_medians, denoised)
+    with tempfile.TemporaryDirectory() as tmp:
+        k1_bf16_launches, checkpoint = flagship_bf16_phase(device, Path(tmp), state, medians,
+                                                           logits)
+        http_phase(device, checkpoint)
+
+        art_launches, art_medians, noisy, outs, art_state = art_phase(device)
+        n = ART_REQUESTS[0]
+        art_cpu_parity(noisy[:n], outs[n], art_state)
+        art_bf16_launches, noisy, outs, art_state = art_bf16_phase(device, art_medians, outs[n])
+        art_ckpt_launches = art_checkpoint_phase(device, Path(tmp), art_state, noisy, outs)
     flash_launches = flash_route_phase(device)
 
     _, shootout_launches = shootout_phase()
@@ -863,10 +1072,13 @@ def main() -> None:
     phase_source = "eyegaze_tpu_torch/csrc/phase_metrics.cu"
     source = "eyegaze_tpu_torch/csrc/attention.cu"
     art_forwards = len(ART_REQUESTS) * REPEATS
+    k1_all = k1_launches + k1_bf16_launches
+    art_bf16_all = art_bf16_launches + art_ckpt_launches
     kernels = [
         {"name": "pairwise_phase_metrics", "route": "cuda", "source": phase_source,
-         "replaces": "eyegaze_tpu/ops/pallas_kernels.py:74", "launches": k1_launches,
-         "path": "EEG serving", "launches_per_request": k1_launches / (len(REQUESTS) * REPEATS),
+         "replaces": "eyegaze_tpu/ops/pallas_kernels.py:74", "launches": k1_all,
+         "path": "EEG serving, f32 and bf16 from a checkpoint",
+         "launches_per_request": k1_all / (2 * len(REQUESTS) * REPEATS),
          "sass_per_pair_sample": loop_counts["K1"], **k1_timing},
         {"name": "pairwise_phase_plv_metrics", "route": "cuda", "source": phase_source,
          "replaces": "eyegaze_tpu/ops/pallas_kernels.py:151",
@@ -884,8 +1096,9 @@ def main() -> None:
          "launches_per_request": flash_launches / FLASH_CALLS,
          **attn_timing["flash_attention", torch.bfloat16]},
         {"name": "headpacked_attention", "route": "cuda", "source": source,
-         "replaces": "eyegaze_tpu/ops/attn_kernels.py:78", "launches": art_bf16_launches,
-         "path": "ART serving, bf16", "launches_per_request": art_bf16_launches / art_forwards,
+         "replaces": "eyegaze_tpu/ops/attn_kernels.py:78", "launches": art_bf16_all,
+         "path": "ART serving, bf16, and from a checkpoint",
+         "launches_per_request": art_bf16_all / (art_forwards + 1),
          **attn_timing["headpacked_attention", torch.bfloat16]},
     ]
     for k in kernels:

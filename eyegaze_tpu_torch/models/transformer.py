@@ -14,8 +14,8 @@ attention kernel (``eyegaze_tpu_torch.kernels.attention``) through the route
 
 The counterpart of the Flax modules' ``dtype`` field is ``dtype`` here
 (float32 by default, as in Flax).  Parameters stay float32, as Flax keeps
-them; every ``Dense`` casts its input, weight and
-bias to ``dtype`` and returns ``dtype``, and every ``LayerNorm`` normalises
+them; every ``Dense``, ``Conv1d`` and ``Conv2d`` casts its input, weight
+and bias to ``dtype`` and returns ``dtype``, and every ``LayerNorm`` normalises
 in float32 and returns float32 whatever its input, as Flax's
 ``nn.LayerNorm()`` does.  So in bf16 the residual stream is float32 after
 the first LayerNorm and each projection recasts it.
@@ -87,6 +87,30 @@ def cast_params(module: nn.Module, params, dtype: torch.dtype):
     if module._cast[0] != key:
         module._cast = (key, tuple(p.to(dtype) for p in params))
     return module._cast[1]
+
+
+class _CastConv:
+    """The conv counterpart of ``Dense``, Flax's ``nn.Conv(dtype=...)``: the
+    input, the float32 kernel and the bias cast to ``dtype`` (through
+    ``cast_params``, so a served forward casts no weight twice), the output
+    in ``dtype``."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+        self._cast = (None, None)  # cast_params' cache
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return self._conv_forward(x.to(dt), *cast_params(self, (self.weight, self.bias), dt))
+
+
+class Conv1d(_CastConv, nn.Conv1d):
+    """``nn.Conv1d`` that computes in ``dtype`` (``_CastConv``)."""
+
+
+class Conv2d(_CastConv, nn.Conv2d):
+    """``nn.Conv2d`` that computes in ``dtype`` (``_CastConv``)."""
 
 
 class LayerNorm(nn.LayerNorm):

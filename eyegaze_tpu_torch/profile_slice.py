@@ -2,14 +2,19 @@
 
     python -m eyegaze_tpu_torch.profile_slice
 
-It profiles both serving paths in turn, ART in float32 and in bf16 compute.
+It profiles both serving paths in turn, each in float32 and then in bf16
+compute (the type the JAX package's ``from_checkpoint`` serves).
 
 EEG: builds the full-width DualEEGTransformer (random weights from seed 0)
 and serves raw (trials, 32, 3250) pairs through ``preprocess_eeg`` ->
 ``sliding_windows`` -> ``Predictor.predict``, as ``chip_smoke.py`` does.  For
 requests of 1 and 16 trials (buckets 8 and 128) it prints the median
 CUDA-event time of each stage at the request's padded bucket (preprocessing
-of both players, the model's blocks, the whole forward).
+of both players, the model's blocks, the whole forward), the CUDA kernels
+of the spectrogram stage and of its first conv alone (one input channel) by
+device time (their names say which convolution algorithm cuDNN picked),
+and, as a diagnostic the port leaves off, the
+spectrogram stage's time with ``torch.backends.cudnn.benchmark`` on.
 
 ART: builds the full-width ART denoiser (``ArtConfig()``, random weights
 from seed 0, float32 and then bf16 compute) behind ``ArtDenoiser``.  For
@@ -41,6 +46,7 @@ from eyegaze_tpu_torch.models.art import ArtConfig, ArtifactRemovalTransformer
 from eyegaze_tpu_torch.models.dual_eeg import DualEEGTransformer
 from eyegaze_tpu_torch.ops.connectivity import connectivity_matrices
 from eyegaze_tpu_torch.ops.preprocess import preprocess_eeg, sliding_windows
+from eyegaze_tpu_torch.ops.spectral import stft_log_magnitude
 from eyegaze_tpu_torch.serving import ArtDenoiser, Predictor, _bucket
 
 CHANNELS, RAW_SAMPLES, WINDOW, STRIDE = 32, 3250, 1024, 512
@@ -88,8 +94,25 @@ def wall_and_profile(request, kernel_share: str | None = None) -> None:
                                     max_name_column_width=60))
 
 
-def eeg(dev: torch.device) -> None:
-    model = DualEEGTransformer(device=dev, generator=torch.Generator().manual_seed(0))
+def kernel_table(fn, rows: int = 8) -> None:
+    """The CUDA kernels of one call of ``fn`` by device time, from
+    ``torch.profiler``."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    times: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            times[e.name] = times.get(e.name, 0.0) + e.device_time / 1e3
+    for name, ms in sorted(times.items(), key=lambda kv: -kv[1])[:rows]:
+        print(f"    {ms:8.3f} ms  {name[:110]}")
+
+
+def eeg(dev: torch.device, dtype: torch.dtype) -> None:
+    model = DualEEGTransformer(device=dev, dtype=dtype,
+                               generator=torch.Generator().manual_seed(0))
     pred = Predictor(model, device=dev, batch_buckets=BUCKETS, preprocess=False)
     pred.warmup(CHANNELS, WINDOW)
     rng = np.random.default_rng(0)
@@ -108,7 +131,10 @@ def eeg(dev: torch.device) -> None:
         w1, w2 = windows(raw[0][:trials]), windows(raw[1][:trials])
         b = _bucket(len(w1), BUCKETS)
         p1, p2 = (torch.cat([w, w.new_zeros((b - len(w),) + w.shape[1:])]) for w in (w1, w2))
-        tokens = torch.randn(b, 139, model.cls_token.shape[-1], device=dev)
+        tokens = torch.randn(b, 139, model.cls_token.shape[-1], device=dev, dtype=dtype)
+        spec = model.spectrogram_generator
+        mag = stft_log_magnitude(p1.reshape(-1, WINDOW), spec.n_fft, spec.hop_length,
+                                 spec.freq_bins, window=spec.window)[:, None]
         stages = {
             "preprocess + windows, both players": lambda: (windows(raw[0][:trials]),
                                                            windows(raw[1][:trials])),
@@ -120,11 +146,24 @@ def eeg(dev: torch.device) -> None:
             "  temporal conv, both streams": lambda: (model.temporal_conv(p1),
                                                       model.temporal_conv(p2)),
         }
-        print(f"--- EEG, {trials} trial(s) = {len(w1)} windows, bucket {b}: "
-              "median CUDA-event ms")
+        print(f"--- EEG ({str(dtype)[6:]} compute), {trials} trial(s) = {len(w1)} windows, "
+              f"bucket {b}: median CUDA-event ms")
         with torch.inference_mode():
             for name, fn in stages.items():
                 print(f"  {name}: {median_cuda_ms(fn):.3f}")
+            spectrogram = stages["  spectrogram tokens, both streams"]
+            print("  spectrogram tokens' CUDA kernels, one call (device ms):")
+            kernel_table(spectrogram)
+            print(f"  its first conv alone, one stream ({tuple(mag.shape)} -> 32 channels), "
+                  "CUDA kernels of one call (device ms):")
+            kernel_table(lambda: spec.spec_conv[0](mag), rows=4)
+            torch.backends.cudnn.benchmark = True
+            try:
+                print(f"  spectrogram tokens with cudnn.benchmark on (not the port's "
+                      f"setting): {median_cuda_ms(spectrogram):.3f}")
+                kernel_table(spectrogram, rows=4)
+            finally:
+                torch.backends.cudnn.benchmark = False
         wall_and_profile(request)
 
 
@@ -171,7 +210,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    eeg(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        eeg(dev, dtype)
     for dtype in (torch.float32, torch.bfloat16):
         art(dev, dtype)
 

@@ -16,7 +16,7 @@ def test_port_imports_without_jax():
     modules = sorted(m.name for m in pkgutil.walk_packages(eyegaze_tpu_torch.__path__,
                                                            "eyegaze_tpu_torch."))
     assert {"eyegaze_tpu_torch.kernels.phase_metrics",
-            "eyegaze_tpu_torch.compare_phase_metrics"} <= set(modules)
+            "eyegaze_tpu_torch.compare_phase_metrics", "eyegaze_tpu_torch.serve"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None  # any 'import jax' now raises ImportError\n"
@@ -56,3 +56,14 @@ def test_compare_phase_metrics_fails_without_cuda():
     assert r.returncode != 0
     assert "needs a CUDA device" in r.stderr
     assert '"shapes"' not in r.stdout
+
+
+def test_serve_fails_without_cuda_unless_asked_for_the_cpu():
+    """The HTTP entry point serves on the card by default; without one it
+    stops before it loads anything, rather than serve on the CPU."""
+    r = subprocess.run([sys.executable, "-m", "eyegaze_tpu_torch.serve", "--checkpoint",
+                        "model.pt", "--port", "0"], cwd=ROOT, capture_output=True, text=True,
+                       timeout=300, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert r.returncode != 0
+    assert "needs a CUDA device" in r.stderr and "--device cpu" in r.stderr
+    assert "listening" not in r.stdout
