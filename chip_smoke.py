@@ -14,11 +14,12 @@ instance with any ``HMMA`` (a TF32 product in the f32 path), or a bf16
 instance with none, fails the run.  Then, each phase raising on any failure:
 
 1. K1 (phase metrics) against its plain PyTorch version on the card at the
-   shapes the EEG serving run launches it with, at a ragged one and at one
-   whose T is not a multiple of 4 (rows staged element by element), timed
-   in turns with CUDA events at the serving shapes, one call between the
-   events and 20 calls replayed from a CUDA graph, with the split of T over
-   a block cluster and the block count at each.
+   shapes the EEG serving run and flagship training launch it with (N =
+   384 for a train batch of 64, and the last eval batch's ragged N), at a
+   ragged one and at one whose T is not a multiple of 4 (rows staged
+   element by element), timed in turns with CUDA events at those shapes,
+   one call between the events and 20 calls replayed from a CUDA graph,
+   with the split of T over a block cluster and the block count at each.
 2. K2 (the widened phase metrics, K1's sums plus mean cos and sin of the
    phase difference) the same way at the shootout's (64, 32, 1024) and at
    (768, 32, 1024), the largest N of the EEG serving run.  In both, the
@@ -80,6 +81,20 @@ instance with none, fails the run.  Then, each phase raising on any failure:
 12. The legacy IBS configuration at full width (``use_robust_ibs=False``):
    3-trial requests through ``Predictor``, no phase-metrics launch, logits
    within the flagship's tolerance of the same weights on the CPU.
+13. Flagship training at full width, the bench's train step (batch 64 of
+   (32, 1024) window pairs, CE + 0.1 sym + 0.1 align + 0.3 IBS-CE + 0.1
+   contrastive, AdamW at 1e-4 with clip 1.0), its config built from the
+   dataclasses (no YAML).  First one f32 step without dropout at batch 4 on
+   the card and on the CPU from the same seeded weights: loss, gradient
+   norm and parameter change within the bounds stated at
+   ``PARITY_GRAD_NORM_RTOL``.  Then ``Trainer.train_step`` with dropout 0.1,
+   3 steps untimed and 20 timed to a synchronize, in bf16 and then f32:
+   median step time, peak memory, every loss finite, one K1 launch per
+   forward and no attention launch.  Last ``train_dual_eeg.run`` (the
+   entry point without its YAML) trains one bf16 epoch on the 96 synthetic
+   trials into a temporary directory, and ``Predictor.from_checkpoint``
+   serves the validation windows from the best_model.pt it wrote: within
+   2**-5 of the largest |logit| of the trainer's own eval logits.
 
 Every phase runs in float32 (TF32 off) unless it says bf16.  There is no
 CPU fallback: without a CUDA device the script exits non-zero and prints no
@@ -89,7 +104,9 @@ peak rate for their type; for attention the operations are the matmuls)
 and its launches per request; for attention also the time its
 exponentials take on the SFU alone (``sfu_ex2_ms``, not a floor).  The
 second-to-last line of stdout is a JSON object with each kernel entry
-point's launches, error, times and bound; the last line is
+point's launches, error, times and bound (K1's launches are serving's and
+training's, with its timing at the train shape and the train step's
+median times and peak memory beside them); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -176,6 +193,29 @@ SHOOTOUT_BOUNDS = {"max_abs_diff": 1.1e-4, "plv_max_abs_diff": 1e-5,
                    "coherence_max_abs_diff": 1e-5}
 LEGACY_TRIALS = 3
 
+# Flagship training: the bench's train step (bench.py:223-258), batch 64,
+# AdamW at 1e-4 (weight decay 0.01) with clip 1.0, and its objective
+# (train_dual_eeg.BENCH_LOSSES).
+TRAIN_BATCH = 64
+TRAIN_LR = 1e-4
+TRAIN_WARMUP, TRAIN_STEPS = 3, 20  # steps untimed, then timed, per compute type
+PARITY_BATCH = 4  # card-vs-CPU step: a small batch, for the CPU's time
+# One f32 step, card against CPU (TF32 off, no dropout), same weights and
+# batch.  The loss: the repo's card-vs-CPU logit tolerance (LOGIT_TOL) on an
+# O(1) loss.  The gradient norm: 1e-3 relative; the CPU holds every
+# gradient tensor to 1e-4 of its largest value against JAX
+# (tests/test_torch_trainer.py), and the card sums in other orders again
+# (cuBLAS, cuFFT, cuDNN).  The step: Adam's first update is lr * g / (|g| +
+# eps) + lr * wd * p per entry, so the largest change on each device is
+# lr * (1 + wd |p|) up to rounding: equal within 1e-3 relative; an entry
+# whose gradient is rounding noise may flip sign between devices, so
+# entries may differ by up to 2 lr (the Adam bound, checked too), plus 1%
+# for the float32 rounding of the parameters stepped (|p| < 8, whose ulp
+# is 9.5e-7, 0.5% of 2 lr).
+PARITY_GRAD_NORM_RTOL = 1e-3
+PARITY_STEP_RTOL = 1e-3
+PARITY_APART_BOUND = 2 * TRAIN_LR * 1.01
+
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # HBM bytes per second and dense operations per second by type.
 HBM_BYTES_PER_S = 3.35e12
@@ -244,6 +284,21 @@ def path_kernel_shapes() -> tuple:
                  for trials in REQUESTS)
 
 
+def train_kernel_shapes() -> tuple:
+    """The (N, C, T) at which flagship training launches K1: N = 6 x the
+    batch rows, one launch per forward: the bench's train batch of 64 and
+    the last (ragged) eval batch of the train-then-serve run's validation
+    split (one window per synthetic trial of 1,024 samples)."""
+    from eyegaze_tpu_torch.data.metadata import stratified_split
+
+    d = flagship_train_config(".").data
+    labels = np.arange(d.synthetic_trials) % 3  # the balanced synthetic fixtures
+    val = len(stratified_split(list(range(len(labels))), labels, d.train_test_split,
+                               d.random_seed)[1])
+    eval_rows = val % min(TRAIN_BATCH, val) or min(TRAIN_BATCH, val)
+    return ((6 * TRAIN_BATCH, CHANNELS, WINDOW), (6 * eval_rows, CHANNELS, WINDOW))
+
+
 def cuda_ms(fn, reps: int, calls: int = 1) -> list[float]:
     """Per-call device times of ``fn`` in ms, from CUDA events around
     ``calls`` calls in a row."""
@@ -270,17 +325,18 @@ def phase_inputs(shape, device, seed):
     return [torch.from_numpy(a).to(device) for a in (ph1, ph2, pw1, pw2)]
 
 
-def phase_kernel_phase(device, plv: bool) -> dict:
+def phase_kernel_phase(device, plv: bool) -> tuple[dict, dict]:
     """K1 (K2 with ``plv``) against its plain version at its timed shapes,
     at RAGGED_SHAPE and at UNALIGNED_SHAPE, whose rows the kernel stages
     element by element.  The tied pair (0, 0) must give mean sign and
     Phase_Diff 0 (and mean cos 1): padded samples add nothing.
 
-    Timed shapes: K1 the serving run's (``path_kernel_shapes``), K2
-    PLV_SHAPES.  Kernel and plain version are timed in turns, one call
-    between CUDA events, and the kernel again as 20 calls replayed from a
-    CUDA graph (device time alone).  Returns the JSON fields at the largest
-    timed shape.
+    Timed shapes: K1 the serving run's (``path_kernel_shapes``) and the
+    training run's (``train_kernel_shapes``), K2 PLV_SHAPES.  Kernel and
+    plain version are timed in turns, one call between CUDA events, and the
+    kernel again as 20 calls replayed from a CUDA graph (device time alone).
+    Returns the JSON fields at the largest timed shape, and those of every
+    timed shape by shape.
     """
     from eyegaze_tpu_torch.kernels import phase_metrics
 
@@ -288,7 +344,7 @@ def phase_kernel_phase(device, plv: bool) -> dict:
     kernel = phase_metrics.phase_plv_metric_sums if plv else phase_metrics.phase_metric_sums
     plain = (phase_metrics.pairwise_phase_plv_metrics_reference if plv
              else phase_metrics.pairwise_phase_metrics_reference)
-    timed = PLV_SHAPES if plv else path_kernel_shapes()
+    timed = PLV_SHAPES if plv else path_kernel_shapes() + train_kernel_shapes()
     max_err = 0.0
     for seed, shape in enumerate(timed + (RAGGED_SHAPE, UNALIGNED_SHAPE)):
         x = phase_inputs(shape, device, seed)
@@ -309,6 +365,7 @@ def phase_kernel_phase(device, plv: bool) -> dict:
               + ": within tolerance")
         del x, got
 
+    per_shape = {}
     for seed, shape in enumerate(timed):
         x = phase_inputs(shape, device, seed)
         ms, plain_ms = alternate_ms(lambda: kernel(*x), lambda: plain(*x))
@@ -321,10 +378,12 @@ def phase_kernel_phase(device, plv: bool) -> dict:
               f"of {BACK_TO_BACK} calls {ms_graph:.4f} ms, {bound_ms / ms_graph:.0%} of the "
               f"bound {bound_ms:.4f} ms ({bound_by}); T split over {split} block(s) of a "
               f"cluster, {blocks} blocks on {SMS} SMs")
+        per_shape[shape] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by, "ms_graph": ms_graph, "split": split,
+                            "shape": list(shape)}
         del x
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "ms_graph": ms_graph, "split": split,
-            "shape": list(shape)}
+    largest = max(timed, key=lambda shape: shape[0])
+    return {"max_abs_err": max_err, "library_ms": None, **per_shape[largest]}, per_shape
 
 
 def windows(raw: np.ndarray, device) -> torch.Tensor:
@@ -902,6 +961,175 @@ def legacy_phase(device):
     return raw1, raw2, logits, model.state_dict()
 
 
+def flagship_train_config(output_dir, *, bf16: bool = True, dropout: float = 0.1):
+    """The flagship's training config at full width, built from the
+    dataclasses (no YAML): the default ModelConfig, 96 seeded synthetic
+    trials of 1,024 samples, the bench's recipe, one epoch."""
+    from eyegaze_tpu_torch.config import DataConfig, ExperimentConfig, SystemConfig, TrainingConfig
+    from eyegaze_tpu_torch.train_dual_eeg import BENCH_LOSSES
+
+    return ExperimentConfig(
+        data=DataConfig(window_size=WINDOW, stride=STRIDE, sampling_rate=SAMPLING_RATE,
+                        synthetic=True, synthetic_trials=96),
+        training=TrainingConfig(output_dir=str(output_dir), num_train_epochs=1,
+                                per_device_train_batch_size=TRAIN_BATCH,
+                                per_device_eval_batch_size=TRAIN_BATCH, learning_rate=TRAIN_LR,
+                                weight_decay=0.01, grad_clip=1.0, dropout=dropout, bf16=bf16,
+                                **BENCH_LOSSES),
+        system=SystemConfig(seed=0, device="cuda"))
+
+
+def bench_batch(n: int, device, seed: int = 1) -> dict:
+    """The bench's train batch: normal (n, 32, 1024) window pairs, labels
+    cycling over the three classes."""
+    r = np.random.default_rng(seed)
+    e1, e2 = (r.normal(size=(n, CHANNELS, WINDOW)).astype(np.float32) for _ in range(2))
+    return {"eeg1": torch.from_numpy(e1).to(device), "eeg2": torch.from_numpy(e2).to(device),
+            "label": torch.from_numpy((np.arange(n) % 3).astype(np.int32)).to(device)}
+
+
+def train_parity_phase(device) -> None:
+    """One f32 train step without dropout on the card and on the CPU, from
+    the same seeded weights and batch: the loss, the gradient norm and the
+    parameter change held to the bounds above."""
+    from eyegaze_tpu_torch.train.optim import make_optimizer
+    from eyegaze_tpu_torch.train_dual_eeg import build_model, make_objective
+
+    cfg = flagship_train_config(".", bf16=False, dropout=0.0)
+    loss_fn, _ = make_objective(cfg)
+    out = []
+    for dev in (device, torch.device("cpu")):
+        model = build_model(cfg, device=dev)
+        for m in model.modules():  # the IBS head's fixed 0.3 too
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        opt = make_optimizer(model, TRAIN_LR, 0.01, grad_clip=1.0)
+        before = [p.detach().clone() for p in model.parameters()]
+        t0 = time.perf_counter()
+        loss, _ = loss_fn(model.train(), bench_batch(PARITY_BATCH, dev, seed=3))
+        loss.backward()
+        norm = opt.step()
+        step = [(p.detach() - b).cpu() for p, b in zip(model.parameters(), before)]
+        params = before
+        out.append((loss.item(), norm.item(), step, time.perf_counter() - t0))
+    (loss, norm, step, card_s), (cpu_loss, cpu_norm, cpu_step, cpu_s) = out
+    largest = max(float(d.abs().max()) for d in step)
+    cpu_largest = max(float(d.abs().max()) for d in cpu_step)
+    apart = max(float((a - b).abs().max()) for a, b in zip(step, cpu_step))
+    max_p = max(float(p.abs().max()) for p in params)
+    print(f"one f32 train step at batch {PARITY_BATCH} without dropout, card vs CPU: loss "
+          f"{loss:.6f} / {cpu_loss:.6f} (|diff| {abs(loss - cpu_loss):.3e}, bound {LOGIT_TOL}); "
+          f"grad norm {norm:.6f} / {cpu_norm:.6f} (rel diff {abs(norm / cpu_norm - 1):.3e}, "
+          f"bound {PARITY_GRAD_NORM_RTOL}); largest parameter change {largest:.6e} / "
+          f"{cpu_largest:.6e}, entries apart by {apart:.3e} at most (bound 2 lr + 1%: "
+          f"{PARITY_APART_BOUND:.3e}); max |p| {max_p:.3f}; wall {card_s:.2f} / {cpu_s:.2f} s")
+    if not (abs(loss - cpu_loss) <= LOGIT_TOL
+            and abs(norm / cpu_norm - 1) <= PARITY_GRAD_NORM_RTOL
+            and abs(largest / cpu_largest - 1) <= PARITY_STEP_RTOL
+            and apart <= PARITY_APART_BOUND and max_p < 8.0):
+        raise RuntimeError("the card's train step is not the CPU's within the bounds")
+
+
+def reset_k1_count() -> None:
+    from eyegaze_tpu_torch.kernels import phase_metrics
+
+    phase_metrics.launch_count.update(phase_metric_sums=0, phase_plv_metric_sums=0)
+
+
+def k1_count() -> int:
+    from eyegaze_tpu_torch.kernels import phase_metrics
+
+    if phase_metrics.launch_count["phase_plv_metric_sums"]:
+        raise RuntimeError(f"flagship training launched K2: {phase_metrics.launch_count}")
+    return phase_metrics.launch_count["phase_metric_sums"]
+
+
+def train_timed_phase(device, dtype) -> dict:
+    """``Trainer.train_step`` at full width on the bench's batch of 64,
+    with dropout 0.1 in ``dtype`` compute: TRAIN_WARMUP steps, then
+    TRAIN_STEPS steps each timed to a ``torch.cuda.synchronize()``.  Every
+    loss must be finite and every forward launch K1 once.  Returns the
+    times, the peak memory and K1's launches."""
+    from eyegaze_tpu_torch.train.optim import make_optimizer
+    from eyegaze_tpu_torch.train.trainer import Trainer, TrainerConfig
+    from eyegaze_tpu_torch.train_dual_eeg import build_model, make_objective
+
+    name = str(dtype)[6:]
+    cfg = flagship_train_config(".", bf16=dtype == torch.bfloat16)
+    model = build_model(cfg, device=device, dtype=dtype)
+    n_params = sum(p.numel() for p in model.parameters())
+    trainer = Trainer(model, make_optimizer(model, TRAIN_LR, 0.01, grad_clip=1.0),
+                      *make_objective(cfg), TrainerConfig(seed=0), device=device)
+    batch = bench_batch(TRAIN_BATCH, device)
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_WARMUP):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_k1_count()
+    walls, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+    launches = k1_count()
+    peak = torch.cuda.max_memory_allocated(device)
+    if not np.isfinite(losses).all() or launches != TRAIN_STEPS:
+        raise RuntimeError(f"{name} training: losses {losses}, {launches} K1 launches for "
+                           f"{TRAIN_STEPS} forwards")
+    median = statistics.median(walls)
+    print(f"flagship train step ({name} compute, dropout 0.1, batch {TRAIN_BATCH}, "
+          f"{n_params:,} parameters): {TRAIN_WARMUP} warm-up steps {warmup_s:.2f} s; "
+          f"{TRAIN_STEPS} steps, CUDA-synchronized wall ms median {median:.3f}, min "
+          f"{min(walls):.3f}, max {max(walls):.3f}; {TRAIN_BATCH * 1e3 / median:.1f} window "
+          f"pairs/s; peak memory {peak / 2**30:.3f} GiB; losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, all finite; K1 launches {launches} for {TRAIN_STEPS} forwards")
+    return {"median_ms": median, "walls_ms": walls, "peak_bytes": peak, "launches": launches,
+            "parameters": n_params}
+
+
+def train_serve_phase(device, tmp: Path) -> int:
+    """``train_dual_eeg.run`` (``main`` without its YAML) at full width
+    for one epoch on the synthetic fixtures, bf16 as the YAML trains, into
+    ``tmp``; then ``Predictor.from_checkpoint`` serves the validation
+    windows from the best_model.pt it wrote, on the card.  Its logits must
+    be the trainer's own eval logits within 2**-5 of the largest |logit|.
+    Returns K1's launches in the training run."""
+    from eyegaze_tpu_torch import train_dual_eeg
+    from eyegaze_tpu_torch.serving import Predictor
+
+    cfg = flagship_train_config(tmp / "train")
+    reset_k1_count()
+    t0 = time.perf_counter()
+    result = train_dual_eeg.run(cfg, device=device)
+    run_s = time.perf_counter() - t0
+    launches = k1_count()
+    trainer = result["trainer"]
+    _, val = train_dual_eeg.prepare_datasets(cfg)
+    eval_batches = math.ceil(len(val) / min(TRAIN_BATCH, len(val)))
+    if launches != trainer.optimizer.count + eval_batches:
+        raise RuntimeError(f"{trainer.optimizer.count} train steps and {eval_batches} eval "
+                           f"batches launched K1 {launches} times")
+    path = Path(cfg.training.output_dir) / "checkpoints" / "best_model.pt"
+    pred = Predictor.from_checkpoint(path, device=device, batch_buckets=BUCKETS)
+    windows_ = val.batch(list(range(len(val))))
+    logits = pred.predict(windows_["eeg1"], windows_["eeg2"])["logits"]
+    want = trainer.eval_logits
+    gap = float(np.abs(logits - want).max())
+    tol = LOGIT_BF16_TOL_SHARE * float(np.abs(want).max())
+    print(f"train_dual_eeg, 1 epoch at full width on {len(val)} validation windows: "
+          f"{trainer.optimizer.count} step(s) of {TRAIN_BATCH}, {eval_batches} eval batch(es), "
+          f"{launches} K1 launches, {run_s:.2f} s; best_model.pt served by "
+          f"Predictor.from_checkpoint (bf16): max |logits - the trainer's eval logits| "
+          f"{gap:.3e} (tolerance {tol:.3e}, 2**-5 of the largest |logit|)")
+    if not (logits.shape == want.shape and gap <= tol):
+        raise RuntimeError(f"the served checkpoint's logits differ from training's: {gap:.3e}")
+    return launches
+
+
 F32_INSTANCES = {(16, 4), (16, 1), (32, 2), (32, 1), (64, 1), (128, 1)}  # (d, rows per thread)
 BF16_HEAD_DIMS = {16, 32, 64, 128}
 
@@ -1043,8 +1271,8 @@ def main() -> None:
 
     from eyegaze_tpu_torch.kernels import attention
 
-    k1_timing = phase_kernel_phase(device, plv=False)
-    k2_timing = phase_kernel_phase(device, plv=True)
+    k1_timing, k1_shapes = phase_kernel_phase(device, plv=False)
+    k2_timing, _ = phase_kernel_phase(device, plv=True)
     attn_timing = attention_phase(device, clock_hz)
 
     reset_attention_counts()
@@ -1069,16 +1297,36 @@ def main() -> None:
     legacy_raw1, legacy_raw2, legacy_logits, legacy_state = legacy_phase(device)
     cpu_parity(legacy_raw1, legacy_raw2, legacy_logits, legacy_state, use_robust_ibs=False)
 
+    reset_attention_counts()
+    train_parity_phase(device)
+    train = {dt: train_timed_phase(device, dt) for dt in (torch.bfloat16, torch.float32)}
+    with tempfile.TemporaryDirectory() as tmp:
+        k1_train_serve_launches = train_serve_phase(device, Path(tmp))
+    if any(attention.launch_count.values()):
+        raise RuntimeError("flagship training launched the attention kernel")
+    bf16, f32 = train[torch.bfloat16], train[torch.float32]
+    print(f"flagship train step at batch {TRAIN_BATCH}, median ms: bf16 {bf16['median_ms']:.3f}, "
+          f"f32 {f32['median_ms']:.3f} ({f32['median_ms'] / bf16['median_ms']:.2f}x); peak "
+          f"memory GiB: bf16 {bf16['peak_bytes'] / 2**30:.3f}, f32 {f32['peak_bytes'] / 2**30:.3f}")
+    k1_train = bf16["launches"] + f32["launches"] + k1_train_serve_launches
+
     phase_source = "eyegaze_tpu_torch/csrc/phase_metrics.cu"
     source = "eyegaze_tpu_torch/csrc/attention.cu"
     art_forwards = len(ART_REQUESTS) * REPEATS
-    k1_all = k1_launches + k1_bf16_launches
+    k1_serving = k1_launches + k1_bf16_launches
+    train_shape = (6 * TRAIN_BATCH, CHANNELS, WINDOW)
     art_bf16_all = art_bf16_launches + art_ckpt_launches
     kernels = [
         {"name": "pairwise_phase_metrics", "route": "cuda", "source": phase_source,
-         "replaces": "eyegaze_tpu/ops/pallas_kernels.py:74", "launches": k1_all,
-         "path": "EEG serving, f32 and bf16 from a checkpoint",
-         "launches_per_request": k1_all / (2 * len(REQUESTS) * REPEATS),
+         "replaces": "eyegaze_tpu/ops/pallas_kernels.py:74", "launches": k1_serving + k1_train,
+         "path": "EEG serving, f32 and bf16 from a checkpoint; flagship training, bf16 and "
+                 "f32 steps and one epoch of train_dual_eeg",
+         "launches_per_request": k1_serving / (2 * len(REQUESTS) * REPEATS),
+         "launches_serving": k1_serving, "launches_training": k1_train,
+         "launches_per_train_step": (bf16["launches"] + f32["launches"]) / (2 * TRAIN_STEPS),
+         "train_shape_timing": k1_shapes[train_shape],
+         "train_step_ms": {"bf16": bf16["median_ms"], "f32": f32["median_ms"]},
+         "train_peak_gib": {"bf16": bf16["peak_bytes"] / 2**30, "f32": f32["peak_bytes"] / 2**30},
          "sass_per_pair_sample": loop_counts["K1"], **k1_timing},
         {"name": "pairwise_phase_plv_metrics", "route": "cuda", "source": phase_source,
          "replaces": "eyegaze_tpu/ops/pallas_kernels.py:151",

@@ -4,7 +4,9 @@ A second package beside the JAX one, which stays the reference.  The first
 slice is the flagship EEG serving path: preprocessing (``ops.preprocess``),
 the six-band spectral and connectivity math (``ops.spectral``,
 ``ops.connectivity``), the DualEEGTransformer (``models``) and the bucketed
-``serving.Predictor``.  The connectivity block's phase metrics run in a hand
+``serving.Predictor``.  The flagship also trains here: ``config``, the
+host-side data layer (``data``), losses, AdamW, metrics, checkpoints and
+the trainer (``train``), behind ``train_dual_eeg`` and ``run_experiments``.  The connectivity block's phase metrics run in a hand
 CUDA kernel (``kernels.phase_metrics``, source in ``csrc/``), built with nvcc
 at first use.  This package imports torch and never jax.
 """

@@ -4,6 +4,8 @@ Port of the fft route of ``eyegaze_tpu/ops/spectral.py``.  The JAX package
 also has a matmul-DFT route, which exists only because its TPU had no FFT
 kernels; the port does not need it.
 
+- ``bandpass_fft`` is the rfft-mask-irfft bandpass of one band, which the
+  trainer applies when ``data.enable_preprocessing`` is set.
 - ``analytic_band_parts`` is the rfft-mask-irfft bandpass with inclusive
   band edges on rfftfreq bins, plus its FFT-Hilbert quadrature, so phase is
   ``atan2(quad, band)`` and power ``band ** 2``.
@@ -70,6 +72,15 @@ def band_masks(n: int, sampling_rate: float, bands, device: torch.device) -> tor
     """Inclusive rfft-bin masks, (num_bands, n//2 + 1) float32, on ``device``
     (made once per argument set and shared: do not write to it)."""
     return _band_consts(n, float(sampling_rate), tuple(bands), device)[0]
+
+
+def bandpass_fft(x: torch.Tensor, low: float, high: float, sampling_rate: float) -> torch.Tensor:
+    """FFT-mask bandpass of a real signal along the last axis, in ``x``'s
+    dtype: rfft, zero the bins outside [low, high] (inclusive), irfft."""
+    n = x.shape[-1]
+    mask = band_masks(n, sampling_rate, (("band", low, high),), x.device)[0]
+    spec = torch.fft.rfft(x.to(torch.float32), dim=-1)
+    return torch.fft.irfft(spec * mask, n=n, dim=-1).to(x.dtype)
 
 
 def analytic_band_parts(x: torch.Tensor, sampling_rate: float, bands):

@@ -1,6 +1,8 @@
-"""Where the serving paths' time goes on one CUDA device.
+"""Where the serving paths' and the flagship train step's time goes on one
+CUDA device.
 
-    python -m eyegaze_tpu_torch.profile_slice
+    python -m eyegaze_tpu_torch.profile_slice           # serving
+    python -m eyegaze_tpu_torch.profile_slice --train   # the train step
 
 It profiles both serving paths in turn, each in float32 and then in bf16
 compute (the type the JAX package's ``from_checkpoint`` serves).
@@ -26,12 +28,22 @@ forward's 18 attention kernel launches alone.
 For each request both print the median synchronized wall time and, from
 ``torch.profiler`` over 5 requests, the summed CUDA-kernel time against the
 wall time (the device's busy share), the attention kernel's share of the
-kernel time (ART), and the operators with the most device time.  TF32 is
-off.  It needs a CUDA device.
+kernel time (ART), and the operators with the most device time.
+
+``--train``: the flagship's train step at full width as the JAX bench
+takes it (batch 64 of (32, 1024) window pairs, CE + 0.1 sym + 0.1 align +
+0.3 IBS-CE + 0.1 contrastive, AdamW at 1e-4 with clip 1.0, dropout 0.1),
+in bf16 and then float32 compute: the median CUDA-event time of the
+forward (loss included), the backward and the optimizer (clip + AdamW)
+over 10 steps, and from ``torch.profiler`` over 5 synchronized steps the
+busy share, K1's share of the kernel time and the top operators.
+
+TF32 is off.  It needs a CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
 import math
 import statistics
 import subprocess
@@ -41,6 +53,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from eyegaze_tpu_torch.config import ExperimentConfig, TrainingConfig
 from eyegaze_tpu_torch.kernels import attention
 from eyegaze_tpu_torch.models.art import ArtConfig, ArtifactRemovalTransformer
 from eyegaze_tpu_torch.models.dual_eeg import DualEEGTransformer
@@ -48,12 +61,15 @@ from eyegaze_tpu_torch.ops.connectivity import connectivity_matrices
 from eyegaze_tpu_torch.ops.preprocess import preprocess_eeg, sliding_windows
 from eyegaze_tpu_torch.ops.spectral import stft_log_magnitude
 from eyegaze_tpu_torch.serving import ArtDenoiser, Predictor, _bucket
+from eyegaze_tpu_torch.train.optim import make_optimizer
+from eyegaze_tpu_torch.train_dual_eeg import BENCH_LOSSES, build_model, make_objective
 
 CHANNELS, RAW_SAMPLES, WINDOW, STRIDE = 32, 3250, 1024, 512
 BUCKETS = (1, 8, 32, 128)
 REQUESTS = (1, 16)
 ART_BUCKETS = (1, 8, 32)
 ART_REQUESTS = (1, 32)
+TRAIN_BATCH = 64
 
 
 def median_cuda_ms(fn, reps: int = 10) -> float:
@@ -71,7 +87,8 @@ def median_cuda_ms(fn, reps: int = 10) -> float:
 
 
 def wall_and_profile(request, kernel_share: str | None = None) -> None:
-    """Median wall time of 10 requests, then the profiler over 5."""
+    """Median wall time of 10 requests, then the profiler over 5 (a request
+    ends in a wait on the device)."""
     walls = []
     for _ in range(10):
         t0 = time.perf_counter()
@@ -202,7 +219,56 @@ def art(dev: torch.device, dtype: torch.dtype) -> None:
         wall_and_profile(lambda: den.predict(noisy[:n]), kernel_share="attention_kernel")
 
 
-def main() -> None:
+def train(dev: torch.device, dtype: torch.dtype) -> None:
+    cfg = ExperimentConfig(training=TrainingConfig(dropout=0.1, bf16=dtype == torch.bfloat16,
+                                                   **BENCH_LOSSES))
+    model = build_model(cfg, device=dev, dtype=dtype).train()
+    opt = make_optimizer(model, 1e-4, 0.01, grad_clip=1.0)
+    loss_fn, _ = make_objective(cfg)
+    r = np.random.default_rng(1)
+    batch = {k: torch.from_numpy(r.normal(size=(TRAIN_BATCH, CHANNELS, WINDOW)).astype(
+        np.float32)).to(dev) for k in ("eeg1", "eeg2")}
+    batch["label"] = torch.from_numpy((np.arange(TRAIN_BATCH) % 3).astype(np.int32)).to(dev)
+
+    def step(events=None):
+        mark = (lambda i: events[i].record()) if events else (lambda i: None)
+        mark(0)
+        loss, _ = loss_fn(model, batch)
+        mark(1)
+        opt.zero_grad()
+        loss.backward()
+        mark(2)
+        opt.step()
+        mark(3)
+
+    for _ in range(3):
+        step()
+    parts = {"forward (loss included)": [], "backward": [], "optimizer (clip + AdamW)": [],
+             "whole step": []}
+    for _ in range(10):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        step(events)
+        torch.cuda.synchronize()
+        times = [events[i].elapsed_time(events[i + 1]) for i in range(3)]
+        for name, ms in zip(parts, times + [sum(times)]):
+            parts[name].append(ms)
+    print(f"--- flagship train step ({str(dtype)[6:]} compute, dropout 0.1), batch "
+          f"{TRAIN_BATCH}: median CUDA-event ms over 10 steps")
+    for name, times in parts.items():
+        print(f"  {name}: {statistics.median(times):.3f}")
+
+    def synced_step():
+        step()
+        torch.cuda.synchronize()
+
+    wall_and_profile(synced_step, kernel_share="phase_metrics_kernel")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.strip().splitlines()[0])
+    ap.add_argument("--train", action="store_true",
+                    help="profile the flagship train step instead of the serving paths")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -210,6 +276,10 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    if args.train:
+        for dtype in (torch.bfloat16, torch.float32):
+            train(dev, dtype)
+        return
     for dtype in (torch.float32, torch.bfloat16):
         eeg(dev, dtype)
     for dtype in (torch.float32, torch.bfloat16):

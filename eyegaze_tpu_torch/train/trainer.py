@@ -1,0 +1,227 @@
+"""Training loop: train steps, evaluation, best-by-metric and periodic
+checkpoints, resume, logging.
+
+Port of ``eyegaze_tpu/train/trainer.py``.  Where the JAX trainer compiles
+one train step over a pytree state, this one drives a module and an
+``Optimizer`` (``train/optim.py``) on one explicit device:
+
+- ``train_step``: ``model.train()``, ``loss_fn(model, batch) -> (loss,
+  aux)``, backward, then the optimizer's clip and AdamW update.  Its
+  metrics stay on the device; an epoch reads them once, at its end.
+- ``evaluate``: ``model.eval()`` under ``torch.inference_mode()``,
+  ``eval_logits_fn(model, batch) -> logits`` per batch, sklearn-parity
+  metrics on the host; ``model.train()`` is put back.
+- Dropout draws from the device's default generator, seeded from
+  ``config.seed``: dropout masks cannot match the JAX package's
+  (docs/PARITY.md), so there is no counterpart of its PRNG key.
+- ``prefetch`` host batches stay in flight: on a CUDA device each goes
+  through pinned memory as a ``non_blocking`` copy.
+
+Parameters and the optimizer stay float32; a model built with
+``dtype=torch.bfloat16`` computes in bf16 (no gradient scaler: bf16 has
+float32's exponent range).
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from eyegaze_tpu_torch.train.checkpoint import CheckpointManager
+from eyegaze_tpu_torch.train.metrics import classification_metrics
+from eyegaze_tpu_torch.train.optim import Optimizer
+from eyegaze_tpu_torch.utils.logging import tree_histograms
+
+Batch = Dict[str, torch.Tensor]
+LossFn = Callable[[torch.nn.Module, Batch], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    num_epochs: int = 10
+    eval_every_epochs: int = 1
+    save_every_epochs: int = 10
+    metric_for_best: str = "f1_macro"
+    greater_is_better: bool = True
+    checkpoint_dir: Optional[str] = None
+    seed: int = 42
+    # The JAX package's device mesh; refused until the port has data
+    # parallelism over torch.distributed.
+    use_mesh: Any = False
+    # wandb.watch equivalent: every N epochs, log parameter + gradient
+    # histograms (one extra gradient on the epoch's last batch).  0 disables.
+    # Needs a watch_logger on the Trainer.
+    watch_every_epochs: int = 0
+    # Host batches kept in flight to the device.  0 disables.
+    prefetch: int = 2
+
+
+def seed_device(device: torch.device, seed: int) -> None:
+    """Seeds ``device``'s default generator, which dropout draws from."""
+    if device.type == "cuda":
+        with torch.cuda.device(device):
+            torch.cuda.manual_seed(seed)
+    else:
+        torch.manual_seed(seed)
+
+
+class Trainer:
+    """Drives (train_batches, eval_batches) epochs over ``model`` and
+    ``optimizer`` on ``device``.  Batches come in as dicts of numpy arrays;
+    ``loss_fn`` and ``eval_logits_fn`` get them as tensors on the device.
+    ``aux`` must hold 'logits' for the train accuracy; its 'loss_*' entries
+    are logged."""
+
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        optimizer: Optimizer,
+        loss_fn: LossFn,
+        eval_logits_fn: Optional[Callable[[torch.nn.Module, Batch], torch.Tensor]],
+        config: TrainerConfig,
+        *,
+        device: torch.device,
+        num_classes: int = 3,
+        logger: Optional[Callable[[Dict], None]] = None,
+        watch_logger: Optional[Callable[[Dict], None]] = None,
+    ):
+        if config.use_mesh:
+            raise ValueError(f"use_mesh={config.use_mesh!r}: data parallelism is not ported yet "
+                             "(ROADMAP item 12, DDP over torch.distributed); train on one device")
+        self.config = config
+        self.device = torch.device(device)
+        self.model = model.to(self.device)
+        self.optimizer = optimizer
+        self.loss_fn = loss_fn
+        self.eval_logits_fn = eval_logits_fn
+        self.num_classes = num_classes
+        self.logger = logger or (lambda d: None)
+        self.watch_logger = watch_logger
+        self.ckpt = (CheckpointManager(config.checkpoint_dir, config.greater_is_better)
+                     if config.checkpoint_dir else None)
+        self.history: list[Dict] = []
+        self.eval_logits: Optional[np.ndarray] = None  # the last evaluate's, in batch order
+        self._last_batch: Optional[Batch] = None
+        seed_device(self.device, config.seed)
+
+    def _put(self, batch: Dict[str, np.ndarray]) -> Batch:
+        out = {}
+        for k, v in batch.items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            out[k] = t
+        return out
+
+    def _prefetched(self, batches: Iterable[Dict[str, np.ndarray]]) -> Iterator[Batch]:
+        in_flight: collections.deque = collections.deque()
+        for batch in batches:
+            in_flight.append(self._put(batch))
+            if len(in_flight) > self.config.prefetch:
+                yield in_flight.popleft()
+        while in_flight:
+            yield in_flight.popleft()
+
+    def train_step(self, batch: Batch) -> Dict[str, torch.Tensor]:
+        """One update on a device batch; returns its metrics as device
+        tensors: loss, grad_norm (before clipping), correct and count
+        (where there are logits and labels), and aux's 'loss_*'."""
+        self.model.train()
+        loss, aux = self.loss_fn(self.model, batch)
+        self.optimizer.zero_grad()
+        loss.backward()
+        metrics = {"loss": loss.detach(), "grad_norm": self.optimizer.step()}
+        if "logits" in aux and "label" in batch:
+            metrics["correct"] = (aux["logits"].argmax(dim=-1) == batch["label"]).sum()
+            metrics["count"] = batch["label"].shape[0]
+        metrics.update({k: v.detach() for k, v in aux.items() if k.startswith("loss_")})
+        self._last_batch = batch
+        return metrics
+
+    def train_epoch(self, batches: Iterable[Dict[str, np.ndarray]], epoch: int) -> Dict:
+        totals: Dict[str, Any] = {}
+        n_batches = 0
+        t0 = time.time()
+        for batch in self._prefetched(batches):
+            for k, v in self.train_step(batch).items():
+                totals[k] = totals.get(k, 0) + v
+            n_batches += 1
+        totals = {k: float(v) for k, v in totals.items()}  # the epoch's one wait on the device
+        dt = time.time() - t0
+        out = {f"train/{k}": v / n_batches for k, v in totals.items()
+               if k not in ("correct", "count")}
+        if "count" in totals:
+            out["train/accuracy"] = totals["correct"] / max(totals["count"], 1)
+        out["train/epoch_time_s"] = dt
+        out["epoch"] = epoch
+        return out
+
+    def evaluate(self, batches: Iterable[Dict[str, np.ndarray]]) -> Dict:
+        all_logits, all_labels = [], []
+        self.model.eval()
+        try:
+            with torch.inference_mode():
+                for batch in self._prefetched(batches):
+                    all_logits.append(self.eval_logits_fn(self.model, batch).float().cpu())
+                    all_labels.append(batch["label"].cpu())
+        finally:
+            self.model.train()
+        logits = torch.cat(all_logits).numpy()
+        labels = torch.cat(all_labels).numpy()
+        self.eval_logits = logits
+        m = classification_metrics(labels, logits.argmax(axis=-1), self.num_classes)
+        return {f"val/{k}": (v if k == "confusion_matrix" else float(v))
+                for k, v in m.items() if not k.endswith("per_class")}
+
+    def _watch(self, epoch: int) -> None:
+        """Parameter and gradient histograms; the gradient is of the loss on
+        the epoch's last batch, taken apart from the optimizer's."""
+        self.model.train()
+        self.optimizer.zero_grad()
+        self.loss_fn(self.model, self._last_batch)[0].backward()
+        record = {"epoch": epoch}
+        record.update(tree_histograms(self.model.named_parameters(), prefix="param/"))
+        record.update(tree_histograms(((n, p.grad) for n, p in self.model.named_parameters()
+                                       if p.grad is not None), prefix="grad/"))
+        self.optimizer.zero_grad()
+        self.watch_logger(record)
+
+    def restore(self, name: str) -> int:
+        """Loads checkpoint ``name`` into the model and the optimizer;
+        returns its train step."""
+        return self.ckpt.restore(name, self.model, self.optimizer)
+
+    def fit(
+        self,
+        train_batches_fn: Callable[[int], Iterable],
+        eval_batches_fn: Optional[Callable[[], Iterable]] = None,
+        config_dict: Optional[Dict] = None,
+        start_epoch: int = 0,
+    ) -> Dict:
+        best = None
+        for epoch in range(start_epoch, self.config.num_epochs):
+            stats = self.train_epoch(train_batches_fn(epoch), epoch)
+            if eval_batches_fn is not None and (epoch + 1) % self.config.eval_every_epochs == 0:
+                stats.update(self.evaluate(eval_batches_fn()))
+                metric = stats.get(f"val/{self.config.metric_for_best}")
+                if metric is not None and self.ckpt is not None:
+                    if self.ckpt.save_if_best(metric, self.model, self.optimizer, config_dict,
+                                              {"epoch": epoch}):
+                        best = metric
+            if self.ckpt is not None and (epoch + 1) % self.config.save_every_epochs == 0:
+                self.ckpt.save_periodic(epoch, self.model, self.optimizer, config_dict)
+            if (self.config.watch_every_epochs > 0 and self.watch_logger is not None
+                    and (epoch + 1) % self.config.watch_every_epochs == 0
+                    and self._last_batch is not None):
+                self._watch(epoch)
+            loggable = {k: v for k, v in stats.items() if not isinstance(v, np.ndarray)}
+            self.logger(loggable)
+            self.history.append(loggable)
+        if best is None and self.ckpt is not None:
+            best = self.ckpt.best_metric
+        return {"best_metric": best, "history": self.history}

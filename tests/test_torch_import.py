@@ -16,14 +16,22 @@ def test_port_imports_without_jax():
     modules = sorted(m.name for m in pkgutil.walk_packages(eyegaze_tpu_torch.__path__,
                                                            "eyegaze_tpu_torch."))
     assert {"eyegaze_tpu_torch.kernels.phase_metrics",
-            "eyegaze_tpu_torch.compare_phase_metrics", "eyegaze_tpu_torch.serve"} <= set(modules)
+            "eyegaze_tpu_torch.compare_phase_metrics", "eyegaze_tpu_torch.serve",
+            "eyegaze_tpu_torch.config", "eyegaze_tpu_torch.data.metadata",
+            "eyegaze_tpu_torch.data.windows", "eyegaze_tpu_torch.data.loader",
+            "eyegaze_tpu_torch.data.synthetic", "eyegaze_tpu_torch.train.losses",
+            "eyegaze_tpu_torch.train.optim", "eyegaze_tpu_torch.train.metrics",
+            "eyegaze_tpu_torch.train.checkpoint", "eyegaze_tpu_torch.train.trainer",
+            "eyegaze_tpu_torch.utils.logging", "eyegaze_tpu_torch.train_dual_eeg",
+            "eyegaze_tpu_torch.run_experiments"} <= set(modules)
     code = (
         "import importlib, sys\n"
-        "sys.modules['jax'] = None  # any 'import jax' now raises ImportError\n"
+        "for banned in ('jax', 'flax', 'optax', 'orbax', 'eyegaze_tpu'):\n"
+        "    sys.modules[banned] = None  # any import of it now raises ImportError\n"
         "import eyegaze_tpu_torch\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
-        "assert not any(m == 'jax' or m.startswith(('jax.', 'eyegaze_tpu.'))\n"
+        "assert not any(m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'eyegaze_tpu')\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"
     )
@@ -67,3 +75,14 @@ def test_serve_fails_without_cuda_unless_asked_for_the_cpu():
     assert r.returncode != 0
     assert "needs a CUDA device" in r.stderr and "--device cpu" in r.stderr
     assert "listening" not in r.stdout
+
+
+def test_train_fails_without_cuda_unless_asked_for_the_cpu():
+    """The training entry point trains on the card by default (the YAML's
+    "tpu" included); without one it stops before it builds anything."""
+    r = subprocess.run([sys.executable, "-m", "eyegaze_tpu_torch.train_dual_eeg", "--config",
+                        "configs/dual_eeg_transformer.yaml"], cwd=ROOT, capture_output=True,
+                       text=True, timeout=300, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert r.returncode != 0
+    assert "needs a CUDA device" in r.stderr and "--device cpu" in r.stderr
+    assert "[model]" not in r.stdout
