@@ -95,6 +95,34 @@ instance with none, fails the run.  Then, each phase raising on any failure:
    trials into a temporary directory, and ``Predictor.from_checkpoint``
    serves the validation windows from the best_model.pt it wrote: within
    2**-5 of the largest |logit| of the trainer's own eval logits.
+14. ART training parity at full width (``ArtConfig(attn_dropout=0.0)``,
+   f32, as ``eyegaze_tpu_torch.train_art`` trains): one dropout-free step at
+   batch 2 on the card, through K3 and its autograd Function (18 launches
+   and 18 backward calls), and on the CPU through the plain path, from the
+   same seeded weights, held to the flagship step's bounds; then the
+   Function's dq, dk, dv at (16, 1024, 8, 16) f32 against autograd through
+   the plain twin, within 1e-4 of each one's largest |entry|.  The
+   Function's forward + backward is timed there beside the kernel's forward
+   alone and ``F.scaled_dot_product_attention``'s forward + backward (the
+   yardstick), with the backward's bound (its five matmuls) and the peak
+   memory one backward holds.
+15. ``Trainer.train_step`` on ART at batch 16 of (32, 1024) pairs, 3 steps
+   untimed and 20 timed to a synchronize, for both recipes: attention
+   dropout 0.1 (the default; the plain path, no K3 launch) and 0.0 (18 K3
+   launches and 18 backward calls a step): median step time, peak memory.
+16. ``train_art.run`` for one epoch at full width on 40 synthetic trials at
+   attention dropout 0.0 into a temporary directory (K3 in its train steps
+   and its evaluation), then ``ArtDenoiser.from_checkpoint`` (bf16) serves
+   the validation windows from the best_model.pt it wrote: within 2**-5 of
+   the largest output of the trained model in f32 (``tgt = src``).
+17. Gaze serving: ``EarlyFusionViT`` (concat) and ``LateFusionViT`` (full),
+   ViT-B/16 at full width (224 x 224, embed 768, depth 12, 12 heads),
+   seeded weights saved as a state_dict plus meta and served by
+   ``GazePredictor.from_checkpoint`` (bf16): requests of 1, 8 and 32 uint8
+   pairs, no attention-kernel launch, the 8-pair logits within 2**-5 of the
+   largest |logit| of the same checkpoint served on the CPU; then one
+   request of 8 pairs through ``serve --kind gaze`` over HTTP, equal to a
+   direct ``predict``.
 
 Every phase runs in float32 (TF32 off) unless it says bf16.  There is no
 CPU fallback: without a CUDA device the script exits non-zero and prints no
@@ -106,7 +134,9 @@ exponentials take on the SFU alone (``sfu_ex2_ms``, not a floor).  The
 second-to-last line of stdout is a JSON object with each kernel entry
 point's launches, error, times and bound (K1's launches are serving's and
 training's, with its timing at the train shape and the train step's
-median times and peak memory beside them); the last line is
+median times and peak memory beside them; the f32 head-packed entry's are
+serving's and ART training's, with its backward calls, the ART train
+step's medians and the autograd timing); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -214,7 +244,42 @@ PARITY_BATCH = 4  # card-vs-CPU step: a small batch, for the CPU's time
 # is 9.5e-7, 0.5% of 2 lr).
 PARITY_GRAD_NORM_RTOL = 1e-3
 PARITY_STEP_RTOL = 1e-3
-PARITY_APART_BOUND = 2 * TRAIN_LR * 1.01
+# ART's step also holds each gradient tensor, card against CPU, to 2e-3 of
+# its largest |entry| (ART_TOL's share).  At full width the FFN's linear1
+# gradients, sums over 2048 tokens with cancellation that no attention
+# call computes, differ between cuBLAS and the CPU by several times 1e-4 of
+# their largest |entry| even on the plain path (the phase prints the three
+# worst tensors), so the CPU tests' 1e-4 against JAX on one device does not
+# carry over; a wrong q, k or v gradient moves its tensors by far more.
+# The key projections' biases, zero in exact arithmetic (the softmax
+# ignores a shift of a row's scores), to 1e-6 of the largest gradient.
+PARITY_GRAD_SHARE = 2e-3
+PARITY_ZERO_GRAD_SHARE = 1e-6
+
+# ART training (eyegaze_tpu_torch.train_art's recipe: f32, AdamW at 1e-4,
+# weight decay 0.01, clip 1.0): the timed step at the JAX script's batch of
+# 16 windows, the card-vs-CPU step at 2 (the CPU's time), the entry point on
+# 40 synthetic trials (32 train, 8 validation: 2 steps and 1 eval batch).
+ART_TRAIN_BATCH = 16
+ART_PARITY_BATCH = 2
+ART_TRAIN_LR = 1e-4
+ART_TRAIN_TRIALS = 40
+# The Function's gradients on the card against autograd through the plain
+# twin, f32 at ART's training shape: the same f32 math in other orders, 1e-4
+# of each gradient's largest |entry|.
+ART_GRAD_SHARE = 1e-4
+ART_TRAIN_SHAPE = (ART_TRAIN_BATCH, WINDOW, ATTN_HEADS, ATTN_DK)  # (B, T, H, d)
+
+# Gaze serving: ViT-B/16 at full width (224 x 224, patch 16, embed 768,
+# depth 12, 12 heads: 197 tokens), bf16 from a checkpoint, buckets (1, 8, 32).
+GAZE_GEOMETRY = dict(img_size=224, embed_dim=768, depth=12, num_heads=12)
+GAZE_MODELS = (("early", "concat"), ("late", "full"))
+GAZE_REQUESTS = (1, 8, 32)
+GAZE_BUCKETS = (1, 8, 32)
+GAZE_CPU_PAIRS = 8  # card vs CPU on the 8-pair request (ViT-B on the CPU is slow)
+# bf16 compute, card vs CPU: a share of the largest |logit|, the bound
+# tests/test_torch_vit.py holds the port's bf16 ViTs to against Flax's.
+GAZE_BF16_TOL_SHARE = 2.0 ** -5
 
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # HBM bytes per second and dense operations per second by type.
@@ -988,11 +1053,76 @@ def bench_batch(n: int, device, seed: int = 1) -> dict:
             "label": torch.from_numpy((np.arange(n) % 3).astype(np.int32)).to(device)}
 
 
+def one_step(model, loss_fn, batch, lr: float) -> tuple:
+    """One optimizer step (AdamW at ``lr``, weight decay 0.01, clip 1.0) on
+    ``batch``: (loss, grad norm, each parameter's change on the CPU, the
+    parameters before, wall seconds, each parameter's gradient before the
+    clip on the CPU by name)."""
+    from eyegaze_tpu_torch.train.optim import make_optimizer
+
+    opt = make_optimizer(model, lr, 0.01, grad_clip=1.0)
+    before = [p.detach().clone() for p in model.parameters()]
+    t0 = time.perf_counter()
+    loss, _ = loss_fn(model.train(), batch)
+    loss.backward()
+    # Copies, on the CPU too: the clip scales the gradients in place.
+    grads = {n: p.grad.detach().to("cpu", copy=True) for n, p in model.named_parameters()
+             if p.grad is not None}
+    norm = opt.step()
+    step = [(p.detach() - b).cpu() for p, b in zip(model.parameters(), before)]
+    return loss.item(), norm.item(), step, before, time.perf_counter() - t0, grads
+
+
+def check_step_parity(name: str, card: tuple, cpu: tuple, lr: float, loss_tol: float) -> None:
+    """``one_step`` on the card against the CPU: the loss within
+    ``loss_tol``, the gradient norm within PARITY_GRAD_NORM_RTOL, the
+    largest parameter change within PARITY_STEP_RTOL and every entry within
+    2 lr + 1% (the Adam bound, reasoned at PARITY_STEP_RTOL)."""
+    (loss, norm, step, params, card_s, _), (cpu_loss, cpu_norm, cpu_step, _, cpu_s, _) = card, cpu
+    largest = max(float(d.abs().max()) for d in step)
+    cpu_largest = max(float(d.abs().max()) for d in cpu_step)
+    apart = max(float((a - b).abs().max()) for a, b in zip(step, cpu_step))
+    apart_bound = 2 * lr * 1.01
+    max_p = max(float(p.abs().max()) for p in params)
+    print(f"{name}, card vs CPU: loss {loss:.6f} / {cpu_loss:.6f} (|diff| "
+          f"{abs(loss - cpu_loss):.3e}, bound {loss_tol}); grad norm {norm:.6f} / {cpu_norm:.6f} "
+          f"(rel diff {abs(norm / cpu_norm - 1):.3e}, bound {PARITY_GRAD_NORM_RTOL}); largest "
+          f"parameter change {largest:.6e} / {cpu_largest:.6e}, entries apart by {apart:.3e} at "
+          f"most (bound 2 lr + 1%: {apart_bound:.3e}); max |p| {max_p:.3f}; wall "
+          f"{card_s:.2f} / {cpu_s:.2f} s")
+    if not (abs(loss - cpu_loss) <= loss_tol
+            and abs(norm / cpu_norm - 1) <= PARITY_GRAD_NORM_RTOL
+            and abs(largest / cpu_largest - 1) <= PARITY_STEP_RTOL
+            and apart <= apart_bound and max_p < 8.0):
+        raise RuntimeError(f"{name}: the card's train step is not the CPU's within the bounds")
+
+
+def check_grad_parity(name: str, card: dict, cpu: dict, zero: tuple) -> None:
+    """Each gradient tensor of a ``one_step`` on the card against the CPU's:
+    within PARITY_GRAD_SHARE of the CPU tensor's largest |entry|, those
+    named with a suffix in ``zero`` within PARITY_ZERO_GRAD_SHARE of the
+    largest gradient entry of all."""
+    if card.keys() != cpu.keys():
+        raise RuntimeError(f"{name}: the card and the CPU have gradients for other parameters")
+    largest = max(float(g.abs().max()) for g in cpu.values())
+    shares = []
+    for k, want in cpu.items():
+        bound = (PARITY_ZERO_GRAD_SHARE * largest if k.endswith(zero)
+                 else PARITY_GRAD_SHARE * float(want.abs().max()))
+        shares.append((float((card[k] - want).abs().max()) / bound, k))
+    shares.sort(reverse=True)
+    worst = ", ".join(f"{k} {share:.3f}" for share, k in shares[:3])
+    print(f"{name}, card vs CPU, {len(cpu)} gradient tensors, the largest |difference| as a "
+          f"share of its bound ({PARITY_GRAD_SHARE} of the tensor's largest |entry|, "
+          f"{PARITY_ZERO_GRAD_SHARE} of the largest gradient for {', '.join(zero)}): {worst}")
+    if shares[0][0] > 1.0:
+        raise RuntimeError(f"{name}: the gradient {shares[0][1]} differs from the CPU's")
+
+
 def train_parity_phase(device) -> None:
     """One f32 train step without dropout on the card and on the CPU, from
     the same seeded weights and batch: the loss, the gradient norm and the
     parameter change held to the bounds above."""
-    from eyegaze_tpu_torch.train.optim import make_optimizer
     from eyegaze_tpu_torch.train_dual_eeg import build_model, make_objective
 
     cfg = flagship_train_config(".", bf16=False, dropout=0.0)
@@ -1003,31 +1133,9 @@ def train_parity_phase(device) -> None:
         for m in model.modules():  # the IBS head's fixed 0.3 too
             if isinstance(m, torch.nn.Dropout):
                 m.p = 0.0
-        opt = make_optimizer(model, TRAIN_LR, 0.01, grad_clip=1.0)
-        before = [p.detach().clone() for p in model.parameters()]
-        t0 = time.perf_counter()
-        loss, _ = loss_fn(model.train(), bench_batch(PARITY_BATCH, dev, seed=3))
-        loss.backward()
-        norm = opt.step()
-        step = [(p.detach() - b).cpu() for p, b in zip(model.parameters(), before)]
-        params = before
-        out.append((loss.item(), norm.item(), step, time.perf_counter() - t0))
-    (loss, norm, step, card_s), (cpu_loss, cpu_norm, cpu_step, cpu_s) = out
-    largest = max(float(d.abs().max()) for d in step)
-    cpu_largest = max(float(d.abs().max()) for d in cpu_step)
-    apart = max(float((a - b).abs().max()) for a, b in zip(step, cpu_step))
-    max_p = max(float(p.abs().max()) for p in params)
-    print(f"one f32 train step at batch {PARITY_BATCH} without dropout, card vs CPU: loss "
-          f"{loss:.6f} / {cpu_loss:.6f} (|diff| {abs(loss - cpu_loss):.3e}, bound {LOGIT_TOL}); "
-          f"grad norm {norm:.6f} / {cpu_norm:.6f} (rel diff {abs(norm / cpu_norm - 1):.3e}, "
-          f"bound {PARITY_GRAD_NORM_RTOL}); largest parameter change {largest:.6e} / "
-          f"{cpu_largest:.6e}, entries apart by {apart:.3e} at most (bound 2 lr + 1%: "
-          f"{PARITY_APART_BOUND:.3e}); max |p| {max_p:.3f}; wall {card_s:.2f} / {cpu_s:.2f} s")
-    if not (abs(loss - cpu_loss) <= LOGIT_TOL
-            and abs(norm / cpu_norm - 1) <= PARITY_GRAD_NORM_RTOL
-            and abs(largest / cpu_largest - 1) <= PARITY_STEP_RTOL
-            and apart <= PARITY_APART_BOUND and max_p < 8.0):
-        raise RuntimeError("the card's train step is not the CPU's within the bounds")
+        out.append(one_step(model, loss_fn, bench_batch(PARITY_BATCH, dev, seed=3), TRAIN_LR))
+    check_step_parity(f"one f32 flagship train step at batch {PARITY_BATCH} without dropout",
+                      *out, TRAIN_LR, LOGIT_TOL)
 
 
 def reset_k1_count() -> None:
@@ -1128,6 +1236,343 @@ def train_serve_phase(device, tmp: Path) -> int:
     if not (logits.shape == want.shape and gap <= tol):
         raise RuntimeError(f"the served checkpoint's logits differ from training's: {gap:.3e}")
     return launches
+
+
+def reset_backward_count() -> None:
+    from eyegaze_tpu_torch.kernels import attention
+
+    attention.backward_count.update(headpacked_attention=0)
+
+
+def art_train_counts() -> tuple[int, int]:
+    """(f32 head-packed launches, backward calls) since the last reset;
+    raises on any other attention launch."""
+    from eyegaze_tpu_torch.kernels import attention
+
+    launches = attention.launch_count["headpacked_attention"]
+    if attention.launch_count["flash_attention"] or attention.bf16_launch_count[
+            "headpacked_attention"]:
+        raise RuntimeError(f"f32 ART training launched {attention.launch_count}, of them bf16 "
+                           f"{attention.bf16_launch_count}")
+    return launches, attention.backward_count["headpacked_attention"]
+
+
+def art_train_model(device, attn_dropout):
+    from eyegaze_tpu_torch.models.art import ArtConfig, ArtifactRemovalTransformer
+
+    return ArtifactRemovalTransformer(ArtConfig(attn_dropout=attn_dropout), device=device,
+                                      generator=torch.Generator().manual_seed(42))
+
+
+def art_train_batch(n: int, device) -> dict:
+    from eyegaze_tpu_torch import train_art
+
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in train_art.build_dataset(n, CHANNELS, WINDOW).arrays.items()}
+
+
+def art_train_parity_phase(device) -> tuple[float, tuple[int, int]]:
+    """One dropout-free ART step at full width (``attn_dropout=0.0``) at
+    batch 2 on the card, through K3 and its autograd Function (18 launches,
+    18 backward calls), and on the CPU through the plain path, from the
+    same seeded weights: held as the flagship's step, and each gradient
+    tensor against the CPU's.  Then the Function's dq, dk, dv at ART's
+    training shape against autograd through the plain twin.  Returns their
+    largest difference and the step's (launches, backward calls) on the
+    card."""
+    from eyegaze_tpu_torch import train_art
+    from eyegaze_tpu_torch.kernels import attention
+
+    loss_fn, _ = train_art.make_objective(False)
+    out = []
+    for dev in (device, torch.device("cpu")):
+        model = art_train_model(dev, 0.0)
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        reset_attention_counts()
+        reset_backward_count()
+        out.append(one_step(model, loss_fn, art_train_batch(ART_PARITY_BATCH, dev),
+                            ART_TRAIN_LR))
+        if dev.type == "cuda":
+            step_counts = art_train_counts()
+            if step_counts != (ART_ATTENTION_CALLS, ART_ATTENTION_CALLS):
+                raise RuntimeError(f"one ART step launched K3 and its backward "
+                                   f"{step_counts} times, not {ART_ATTENTION_CALLS}")
+    name = (f"one f32 ART train step at batch {ART_PARITY_BATCH} without dropout "
+            f"({ART_ATTENTION_CALLS} K3 launches and backward calls on the card)")
+    check_step_parity(name, *out, ART_TRAIN_LR, ART_TOL)
+    check_grad_parity(name, out[0][-1], out[1][-1], ("k_proj.bias",))
+
+    q, k, v, g = attention_inputs(ART_TRAIN_SHAPE, torch.float32, device, 20) + \
+        attention_inputs(ART_TRAIN_SHAPE, torch.float32, device, 21)[:1]
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    scale = 1.0 / math.sqrt(ATTN_DK)
+    got = torch.autograd.grad(attention.headpacked_attention(q, k, v, scale), (q, k, v), g)
+    ref = attention.attention_reference(*(x.transpose(1, 2) for x in (q, k, v)), scale)
+    want = torch.autograd.grad(ref.transpose(1, 2), (q, k, v), g)
+    errs = []
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        err, largest = float((a - w).abs().max()), float(w.abs().max())
+        errs.append(err)
+        print(f"K3 autograd Function at {ART_TRAIN_SHAPE} f32, {name}: max |Function - autograd "
+              f"through the twin| {err:.3e}, |{name}| max {largest:.3e} (bound "
+              f"{ART_GRAD_SHARE} of it)")
+        if not err <= ART_GRAD_SHARE * largest:
+            raise RuntimeError(f"K3's backward {name} off by {err:.3e}")
+    return max(errs), step_counts
+
+
+def attention_train_timing(device) -> dict:
+    """The Function's forward + backward (K3, then the stock-op backward)
+    against ``F.scaled_dot_product_attention``'s forward + backward, the
+    same function on the same inputs, at ART's training shape in f32; the
+    kernel's forward alone beside them, and the peak memory one backward
+    holds in transit."""
+    from eyegaze_tpu_torch.kernels import attention
+
+    q, k, v, g = attention_inputs(ART_TRAIN_SHAPE, torch.float32, device, 22) + \
+        attention_inputs(ART_TRAIN_SHAPE, torch.float32, device, 23)[:1]
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    scale = 1.0 / math.sqrt(ATTN_DK)
+    qt, kt, vt, gt = (x.transpose(1, 2) for x in (q, k, v, g))
+
+    def forward():
+        with torch.no_grad():
+            attention.headpacked_attention(q, k, v, scale)
+
+    def function():
+        torch.autograd.grad(attention.headpacked_attention(q, k, v, scale), (q, k, v), g)
+
+    def library():
+        torch.autograd.grad(F.scaled_dot_product_attention(qt, kt, vt, scale=scale),
+                            (q, k, v), gt)
+
+    fwd_ms, ms, library_ms = alternate_ms(forward, function, library)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    function()
+    torch.cuda.synchronize()
+    transit = torch.cuda.max_memory_allocated(device) - base
+    b, t, h, d = ART_TRAIN_SHAPE
+    # The backward's five matmuls (scores, dv, dp, dq, dk), 2 B H T^2 d
+    # operations each, against q, k, v, g read once and dq, dk, dv written.
+    bwd_bound, bwd_by = bound(7 * b * t * h * d * 4, 10 * b * h * t * t * d, F32_OPS_PER_S)
+    fwd_bound, _ = attention_bound(b, h, t, d, torch.float32)
+    print(f"K3 under autograd at {ART_TRAIN_SHAPE} f32: forward (kernel) {fwd_ms:.4f} ms, "
+          f"forward + backward (Function) {ms:.4f} ms, F.scaled_dot_product_attention forward "
+          f"+ backward {library_ms:.4f} ms (median CUDA-event ms, 20 each, in turns); backward "
+          f"bound {bwd_bound:.4f} ms ({bwd_by}: its five matmuls at {F32_OPS_PER_S / 1e12:g} "
+          f"TFLOP/s), forward + backward bound {fwd_bound + bwd_bound:.4f} ms; peak memory in "
+          f"transit during one forward + backward {transit / 2**30:.3f} GiB")
+    return {"fwd_ms": fwd_ms, "fwd_bwd_ms": ms, "library_fwd_bwd_ms": library_ms,
+            "bwd_bound_ms": bwd_bound, "fwd_bwd_bound_ms": fwd_bound + bwd_bound,
+            "bwd_transit_gib": transit / 2**30, "shape": list(ART_TRAIN_SHAPE)}
+
+
+def art_train_timed_phase(device, attn_dropout) -> dict:
+    """``Trainer.train_step`` on ART at full width, batch 16 of (32, 1024)
+    pairs, dropout 0.1, attention dropout ``attn_dropout`` (None: follows
+    dropout, the plain path; 0.0: K3 and its backward): TRAIN_WARMUP steps,
+    then TRAIN_STEPS each timed to a synchronize.  Every loss finite, and 18
+    K3 launches and backward calls a step at 0.0, none otherwise."""
+    from eyegaze_tpu_torch import train_art
+    from eyegaze_tpu_torch.train.optim import make_optimizer
+    from eyegaze_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    name = f"attention dropout {0.1 if attn_dropout is None else attn_dropout}"
+    model = art_train_model(device, attn_dropout)
+    loss_fn, metrics_fn = train_art.make_objective(False)
+    trainer = Trainer(model, make_optimizer(model, ART_TRAIN_LR, 0.01, grad_clip=1.0), loss_fn,
+                      None, TrainerConfig(seed=7), device=device, eval_metrics_fn=metrics_fn)
+    batch = art_train_batch(ART_TRAIN_BATCH, device)
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_WARMUP):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_attention_counts()
+    reset_backward_count()
+    walls, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+    launches, backward = art_train_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    want = ART_ATTENTION_CALLS * TRAIN_STEPS if attn_dropout == 0.0 else 0
+    if not np.isfinite(losses).all() or (launches, backward) != (want, want):
+        raise RuntimeError(f"ART training ({name}): losses {losses}, {launches} K3 launches and "
+                           f"{backward} backward calls for {TRAIN_STEPS} steps, not {want}")
+    median = statistics.median(walls)
+    print(f"ART train step (f32, dropout 0.1, {name}, batch {ART_TRAIN_BATCH}): {TRAIN_WARMUP} "
+          f"warm-up steps {warmup_s:.2f} s; {TRAIN_STEPS} steps, CUDA-synchronized wall ms "
+          f"median {median:.3f}, min {min(walls):.3f}, max {max(walls):.3f}; "
+          f"{ART_TRAIN_BATCH * 1e3 / median:.1f} windows/s; peak memory {peak / 2**30:.3f} GiB; "
+          f"losses {losses[0]:.4f} -> {losses[-1]:.4f}, all finite; per step "
+          f"{launches / TRAIN_STEPS:g} K3 launches, {backward / TRAIN_STEPS:g} backward calls")
+    return {"median_ms": median, "peak_bytes": peak, "launches": launches, "backward": backward}
+
+
+def art_train_serve_phase(device, tmp: Path) -> tuple[int, int]:
+    """``train_art.run`` at full width for one epoch on ART_TRAIN_TRIALS
+    synthetic trials with ``--attn-dropout 0.0`` into ``tmp`` (K3 and its
+    backward in each train step, K3 in the evaluation), then
+    ``ArtDenoiser.from_checkpoint`` (bf16) serves the validation windows
+    from the best_model.pt it wrote: within 2**-5 of the largest output of
+    the trained module in f32 (``tgt = src``).  Returns (K3 launches,
+    backward calls) of the run."""
+    from eyegaze_tpu_torch import train_art
+    from eyegaze_tpu_torch.serving import ArtDenoiser
+
+    args = train_art.parse_args(["--epochs", "1", "--trials", str(ART_TRAIN_TRIALS),
+                                 "--batch-size", str(ART_TRAIN_BATCH), "--attn-dropout", "0.0",
+                                 "--output-dir", str(tmp / "art_train")])
+    reset_attention_counts()
+    reset_backward_count()
+    t0 = time.perf_counter()
+    result = train_art.run(args, device=device)
+    run_s = time.perf_counter() - t0
+    launches, backward = art_train_counts()
+    trainer, val = result["trainer"], result["val"]
+    steps, eval_batches = trainer.optimizer.count, math.ceil(len(val) / ART_TRAIN_BATCH)
+    if (launches, backward) != (ART_ATTENTION_CALLS * (steps + eval_batches),
+                                ART_ATTENTION_CALLS * steps):
+        raise RuntimeError(f"{steps} ART train steps and {eval_batches} eval batch(es) launched "
+                           f"K3 {launches} times with {backward} backward calls")
+    den = ArtDenoiser.from_checkpoint(tmp / "art_train" / "checkpoints" / "best_model.pt",
+                                      device=device, batch_buckets=ART_BUCKETS)
+    noisy = val.arrays["input_values"]
+    got = den.predict(noisy)["denoised"]
+    trainer.model.eval()
+    with torch.inference_mode():
+        want = trainer.model(torch.from_numpy(noisy).to(device)).cpu().numpy()
+    gap, tol = float(np.abs(got - want).max()), ART_BF16_TOL_SHARE * float(np.abs(want).max())
+    history = result["history"][-1]
+    print(f"train_art, 1 epoch at full width, attention dropout 0.0, {len(val)} validation "
+          f"windows: {steps} step(s) of {ART_TRAIN_BATCH}, {eval_batches} eval batch(es), "
+          f"{launches} K3 launches, {backward} backward calls, {run_s:.2f} s; val/loss "
+          f"{history['val/loss']:.4f}, val/snr_improvement_db "
+          f"{history['val/snr_improvement_db']:.3f}; best_model.pt served by "
+          f"ArtDenoiser.from_checkpoint (bf16): max |denoised - the trained model's f32 output| "
+          f"{gap:.3e} (tolerance {tol:.3e}, 2**-5 of the largest |output|)")
+    if den.model.dtype != torch.bfloat16 or got.shape != want.shape or not gap <= tol:
+        raise RuntimeError(f"ART served from the trained checkpoint differs: {gap:.3e}")
+    return launches, backward
+
+
+def gaze_pairs(n: int, seed: int) -> list:
+    r = np.random.default_rng(seed)
+    size = GAZE_GEOMETRY["img_size"]
+    return [r.integers(0, 256, size=(n, 3, size, size), dtype=np.uint8) for _ in range(2)]
+
+
+def gaze_phase(device, tmp: Path) -> Path:
+    """The early- (concat) and late-fusion (full) ViT-B/16 at full width,
+    seeded weights saved as a state_dict plus meta and served by
+    ``GazePredictor.from_checkpoint`` (bf16) on the card: requests of 1, 8
+    and 32 uint8 pairs, REPEATS times each, no attention-kernel launch, and
+    the 8-pair request's logits within 2**-5 of the largest |logit| of the
+    same checkpoint served on the CPU.  Returns the late-fusion
+    checkpoint's path."""
+    from eyegaze_tpu_torch.kernels import attention
+    from eyegaze_tpu_torch.models.vit import EarlyFusionViT, LateFusionViT
+    from eyegaze_tpu_torch.serving import GazePredictor
+
+    paths = {}
+    for kind, mode in GAZE_MODELS:
+        cls = EarlyFusionViT if kind == "early" else LateFusionViT
+        model = cls(fusion_mode=mode, **GAZE_GEOMETRY, device=torch.device("cpu"),
+                    generator=torch.Generator().manual_seed(5))
+        name = f"{cls.__name__} ({mode})"
+        meta = {"config": {"model": {"kind": kind, "fusion_mode": mode, "num_labels": 3,
+                                     "img_size": GAZE_GEOMETRY["img_size"],
+                                     "vit_num_heads": GAZE_GEOMETRY["num_heads"]}}}
+        paths[kind] = save_checkpoint(model.state_dict(), meta, tmp / f"gaze_{kind}.pt")
+        pred = GazePredictor.from_checkpoint(paths[kind], device=device,
+                                             batch_buckets=GAZE_BUCKETS)
+        print(f"{name}, ViT-B/16 {GAZE_GEOMETRY}: "
+              f"{sum(p.numel() for p in model.parameters()):,} parameters, served bf16 from a "
+              f"checkpoint on {device}")
+        t0 = time.perf_counter()
+        pred.warmup()
+        print(f"{name}: warmup of buckets {GAZE_BUCKETS}: {time.perf_counter() - t0:.2f} s")
+        a, b = gaze_pairs(max(GAZE_REQUESTS), 6)
+        reset_attention_counts()
+        for n in GAZE_REQUESTS:
+            walls = []
+            for _ in range(REPEATS):
+                t0 = time.perf_counter()
+                out = pred.predict(a[:n], b[:n])
+                walls.append((time.perf_counter() - t0) * 1e3)
+                if out["logits"].shape != (n, 3) or not np.isfinite(out["logits"]).all():
+                    raise RuntimeError(f"{name}: bad logits {out['logits'].shape}")
+                if n == GAZE_CPU_PAIRS:
+                    card = out["logits"]
+            print(f"{name} request of {n} uint8 pair(s): wall ms {[round(w, 3) for w in walls]}, "
+                  f"median {statistics.median(walls):.3f} (uint8 to the card, normalize, forward; "
+                  f"logits back on the host); attention-kernel launches per request 0")
+        if any(attention.launch_count.values()):
+            raise RuntimeError(f"{name} launched the attention kernel: {attention.launch_count}")
+        want = GazePredictor.from_checkpoint(paths[kind], device=torch.device("cpu"),
+                                             batch_buckets=GAZE_BUCKETS).predict(
+            a[:GAZE_CPU_PAIRS], b[:GAZE_CPU_PAIRS])["logits"]
+        gap = float(np.abs(card - want).max())
+        tol = GAZE_BF16_TOL_SHARE * float(np.abs(want).max())
+        print(f"{name}, {GAZE_CPU_PAIRS}-pair logits, bf16 compute: card vs CPU max |diff| "
+              f"{gap:.3e} (tolerance {tol:.3e}, 2**-5 of the largest |logit| "
+              f"{float(np.abs(want).max()):.3f})")
+        if not gap <= tol:
+            raise RuntimeError(f"{name}, card vs CPU: {gap:.3e} over {tol:.3e}")
+    return paths["late"]
+
+
+def gaze_http_phase(device, path: Path) -> None:
+    """``python -m eyegaze_tpu_torch.serve --kind gaze`` on the late-fusion
+    checkpoint, in a thread on 127.0.0.1 port 0, bucket 8: one request of 8
+    uint8 pairs, its answer equal to a direct ``predict`` at the same
+    bucket, labels included."""
+    from eyegaze_tpu_torch import serve
+    from eyegaze_tpu_torch.serving import GazePredictor
+
+    a, b = gaze_pairs(GAZE_CPU_PAIRS, 7)
+    want = GazePredictor.from_checkpoint(path, device=device,
+                                         batch_buckets=(GAZE_CPU_PAIRS,)).predict(a, b)
+    bound_, argv = [], ["--checkpoint", str(path), "--kind", "gaze", "--device", str(device),
+                        "--host", "127.0.0.1", "--port", "0", "--buckets", str(GAZE_CPU_PAIRS)]
+    thread = threading.Thread(target=serve.main, args=(argv, bound_.append), daemon=True)
+    thread.start()
+    for _ in range(600):
+        if bound_ or not thread.is_alive():
+            break
+        thread.join(0.5)
+    if not bound_:
+        raise RuntimeError("eyegaze_tpu_torch.serve --kind gaze did not start")
+    server = bound_[0]
+    try:
+        buf = io.BytesIO()
+        np.savez(buf, img1=a, img2=b)
+        req = urllib.request.Request(f"http://127.0.0.1:{server.server_address[1]}/predict",
+                                     data=buf.getvalue(), method="POST")
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            got = json.load(resp)
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        server.shutdown()
+        thread.join(60)
+    logits = np.asarray(got["logits"], np.float32)
+    if not np.array_equal(logits, want["logits"]) or got["labels"] != want["labels"]:
+        raise RuntimeError(f"serve --kind gaze answered {got['labels']}, max |diff| "
+                           f"{float(np.abs(logits - want['logits']).max()):.3e} from the direct "
+                           "predict")
+    print(f"HTTP, serve --kind gaze (late fusion, bucket {GAZE_CPU_PAIRS}): one request of "
+          f"{GAZE_CPU_PAIRS} uint8 pairs in {wall:.3f} ms, answer equal to the direct predict, "
+          "labels included")
 
 
 F32_INSTANCES = {(16, 4), (16, 1), (32, 2), (32, 1), (64, 1), (128, 1)}  # (d, rows per thread)
@@ -1310,6 +1755,27 @@ def main() -> None:
           f"memory GiB: bf16 {bf16['peak_bytes'] / 2**30:.3f}, f32 {f32['peak_bytes'] / 2**30:.3f}")
     k1_train = bf16["launches"] + f32["launches"] + k1_train_serve_launches
 
+    reset_k1_count()
+    art_grad_err, (parity_launches, parity_backward) = art_train_parity_phase(device)
+    attn_train = attention_train_timing(device)
+    art_train = {ad: art_train_timed_phase(device, ad) for ad in (None, 0.0)}
+    with tempfile.TemporaryDirectory() as tmp:
+        art_entry_launches, art_entry_backward = art_train_serve_phase(device, Path(tmp))
+        reset_k1_count()
+        gaze_http_phase(device, gaze_phase(device, Path(tmp)))
+    from eyegaze_tpu_torch.kernels import phase_metrics
+
+    if any(phase_metrics.launch_count.values()):
+        raise RuntimeError(f"ART training or gaze serving launched {phase_metrics.launch_count}")
+    plain_step, k3_step = art_train[None], art_train[0.0]
+    print(f"ART train step at batch {ART_TRAIN_BATCH}, median ms: attention dropout 0.1 (plain "
+          f"attention) {plain_step['median_ms']:.3f}, attention dropout 0.0 (K3 + autograd "
+          f"Function) {k3_step['median_ms']:.3f} ({plain_step['median_ms'] / k3_step['median_ms']:.2f}x); "
+          f"peak memory GiB: {plain_step['peak_bytes'] / 2**30:.3f} / "
+          f"{k3_step['peak_bytes'] / 2**30:.3f}")
+    k3_train_launches = k3_step["launches"] + art_entry_launches + parity_launches
+    k3_backward = k3_step["backward"] + art_entry_backward + parity_backward
+
     phase_source = "eyegaze_tpu_torch/csrc/phase_metrics.cu"
     source = "eyegaze_tpu_torch/csrc/attention.cu"
     art_forwards = len(ART_REQUESTS) * REPEATS
@@ -1335,8 +1801,20 @@ def main() -> None:
          "launches_per_request": shootout_launches["phase_plv_metric_sums"],
          "sass_per_pair_sample": loop_counts["K2"], **k2_timing},
         {"name": "headpacked_attention", "route": "cuda", "source": source,
-         "replaces": "eyegaze_tpu/ops/attn_kernels.py:78", "launches": art_launches,
-         "path": "ART serving", "launches_per_request": art_launches / art_forwards,
+         "replaces": "eyegaze_tpu/ops/attn_kernels.py:78",
+         "launches": art_launches + k3_train_launches,
+         "path": "ART serving; ART training at attention dropout 0.0 (parity step, timed "
+                 "steps, one epoch of train_art with its evaluation)",
+         "launches_per_request": art_launches / art_forwards,
+         "launches_serving": art_launches, "launches_training": k3_train_launches,
+         "backward_calls": k3_backward,
+         "launches_per_train_step": k3_step["launches"] / TRAIN_STEPS,
+         "backward_calls_per_train_step": k3_step["backward"] / TRAIN_STEPS,
+         "train_step_ms": {"attn_dropout_0.1_plain": plain_step["median_ms"],
+                           "attn_dropout_0.0_k3": k3_step["median_ms"]},
+         "train_peak_gib": {"attn_dropout_0.1_plain": plain_step["peak_bytes"] / 2**30,
+                            "attn_dropout_0.0_k3": k3_step["peak_bytes"] / 2**30},
+         "train_autograd": {**attn_train, "grad_max_abs_err": art_grad_err},
          **attn_timing["headpacked_attention", torch.float32]},
         {"name": "flash_attention", "route": "cuda", "source": source,
          "replaces": "eyegaze_tpu/models/transformer.py:232", "launches": flash_launches,

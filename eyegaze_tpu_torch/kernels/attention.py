@@ -34,10 +34,23 @@ f32 launch whose K or V rows are not 16-byte aligned stages them element by
 element instead.
 
 A CPU tensor goes to the plain twin ``attention_reference``; a CUDA tensor
-launches the kernel, or raises.  The kernel has no backward: a CUDA input
-that requires grad raises.  ``launch_count`` counts the kernel's launches,
-one count for each entry point, and ``bf16_launch_count`` those of them that
-ran the bf16 instance.
+launches the kernel, or raises.  ``launch_count`` counts the kernel's
+launches, one count for each entry point, and ``bf16_launch_count`` those of
+them that ran the bf16 instance.
+
+Gradients: the head-packed entry point trains.  Where an input requires
+grad it runs inside ``_HeadpackedAttention``, an autograd Function whose
+forward is the kernel (the twin on the CPU) and whose backward,
+``attention_backward_reference``, recomputes the standard attention gradient
+in stock ops from the saved q, k and v: the JAX package's ``custom_vjp``
+(``eyegaze_tpu/ops/attn_kernels.py::_headpacked_vjp_bwd``), which is einsum
+outside any Pallas kernel.  ``backward_count`` counts its calls.  At ART's
+training shape (16, 1024, 8, 16) one backward holds up to three (B, H, Tq,
+Tk) f32 tensors, 512 MiB each, for the length of the call (PERF.md gives
+the peak measured on the card).
+The flash entry point has no backward (the JAX package calls the stock
+Pallas kernel, whose backward no path of the port reaches): a CUDA input
+that requires grad raises there.
 """
 
 from __future__ import annotations
@@ -46,6 +59,7 @@ import ctypes
 import functools
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from eyegaze_tpu_torch.kernels import build
 
@@ -58,6 +72,8 @@ _MAX_GRID_YZ = 65535  # heads and batch run on the grid's y and z axes
 # bf16_launch_count counts the launches of the bf16 instance among them.
 launch_count = {"headpacked_attention": 0, "flash_attention": 0}
 bf16_launch_count = {"headpacked_attention": 0, "flash_attention": 0}
+# Calls of the head-packed entry point's backward, on any device.
+backward_count = {"headpacked_attention": 0}
 
 
 def attention_reference(q, k, v, scale: float):
@@ -70,6 +86,25 @@ def attention_reference(q, k, v, scale: float):
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     p = torch.softmax(scores, dim=-1)
     return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+def attention_backward_reference(q, k, v, g, scale: float):
+    """The gradient of ``headpacked_attention`` on (B, Tq, H, d), (B, Tk, H,
+    d) x2 with output gradient ``g`` -> (dq, dk, dv), each in its input's
+    dtype: the JAX ``_headpacked_vjp_bwd`` step for step.  Scores in f32
+    from the operands, times ``scale``; the f32 softmax ``p``; ``dv = p^T
+    g``; ``dp = g v^T``; ``ds = p (dp - sum(dp p)) scale``; ``dq = ds k``;
+    ``dk = ds^T q``.  ``dp`` becomes ``ds`` in place, so at most three
+    (B, H, Tq, Tk) f32 tensors are alive at once (p, ds and their product
+    while it is summed)."""
+    q32, k32, v32, g32 = (x.float().transpose(1, 2) for x in (q, k, v, g))  # (B, H, T, d)
+    p = torch.softmax(torch.matmul(q32, k32.transpose(-1, -2)) * scale, dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), g32)
+    ds = torch.matmul(g32, v32.transpose(-1, -2))  # dp
+    ds.sub_((ds * p).sum(dim=-1, keepdim=True)).mul_(p).mul_(scale)
+    dq = torch.matmul(ds, k32)
+    dk = torch.matmul(ds.transpose(-1, -2), q32)
+    return tuple(d.transpose(1, 2).to(x.dtype) for d, x in ((dq, q), (dk, k), (dv, v)))
 
 
 def bind(lib: ctypes.CDLL):
@@ -139,9 +174,6 @@ def _launch(entry: str, q, k, v, scale: float, t_dim: int, h_dim: int):
     """Launch the kernel on the current stream; the output has q's strides."""
     if q.device.type != "cuda":
         raise RuntimeError(f"no attention kernel for device {q.device}")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise RuntimeError("the attention kernel has no backward: run it under "
-                           "torch.no_grad() / inference_mode(), or on the CPU")
     b, h, d = q.shape[0], q.shape[h_dim], q.shape[-1]
     tq, tk = q.shape[t_dim], k.shape[t_dim]
     if d not in HEAD_DIMS:
@@ -165,26 +197,58 @@ def _launch(entry: str, q, k, v, scale: float, t_dim: int, h_dim: int):
     return out
 
 
-def headpacked_attention(qh, kh, vh, scale: float):
-    """K3's counterpart: (B, Tq, H, d), (B, Tk, H, d) x2 -> (B, Tq, H, d).
-
-    On a CUDA tensor this launches the kernel on the current stream; on a
-    CPU tensor it runs the plain twin.  Any other device raises.
-    """
-    _check(qh, kh, vh, t_dim=1)
+def _headpacked_forward(qh, kh, vh, scale: float):
     if qh.device.type == "cpu":
         return attention_reference(*(x.transpose(1, 2) for x in (qh, kh, vh)),
                                    scale).transpose(1, 2)
     return _launch("headpacked_attention", qh, kh, vh, scale, t_dim=1, h_dim=2)
 
 
+def _wants_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+class _HeadpackedAttention(torch.autograd.Function):
+    """The head-packed entry point under autograd: the kernel (the twin on
+    the CPU) forward, ``attention_backward_reference`` backward."""
+
+    @staticmethod
+    def forward(ctx, qh, kh, vh, scale: float):
+        ctx.save_for_backward(qh, kh, vh)
+        ctx.scale = scale
+        return _headpacked_forward(qh, kh, vh, scale)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        backward_count["headpacked_attention"] += 1
+        return (*attention_backward_reference(*ctx.saved_tensors, g, ctx.scale), None)
+
+
+def headpacked_attention(qh, kh, vh, scale: float):
+    """K3's counterpart: (B, Tq, H, d), (B, Tk, H, d) x2 -> (B, Tq, H, d).
+
+    On a CUDA tensor this launches the kernel on the current stream; on a
+    CPU tensor it runs the plain twin.  Any other device raises.  Where an
+    input requires grad, the call goes through ``_HeadpackedAttention``.
+    """
+    _check(qh, kh, vh, t_dim=1)
+    if _wants_grad(qh, kh, vh):
+        return _HeadpackedAttention.apply(qh, kh, vh, scale)
+    return _headpacked_forward(qh, kh, vh, scale)
+
+
 def flash_attention(q, k, v, sm_scale: float):
     """K4's counterpart: (B, H, Tq, d), (B, H, Tk, d) x2 -> (B, H, Tq, d).
 
     On a CUDA tensor this launches the kernel on the current stream; on a
-    CPU tensor it runs the plain twin.  Any other device raises.
+    CPU tensor it runs the plain twin.  Any other device raises, and so
+    does a CUDA input that requires grad: this entry point has no backward.
     """
     _check(q, k, v, t_dim=2)
     if q.device.type == "cpu":
         return attention_reference(q, k, v, sm_scale)
+    if _wants_grad(q, k, v):
+        raise RuntimeError("the flash entry point has no backward: run it under "
+                           "torch.no_grad() / inference_mode(), or on the CPU")
     return _launch("flash_attention", q, k, v, sm_scale, t_dim=2, h_dim=1)

@@ -1,8 +1,9 @@
 """ART, the Artifact Removal Transformer (EEG denoising seq2seq), in PyTorch.
 
 Port of ``eyegaze_tpu/models/art.py``: a 1x1-conv channel embedding plus
-positions, a post-LN encoder and decoder, and a linear Reconstructor head
-with optional log-softmax and batch/time z-score.  Module names follow the
+positions, a post-LN encoder and decoder, a linear Reconstructor head
+with optional log-softmax and batch/time z-score, and the training loss
+``art_loss``.  Module names follow the
 reference torch model as ``export_art_state_dict`` writes them
 (``src_embed.0.conv``, ``src_embed.1.pos_embed``, ``encoder.layers.i``,
 ``decoder.layers.i``, ``reconstructor.proj``), so the state_dict of
@@ -15,7 +16,8 @@ every Dense (the 1x1 conv, the projections, the FFN, the head) computes in
 ``dtype``, the positional table is cast to it, every LayerNorm runs in
 float32, attention forms f32 scores and rounds P to ``dtype`` (the kernel
 route's contract too), the head's log-softmax and z-score run in ``dtype``,
-and the output is float32.  Training comes later.
+and the output is float32.  ``python -m eyegaze_tpu_torch.train_art`` trains
+it in float32.
 """
 
 from __future__ import annotations
@@ -155,3 +157,19 @@ class ArtifactRemovalTransformer(nn.Module):
         out = self.decoder(self.tgt_embed(src if tgt is None else tgt), memory,
                            dec_self_mask, enc_mask)
         return self.reconstructor(out).transpose(1, 2).float()  # (B, C_out, T)
+
+
+def art_loss(logits: torch.Tensor, labels: torch.Tensor, loss_zscore: bool = False,
+             eps: float = 1e-10) -> torch.Tensor:
+    """MSE of (B, C, T) reconstructions against clean ``labels``, or with
+    ``loss_zscore`` the MSE of both z-scored per channel over time (unbiased
+    variance, ``eps`` added to the std), as the JAX ``art_loss``."""
+    if not loss_zscore:
+        return torch.mean((logits - labels) ** 2)
+
+    def z(x):
+        mean = x.mean(dim=2, keepdim=True)
+        var = ((x - mean) ** 2).sum(dim=2, keepdim=True) / (x.shape[2] - 1)
+        return (x - mean) / (torch.sqrt(var) + eps)
+
+    return torch.mean((z(logits) - z(labels)) ** 2)

@@ -1,9 +1,10 @@
 """JAX package parameters -> the port's state_dicts (numpy only).
 
-The counterparts of ``eyegaze_tpu/models/torch_port.py::export_dual_eeg_state_dict``
-and ``export_art_state_dict``.  ``params`` is the Flax parameter tree as
-nested dicts of numpy arrays; the result maps the reference torch names to
-float32 numpy arrays:
+The counterparts of ``eyegaze_tpu/models/torch_port.py::export_dual_eeg_state_dict``,
+``export_art_state_dict`` and ``export_gaze_{early,late}_state_dict``.
+``params`` is the Flax parameter tree as nested dicts of numpy arrays; the
+result maps the reference torch names (timm's for the ViTs) to float32 numpy
+arrays:
 
 - Dense kernel (in, out)        -> Linear weight (out, in)
 - Conv kernel (k, in, out)      -> Conv1d weight (out, in, k)
@@ -11,6 +12,9 @@ float32 numpy arrays:
 - LayerNorm scale / bias        -> weight / bias
 - type_embedding (n, d)         -> (1, n, d)
 - ART's 1x1-conv Dense (C, E)   -> Conv1d weight (E, C, 1)
+- ViT attention: the per-head query / key / value kernels (E, H, hd) ->
+  one timm ``qkv`` weight (3E, E), their biases (H, hd) -> (3E,); the
+  ``out`` kernel (H, hd, E) -> ``proj`` weight (E, E)
 
 Load it with ``model.load_state_dict({k: torch.from_numpy(v) ...}, strict=True)``.
 """
@@ -130,4 +134,50 @@ def art_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
     w.encoder("encoder")
     w.decoder("decoder")
     w.linear("reconstructor.proj", "reconstructor", "proj")
+    return w.state
+
+
+def _vit(w: _Writer, prefix: str, *path) -> None:
+    """One ViT backbone subtree at ``path`` under timm's names after
+    ``prefix``."""
+    tree = w.params
+    for k in path:
+        tree = tree[k]
+    p = f"{prefix}." if prefix else ""
+    w.conv(p + "patch_embed.proj", *path, "patch_embed")
+    w.put(p + "cls_token", w.get(*path, "cls_token"))
+    w.put(p + "pos_embed", w.get(*path, "pos_embed"))
+    w.norm(p + "norm", *path, "norm")
+    embed = w.get(*path, "cls_token").shape[-1]
+    for i in range(sum(1 for k in tree if k.startswith("block_"))):
+        b, blk = f"{p}blocks.{i}.", (*path, f"block_{i}")
+        w.norm(b + "norm1", *blk, "norm1")
+        w.norm(b + "norm2", *blk, "norm2")
+        names = ("query", "key", "value")
+        w.put(b + "attn.qkv.weight", np.concatenate(
+            [w.get(*blk, "attn", n, "kernel").reshape(embed, embed).T for n in names]))
+        w.put(b + "attn.qkv.bias", np.concatenate(
+            [w.get(*blk, "attn", n, "bias").reshape(embed) for n in names]))
+        w.put(b + "attn.proj.weight", w.get(*blk, "attn", "out", "kernel").reshape(embed, embed).T)
+        w.put(b + "attn.proj.bias", w.get(*blk, "attn", "out", "bias"))
+        w.linear(b + "mlp.fc1", *blk, "mlp", "fc1")
+        w.linear(b + "mlp.fc2", *blk, "mlp", "fc2")
+    if "head" in tree:
+        w.linear(p + "head", *path, "head")
+
+
+def gaze_early_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
+    """EarlyFusionViT: the ``backbone`` ViT under ``backbone.`` (6 input
+    channels for 'concat', as trained)."""
+    w = _Writer(params)
+    _vit(w, "backbone", "backbone")
+    return w.state
+
+
+def gaze_late_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
+    """LateFusionViT: the shared ``encoder`` ViT under ``encoder.`` and the
+    ``classifier``."""
+    w = _Writer(params)
+    _vit(w, "encoder", "encoder")
+    w.linear("classifier", "classifier")
     return w.state

@@ -1,11 +1,12 @@
-"""Where the serving paths' and the flagship train step's time goes on one
-CUDA device.
+"""Where the serving paths' and the train steps' time goes on one CUDA
+device.
 
-    python -m eyegaze_tpu_torch.profile_slice           # serving
-    python -m eyegaze_tpu_torch.profile_slice --train   # the train step
+    python -m eyegaze_tpu_torch.profile_slice           # serving: EEG, ART, gaze
+    python -m eyegaze_tpu_torch.profile_slice --train   # the train steps
 
-It profiles both serving paths in turn, each in float32 and then in bf16
-compute (the type the JAX package's ``from_checkpoint`` serves).
+It profiles the EEG and ART serving paths in turn, each in float32 and
+then in bf16 compute (the type the JAX package's ``from_checkpoint``
+serves), then the gaze ViTs in bf16.
 
 EEG: builds the full-width DualEEGTransformer (random weights from seed 0)
 and serves raw (trials, 32, 3250) pairs through ``preprocess_eeg`` ->
@@ -25,7 +26,13 @@ requests of 1 and 32 windows
 the encoder, the decoder, the reconstructor, the whole forward, and the
 forward's 18 attention kernel launches alone.
 
-For each request both print the median synchronized wall time and, from
+Gaze: the early- (concat) and late-fusion (full) ViT-B/16 at full width
+(random weights from seed 5, bf16 compute, as ``GazePredictor.
+from_checkpoint`` serves them) behind ``GazePredictor``, for requests of 1
+and 32 uint8 pairs (buckets 1 and 32): the median CUDA-event time of the
+forward on the normalized images and of one encoder pass.
+
+For each request all three print the median synchronized wall time and, from
 ``torch.profiler`` over 5 requests, the summed CUDA-kernel time against the
 wall time (the device's busy share), the attention kernel's share of the
 kernel time (ART), and the operators with the most device time.
@@ -36,7 +43,11 @@ takes it (batch 64 of (32, 1024) window pairs, CE + 0.1 sym + 0.1 align +
 in bf16 and then float32 compute: the median CUDA-event time of the
 forward (loss included), the backward and the optimizer (clip + AdamW)
 over 10 steps, and from ``torch.profiler`` over 5 synchronized steps the
-busy share, K1's share of the kernel time and the top operators.
+busy share, K1's share of the kernel time and the top operators.  Then
+ART's train step the same way (``eyegaze_tpu_torch.train_art``'s recipe:
+full width, float32, batch 16 of (32, 1024) pairs, dropout 0.1, AdamW at
+1e-4 with clip 1.0), with attention dropout 0.1 (the plain attention path)
+and 0.0 (K3 and its autograd backward), and the attention kernel's share.
 
 TF32 is off.  It needs a CUDA device.
 """
@@ -53,6 +64,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from eyegaze_tpu_torch import train_art
 from eyegaze_tpu_torch.config import ExperimentConfig, TrainingConfig
 from eyegaze_tpu_torch.kernels import attention
 from eyegaze_tpu_torch.models.art import ArtConfig, ArtifactRemovalTransformer
@@ -60,7 +72,8 @@ from eyegaze_tpu_torch.models.dual_eeg import DualEEGTransformer
 from eyegaze_tpu_torch.ops.connectivity import connectivity_matrices
 from eyegaze_tpu_torch.ops.preprocess import preprocess_eeg, sliding_windows
 from eyegaze_tpu_torch.ops.spectral import stft_log_magnitude
-from eyegaze_tpu_torch.serving import ArtDenoiser, Predictor, _bucket
+from eyegaze_tpu_torch.models.vit import EarlyFusionViT, LateFusionViT
+from eyegaze_tpu_torch.serving import ArtDenoiser, GazePredictor, Predictor, _bucket
 from eyegaze_tpu_torch.train.optim import make_optimizer
 from eyegaze_tpu_torch.train_dual_eeg import BENCH_LOSSES, build_model, make_objective
 
@@ -69,7 +82,10 @@ BUCKETS = (1, 8, 32, 128)
 REQUESTS = (1, 16)
 ART_BUCKETS = (1, 8, 32)
 ART_REQUESTS = (1, 32)
+GAZE_BUCKETS = (1, 8, 32)
+GAZE_REQUESTS = (1, 32)
 TRAIN_BATCH = 64
+ART_TRAIN_BATCH = 16
 
 
 def median_cuda_ms(fn, reps: int = 10) -> float:
@@ -219,16 +235,34 @@ def art(dev: torch.device, dtype: torch.dtype) -> None:
         wall_and_profile(lambda: den.predict(noisy[:n]), kernel_share="attention_kernel")
 
 
-def train(dev: torch.device, dtype: torch.dtype) -> None:
-    cfg = ExperimentConfig(training=TrainingConfig(dropout=0.1, bf16=dtype == torch.bfloat16,
-                                                   **BENCH_LOSSES))
-    model = build_model(cfg, device=dev, dtype=dtype).train()
-    opt = make_optimizer(model, 1e-4, 0.01, grad_clip=1.0)
-    loss_fn, _ = make_objective(cfg)
-    r = np.random.default_rng(1)
-    batch = {k: torch.from_numpy(r.normal(size=(TRAIN_BATCH, CHANNELS, WINDOW)).astype(
-        np.float32)).to(dev) for k in ("eeg1", "eeg2")}
-    batch["label"] = torch.from_numpy((np.arange(TRAIN_BATCH) % 3).astype(np.int32)).to(dev)
+def gaze(dev: torch.device) -> None:
+    for cls, mode in ((EarlyFusionViT, "concat"), (LateFusionViT, "full")):
+        model = cls(fusion_mode=mode, device=dev, dtype=torch.bfloat16,
+                    generator=torch.Generator().manual_seed(5))
+        pred = GazePredictor(model, device=dev, batch_buckets=GAZE_BUCKETS)
+        pred.warmup()
+        r = np.random.default_rng(0)
+        a, b = (r.integers(0, 256, size=(max(GAZE_REQUESTS), 3, 224, 224), dtype=np.uint8)
+                for _ in range(2))
+        encoder = model.backbone if cls is EarlyFusionViT else model.encoder
+        for n in GAZE_REQUESTS:
+            x1, x2 = (torch.from_numpy(x[:n]).to(dev).float() / 255.0 for x in (a, b))
+            with torch.inference_mode():
+                one = torch.cat([x1, x2], 1) if cls is EarlyFusionViT else x1
+                stages = {"model forward": lambda: model(x1, x2),
+                          "  one encoder pass": lambda: encoder(one)}
+                print(f"--- {cls.__name__} ({mode}, bf16 compute), {n} pair(s), bucket "
+                      f"{_bucket(n, GAZE_BUCKETS)}: median CUDA-event ms")
+                for name, fn in stages.items():
+                    print(f"  {name}: {median_cuda_ms(fn):.3f}")
+            wall_and_profile(lambda: pred.predict(a[:n], b[:n]))
+
+
+def train_step_profile(title: str, model, opt, loss_fn, batch, kernel_share: str) -> None:
+    """Median CUDA-event ms of the forward (loss included), the backward
+    and the optimizer over 10 steps, then ``wall_and_profile`` of the
+    synchronized step."""
+    model.train()
 
     def step(events=None):
         mark = (lambda i: events[i].record()) if events else (lambda i: None)
@@ -252,8 +286,7 @@ def train(dev: torch.device, dtype: torch.dtype) -> None:
         times = [events[i].elapsed_time(events[i + 1]) for i in range(3)]
         for name, ms in zip(parts, times + [sum(times)]):
             parts[name].append(ms)
-    print(f"--- flagship train step ({str(dtype)[6:]} compute, dropout 0.1), batch "
-          f"{TRAIN_BATCH}: median CUDA-event ms over 10 steps")
+    print(f"--- {title}: median CUDA-event ms over 10 steps")
     for name, times in parts.items():
         print(f"  {name}: {statistics.median(times):.3f}")
 
@@ -261,13 +294,41 @@ def train(dev: torch.device, dtype: torch.dtype) -> None:
         step()
         torch.cuda.synchronize()
 
-    wall_and_profile(synced_step, kernel_share="phase_metrics_kernel")
+    wall_and_profile(synced_step, kernel_share=kernel_share)
+
+
+def train(dev: torch.device, dtype: torch.dtype) -> None:
+    cfg = ExperimentConfig(training=TrainingConfig(dropout=0.1, bf16=dtype == torch.bfloat16,
+                                                   **BENCH_LOSSES))
+    model = build_model(cfg, device=dev, dtype=dtype)
+    loss_fn, _ = make_objective(cfg)
+    r = np.random.default_rng(1)
+    batch = {k: torch.from_numpy(r.normal(size=(TRAIN_BATCH, CHANNELS, WINDOW)).astype(
+        np.float32)).to(dev) for k in ("eeg1", "eeg2")}
+    batch["label"] = torch.from_numpy((np.arange(TRAIN_BATCH) % 3).astype(np.int32)).to(dev)
+    train_step_profile(f"flagship train step ({str(dtype)[6:]} compute, dropout 0.1), batch "
+                       f"{TRAIN_BATCH}", model, make_optimizer(model, 1e-4, 0.01, grad_clip=1.0),
+                       loss_fn, batch, "phase_metrics_kernel")
+
+
+def art_train(dev: torch.device, attn_dropout) -> None:
+    model = ArtifactRemovalTransformer(ArtConfig(attn_dropout=attn_dropout), device=dev,
+                                       generator=torch.Generator().manual_seed(42))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             train_art.build_dataset(ART_TRAIN_BATCH, CHANNELS, WINDOW).arrays.items()}
+    recipe = ("0.1, the plain attention path" if attn_dropout is None
+              else f"{attn_dropout}, K3 and its autograd backward")
+    train_step_profile(f"ART train step (float32, dropout 0.1, attention dropout {recipe}), "
+                       f"batch {ART_TRAIN_BATCH}", model,
+                       make_optimizer(model, 1e-4, 0.01, grad_clip=1.0),
+                       train_art.make_objective(False)[0], batch, "attention_kernel")
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.strip().splitlines()[0])
     ap.add_argument("--train", action="store_true",
-                    help="profile the flagship train step instead of the serving paths")
+                    help="profile the flagship's and ART's train steps instead of the serving "
+                         "paths")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA device")
@@ -279,11 +340,14 @@ def main(argv=None) -> None:
     if args.train:
         for dtype in (torch.bfloat16, torch.float32):
             train(dev, dtype)
+        for attn_dropout in (None, 0.0):
+            art_train(dev, attn_dropout)
         return
     for dtype in (torch.float32, torch.bfloat16):
         eeg(dev, dtype)
     for dtype in (torch.float32, torch.bfloat16):
         art(dev, dtype)
+    gaze(dev)
 
 
 if __name__ == "__main__":

@@ -3,12 +3,13 @@
     python -m eyegaze_tpu_torch.serve --checkpoint model.pt [--dynamic-batch]
 
 The counterpart of the JAX package's ``scripts/serve.py`` for the kinds the
-port serves, ``eeg`` (the flagship ``Predictor``) and ``art``
-(``ArtDenoiser``).  It loads one checkpoint with ``from_checkpoint`` (bf16
-compute; ``model.pt`` is the reference-named state_dict that
-``scripts/export_torch_checkpoint.py`` writes, with the orbax checkpoint's
-``.meta.json`` copied to ``model.meta.json``), runs every bucket once unless
-``--no-warmup``, and serves:
+port serves, ``eeg`` (the flagship ``Predictor``), ``gaze`` (the early- and
+late-fusion ViTs, ``GazePredictor``) and ``art`` (``ArtDenoiser``).  It
+loads one checkpoint with ``from_checkpoint`` (bf16 compute; ``model.pt`` is
+the reference-named state_dict that ``scripts/export_torch_checkpoint.py``
+writes, with the orbax checkpoint's ``.meta.json`` copied to
+``model.meta.json``), runs every bucket once unless ``--no-warmup``, and
+serves:
 
   GET  /healthz   -> {"status": "ok", "kind": ...}
   GET  /info      -> kind, buckets, checkpoint path, inputs and their shapes
@@ -20,6 +21,7 @@ compute; ``model.pt`` is the reference-named state_dict that
 Inputs, batched on the leading axis, any N:
 
   eeg   eeg1, eeg2   (N, C, T) float32 trial pairs
+  gaze  img1, img2   (N, 3, S, S) uint8 image pairs, S the model's img_size
   art   noisy        (N, C, T) float32
 
 It serves on a CUDA card unless ``--device cpu`` is passed; without a card
@@ -43,9 +45,9 @@ import torch
 
 from eyegaze_tpu_torch import serving
 
-REQUIRED_INPUTS = {"eeg": ("eeg1", "eeg2"), "art": ("noisy",)}
+REQUIRED_INPUTS = {"eeg": ("eeg1", "eeg2"), "gaze": ("img1", "img2"), "art": ("noisy",)}
 # Kinds the JAX package serves that the port does not serve yet.
-NOT_PORTED = ("gaze", "multimodal", "hypereeg")
+NOT_PORTED = ("multimodal", "hypereeg")
 
 
 def sniff_kind(state_path: Path) -> str:
@@ -67,17 +69,20 @@ def sniff_kind(state_path: Path) -> str:
     state = torch.load(state_path, map_location="cpu", weights_only=True)
     if "reconstructor.proj.weight" in state:
         return "art"
+    if "backbone.cls_token" in state or "encoder.cls_token" in state:
+        return "gaze"
     if "cls_token" in state and "pos_embed.pos_embed.weight" in state:
         return "eeg"
-    raise SystemExit(f"cannot tell the kind of {state_path} (no meta, and its keys are neither "
-                     "the flagship's nor ART's); pass --kind")
+    raise SystemExit(f"cannot tell the kind of {state_path} (no meta, and its keys are not the "
+                     "flagship's, a gaze ViT's or ART's); pass --kind")
 
 
 def build_predictor(kind: str, state_path: Path, buckets, device: torch.device):
     if kind in NOT_PORTED:
         raise SystemExit(f"kind {kind!r} is not yet ported to eyegaze_tpu_torch; it serves "
                          f"{sorted(REQUIRED_INPUTS)}")
-    cls = {"eeg": serving.Predictor, "art": serving.ArtDenoiser}[kind]
+    cls = {"eeg": serving.Predictor, "gaze": serving.GazePredictor,
+           "art": serving.ArtDenoiser}[kind]
     return cls.from_checkpoint(state_path, device=device, batch_buckets=tuple(buckets))
 
 
@@ -87,6 +92,8 @@ def input_spec(kind: str, predictor) -> dict:
     m = predictor.model
     if kind == "art":
         return {"noisy": ["N", m.config.in_channels, f"T<={m.config.max_len}"]}
+    if kind == "gaze":
+        return {k: ["N", 3, m.img_size, m.img_size] for k in ("img1", "img2")}
     return {k: ["N", m.in_channels, "T"] for k in ("eeg1", "eeg2")}
 
 

@@ -1,9 +1,9 @@
-"""Serving: the DualEEGTransformer and the ART denoiser on one device behind
-bucketed batching, and the dynamic batcher that coalesces concurrent
-requests.
+"""Serving: the DualEEGTransformer, the gaze ViTs and the ART denoiser on one
+device behind bucketed batching, and the dynamic batcher that coalesces
+concurrent requests.
 
-Port of ``eyegaze_tpu/serving.py::Predictor``, ``ArtDenoiser`` and
-``DynamicBatcher``.  Request batches are zero-padded up to the next bucket
+Port of ``eyegaze_tpu/serving.py::Predictor``, ``GazePredictor``,
+``ArtDenoiser`` and ``DynamicBatcher``.  Request batches are zero-padded up to the next bucket
 size, so the device sees a fixed set of batch shapes; above the largest
 bucket a request is chunked, and padding rows are stripped from the
 outputs.  The model runs in ``eval()`` under ``torch.inference_mode()``.
@@ -27,8 +27,16 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from eyegaze_tpu_torch.data.image_fusion import (
+    fuse_image_pair,
+    imagenet_normalize,
+    resize_bilinear,
+    to_unit_float,
+    vit_processor_normalize,
+)
 from eyegaze_tpu_torch.models.art import ArtConfig, ArtifactRemovalTransformer
 from eyegaze_tpu_torch.models.dual_eeg import DualEEGTransformer
+from eyegaze_tpu_torch.models.vit import EarlyFusionViT, LateFusionViT
 from eyegaze_tpu_torch.ops.preprocess import common_average_reference, zscore
 
 CLASS_NAMES = ("Single", "Competition", "Cooperation")
@@ -158,6 +166,95 @@ class Predictor:
         the next bucket, chunked above the largest)."""
         logits = _predict_batched(self._forward, self.buckets, eeg1, eeg2,
                                   device=self.device)
+        return _logits_to_output(logits)
+
+
+class GazePredictor:
+    """Bucketed predictor for the gaze ViTs (early and late fusion, or a bare
+    ViT on data-level fused pairs) on one device.
+
+    Requests are raw (N, 3, H, W) uint8 image pairs, the converted
+    datasets' format; ``to_unit_float`` and the normalization
+    (``image_norm``: 'imagenet', or 'vit' for the HF processor's [-1, 1])
+    run on the device inside the forward.  With ``data_fusion_mode`` the
+    model is a bare ``VisionTransformer`` and the pair is fused in image
+    space first (``fuse_image_pair``), a paste resized back to the model's
+    ``img_size`` (antialiased bilinear).
+    """
+
+    def __init__(self, model: torch.nn.Module, *, device: torch.device,
+                 batch_buckets: Sequence[int] = (1, 8, 32),
+                 data_fusion_mode: Optional[str] = None, image_norm: str = "imagenet"):
+        if image_norm not in ("imagenet", "vit"):
+            raise ValueError(f"image_norm must be 'imagenet' or 'vit', got {image_norm!r}")
+        self.device = torch.device(device)
+        self.model = model.to(self.device).eval()
+        self.buckets = tuple(sorted(batch_buckets))
+        self.data_fusion_mode = data_fusion_mode
+        self._norm = imagenet_normalize if image_norm == "imagenet" else vit_processor_normalize
+
+    @classmethod
+    def from_checkpoint(cls, state_path, *, device: torch.device, meta_path=None,
+                        **kwargs) -> "GazePredictor":
+        """The counterpart of the JAX ``GazePredictor.from_checkpoint`` for
+        the kinds 'early' and 'late' (the export script writes no
+        'datafusion' state_dict: serve one through the constructor).  The
+        kind is the meta's ``model.kind``, else the state_dict's
+        ``backbone.`` (early) or ``encoder.`` (late) prefix; a meta whose
+        kind the prefix contradicts raises.  ``embed_dim`` comes from the
+        ``cls_token``, the depth from the number of blocks, the heads from
+        ``model.vit_num_heads`` (else max(embed_dim // 64, 4)),
+        ``fusion_mode``, ``num_labels`` and ``img_size`` from the meta
+        (JAX's defaults); bf16 compute, the state_dict loaded with
+        ``strict=True``.  ``load_checkpoint`` says what the paths hold."""
+        state, meta = load_checkpoint(state_path, meta_path)
+        mc = meta.get("config", {}).get("model", {})
+        kind = mc.get("kind") or ("late" if "encoder.cls_token" in state
+                                  else "early" if "backbone.cls_token" in state else None)
+        if kind not in ("early", "late"):
+            raise ValueError(f"cannot serve gaze kind {kind!r} from a checkpoint (early and late "
+                             "only; a datafusion ViT is served through the constructor)")
+        prefix = "backbone" if kind == "early" else "encoder"
+        if f"{prefix}.cls_token" not in state:
+            raise ValueError(f"the state_dict does not match the meta's kind {kind!r}: no "
+                             f"{prefix}.cls_token")
+        embed_dim = int(state[f"{prefix}.cls_token"].shape[-1])
+        depth = sum(1 for k in state if k.startswith(f"{prefix}.blocks.")
+                    and k.endswith(".norm1.weight"))
+        if depth == 0:
+            raise ValueError(f"no ViT blocks under {prefix}. in the state_dict")
+        cls_ = EarlyFusionViT if kind == "early" else LateFusionViT
+        model = cls_(num_classes=mc.get("num_labels", 3), img_size=mc.get("img_size", 224),
+                     fusion_mode=mc.get("fusion_mode", "concat"), embed_dim=embed_dim,
+                     depth=depth, num_heads=int(mc.get("vit_num_heads") or max(embed_dim // 64, 4)),
+                     device=torch.device("cpu"), generator=torch.Generator().manual_seed(0),
+                     dtype=torch.bfloat16)
+        model.load_state_dict(state, strict=True)
+        return cls(model, device=device, **kwargs)
+
+    @torch.inference_mode()
+    def _forward(self, img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+        if self.data_fusion_mode is None:
+            return self.model(self._norm(to_unit_float(img1)), self._norm(to_unit_float(img2)))
+        fused = fuse_image_pair(to_unit_float(img1), to_unit_float(img2), self.data_fusion_mode)
+        size = self.model.img_size
+        if fused.shape[-2:] != (size, size):  # the paste modes change H or W
+            fused = resize_bilinear(fused, size, size)
+        return self.model(self._norm(fused))
+
+    def warmup(self) -> None:
+        """Run every bucket once on black images of the model's size."""
+        s = self.model.img_size
+        for b in self.buckets:
+            z = torch.zeros((b, 3, s, s), dtype=torch.uint8, device=self.device)
+            self._forward(z, z)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def predict(self, img1, img2) -> Dict[str, np.ndarray]:
+        """(N, 3, H, W) uint8 pairs (or float images in [0, 1]), numpy or
+        tensors -> {'logits', 'probs', 'preds', 'labels'} for any N."""
+        logits = _predict_batched(self._forward, self.buckets, img1, img2, device=self.device)
         return _logits_to_output(logits)
 
 

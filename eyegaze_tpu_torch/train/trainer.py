@@ -10,7 +10,11 @@ one train step over a pytree state, this one drives a module and an
   metrics stay on the device; an epoch reads them once, at its end.
 - ``evaluate``: ``model.eval()`` under ``torch.inference_mode()``,
   ``eval_logits_fn(model, batch) -> logits`` per batch, sklearn-parity
-  metrics on the host; ``model.train()`` is put back.
+  metrics on the host; ``model.train()`` is put back.  For an objective
+  that is not a classification (ART's denoising), ``eval_metrics_fn(model,
+  batch) -> {name: scalar tensor}`` replaces it: each metric is the plain
+  mean of its per-batch values over the batches (not weighted by rows, as
+  in the JAX package), reported as ``val/<name>``.
 - Dropout draws from the device's default generator, seeded from
   ``config.seed``: dropout masks cannot match the JAX package's
   (docs/PARITY.md), so there is no counterpart of its PRNG key.
@@ -73,9 +77,10 @@ def seed_device(device: torch.device, seed: int) -> None:
 class Trainer:
     """Drives (train_batches, eval_batches) epochs over ``model`` and
     ``optimizer`` on ``device``.  Batches come in as dicts of numpy arrays;
-    ``loss_fn`` and ``eval_logits_fn`` get them as tensors on the device.
-    ``aux`` must hold 'logits' for the train accuracy; its 'loss_*' entries
-    are logged."""
+    ``loss_fn``, ``eval_logits_fn`` and ``eval_metrics_fn`` get them as
+    tensors on the device.  ``aux`` holds 'logits' where there is a train
+    accuracy; its 'loss_*' entries are logged.  At most one of
+    ``eval_logits_fn`` and ``eval_metrics_fn`` is given."""
 
     def __init__(
         self,
@@ -88,8 +93,12 @@ class Trainer:
         device: torch.device,
         num_classes: int = 3,
         logger: Optional[Callable[[Dict], None]] = None,
+        eval_metrics_fn: Optional[Callable[[torch.nn.Module, Batch],
+                                           Dict[str, torch.Tensor]]] = None,
         watch_logger: Optional[Callable[[Dict], None]] = None,
     ):
+        if eval_logits_fn is not None and eval_metrics_fn is not None:
+            raise ValueError("give one of eval_logits_fn and eval_metrics_fn, not both")
         if config.use_mesh:
             raise ValueError(f"use_mesh={config.use_mesh!r}: data parallelism is not ported yet "
                              "(ROADMAP item 12, DDP over torch.distributed); train on one device")
@@ -99,6 +108,7 @@ class Trainer:
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self.eval_logits_fn = eval_logits_fn
+        self.eval_metrics_fn = eval_metrics_fn
         self.num_classes = num_classes
         self.logger = logger or (lambda d: None)
         self.watch_logger = watch_logger
@@ -162,6 +172,8 @@ class Trainer:
         return out
 
     def evaluate(self, batches: Iterable[Dict[str, np.ndarray]]) -> Dict:
+        if self.eval_metrics_fn is not None:
+            return self._evaluate_metrics(batches)
         all_logits, all_labels = [], []
         self.model.eval()
         try:
@@ -177,6 +189,22 @@ class Trainer:
         m = classification_metrics(labels, logits.argmax(axis=-1), self.num_classes)
         return {f"val/{k}": (v if k == "confusion_matrix" else float(v))
                 for k, v in m.items() if not k.endswith("per_class")}
+
+    def _evaluate_metrics(self, batches: Iterable[Dict[str, np.ndarray]]) -> Dict:
+        """``eval_metrics_fn``'s metrics, each the mean of its per-batch
+        values; they stay on the device until the last batch."""
+        sums: Dict[str, torch.Tensor] = {}
+        n = 0
+        self.model.eval()
+        try:
+            with torch.inference_mode():
+                for batch in self._prefetched(batches):
+                    for k, v in self.eval_metrics_fn(self.model, batch).items():
+                        sums[k] = sums[k] + v.float() if k in sums else v.float()
+                    n += 1
+        finally:
+            self.model.train()
+        return {f"val/{k}": float(v) / max(n, 1) for k, v in sums.items()}
 
     def _watch(self, epoch: int) -> None:
         """Parameter and gradient histograms; the gradient is of the loss on

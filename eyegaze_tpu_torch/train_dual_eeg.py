@@ -55,13 +55,13 @@ NO_SCALE_OUT = ("multi-device and multi-host training are not ported yet (ROADMA
                 "DDP over torch.distributed); train on one device")
 
 
-def resolve_device(name: str) -> torch.device:
+def resolve_device(name: str, program: str = "eyegaze_tpu_torch.train_dual_eeg") -> torch.device:
     """``name`` as a torch device: "tpu" and "gpu", the reference YAML's
-    accelerators, mean the CUDA card.  A CUDA device must exist."""
+    accelerators, mean the CUDA card.  A CUDA device must exist, or
+    ``program`` stops with a message."""
     device = torch.device("cuda" if name in ("tpu", "gpu") else name)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("eyegaze_tpu_torch.train_dual_eeg needs a CUDA device; pass "
-                         "--device cpu to train on the CPU")
+        raise SystemExit(f"{program} needs a CUDA device; pass --device cpu to train on the CPU")
     return device
 
 

@@ -342,17 +342,56 @@ def test_flash_kernel_matches_twin_on_card(shape, kv_len, views):
 
 @pytest.mark.cuda
 def test_kernel_route_raises_on_grad_and_mha_launches_it():
+    """Under grad the head-packed route trains (kernel forward, one backward
+    call, the plain path's gradients); the flash route, which has no
+    backward, raises."""
     dev = _card()
     mha = MultiHeadAttention(128, 8, device=dev).eval()
     x = torch.randn(2, 1024, 128, device=dev)
+    launched = attention.launch_count["headpacked_attention"]
+    backward = attention.backward_count["headpacked_attention"]
+    mha(x, x, x).square().sum().backward()
+    assert attention.launch_count["headpacked_attention"] == launched + 1
+    assert attention.backward_count["headpacked_attention"] == backward + 1
+    got = [p.grad.clone() for p in mha.parameters()]
+    mha.zero_grad()
+    mha(x, x, x, return_weights=True)[0].square().sum().backward()  # the plain path
+    largest = max(float(p.grad.abs().max()) for p in mha.parameters())
+    for (name, p), g in zip(mha.named_parameters(), got):
+        # k_proj's bias gets a gradient that is zero in exact arithmetic (a
+        # softmax ignores a shift of its row) and rounding noise on both paths.
+        atol = 1e-6 * largest if name == "k_proj.bias" else 1e-4 * float(p.grad.abs().max())
+        torch.testing.assert_close(g, p.grad, rtol=1e-4, atol=atol, msg=name)
+    flash = MultiHeadAttention(1024, 8, device=dev, dtype=torch.bfloat16).eval()
+    y = torch.randn(2, 1024, 1024, device=dev)
     with pytest.raises(RuntimeError, match="no backward"):
-        mha(x, x, x)
+        flash(y, y, y)
     before = attention.launch_count["headpacked_attention"]
     with torch.no_grad():
         out = mha(x, x, x)
         plain = mha(x, x, x, return_weights=True)[0]  # the weights force the plain path
     assert attention.launch_count["headpacked_attention"] == before + 1
     torch.testing.assert_close(out, plain, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_headpacked_function_trains_on_the_card():
+    """ART's training shape: the kernel forward and the stock-op backward
+    give autograd-through-the-twin's gradients (1e-4 of each one's largest
+    |value|), one launch and one backward call."""
+    dev = _card()
+    q, k, v, g = (torch.from_numpy(a).to(dev) for a in _qkv((16, 1024, 8, 16), seed=11)
+                  + _qkv((16, 1024, 8, 16), seed=12)[:1])
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    launched = attention.launch_count["headpacked_attention"]
+    backward = attention.backward_count["headpacked_attention"]
+    got = torch.autograd.grad(attention.headpacked_attention(q, k, v, 0.25), (q, k, v), g)
+    assert attention.launch_count["headpacked_attention"] == launched + 1
+    assert attention.backward_count["headpacked_attention"] == backward + 1
+    ref = attention.attention_reference(*(x.transpose(1, 2) for x in (q, k, v)), 0.25)
+    want = torch.autograd.grad(ref.transpose(1, 2), (q, k, v), g)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=0, atol=1e-4 * float(w.abs().max()))
 
 
 @pytest.mark.cuda

@@ -23,7 +23,9 @@ def test_port_imports_without_jax():
             "eyegaze_tpu_torch.train.optim", "eyegaze_tpu_torch.train.metrics",
             "eyegaze_tpu_torch.train.checkpoint", "eyegaze_tpu_torch.train.trainer",
             "eyegaze_tpu_torch.utils.logging", "eyegaze_tpu_torch.train_dual_eeg",
-            "eyegaze_tpu_torch.run_experiments"} <= set(modules)
+            "eyegaze_tpu_torch.run_experiments", "eyegaze_tpu_torch.train_art",
+            "eyegaze_tpu_torch.data.art_data", "eyegaze_tpu_torch.data.native",
+            "eyegaze_tpu_torch.data.image_fusion", "eyegaze_tpu_torch.models.vit"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "for banned in ('jax', 'flax', 'optax', 'orbax', 'eyegaze_tpu'):\n"
@@ -83,6 +85,17 @@ def test_train_fails_without_cuda_unless_asked_for_the_cpu():
     r = subprocess.run([sys.executable, "-m", "eyegaze_tpu_torch.train_dual_eeg", "--config",
                         "configs/dual_eeg_transformer.yaml"], cwd=ROOT, capture_output=True,
                        text=True, timeout=300, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert r.returncode != 0
+    assert "needs a CUDA device" in r.stderr and "--device cpu" in r.stderr
+    assert "[model]" not in r.stdout
+
+
+def test_train_art_fails_without_cuda_unless_asked_for_the_cpu():
+    """The ART training entry point trains on the card by default; without
+    one it stops before it builds anything."""
+    r = subprocess.run([sys.executable, "-m", "eyegaze_tpu_torch.train_art", "--tiny"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=300,
+                       env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert r.returncode != 0
     assert "needs a CUDA device" in r.stderr and "--device cpu" in r.stderr
     assert "[model]" not in r.stdout

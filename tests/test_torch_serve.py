@@ -327,7 +327,7 @@ def test_sniff_kind_without_meta(eeg_checkpoint, art_checkpoint, tmp_path):
         serve.sniff_kind(other)
 
 
-@pytest.mark.parametrize("kind", ["gaze", "multimodal", "hypereeg"])
+@pytest.mark.parametrize("kind", ["multimodal", "hypereeg"])
 def test_unported_kind_is_refused(eeg_checkpoint, kind):
     with pytest.raises(SystemExit, match="not yet ported"):
         serve.main(["--checkpoint", str(eeg_checkpoint), "--kind", kind, "--device", "cpu"])
