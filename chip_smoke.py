@@ -123,6 +123,34 @@ instance with none, fails the run.  Then, each phase raising on any failure:
    largest |logit| of the same checkpoint served on the CPU; then one
    request of 8 pairs through ``serve --kind gaze`` over HTTP, equal to a
    direct ``predict``.
+18. Gaze training parity: one f32 ViT-B/16 early-fusion (concat) train
+   step at batch 16 without dropout or augment, card against CPU from the
+   same seeded weights and uint8 batch (train_gaze's forward and
+   class-weighted CE), held to the flagship step's bounds and every
+   gradient tensor to ART's (``check_step_parity``, ``check_grad_parity``).
+19. ``Trainer.train_step`` with train_gaze's objective (the flip + jitter
+   augment drawn on the card, class-weighted CE, dropout 0.1, bf16) on
+   ViT-B/16 early (concat) and late (full) fusion at batch 16: 3 steps
+   untimed, 20 timed to a synchronize, then ``torch.profiler`` over 5:
+   median step time, peak memory, CUDA kernels per step, busy share; no
+   kernel of the port launches (the ViT's attention is Flax's).
+20. ``train_gaze.run`` (the entry point without its YAML) for one epoch at
+   full width on 48 synthetic trials, bf16, for the early and datafusion
+   (horizontal paste) kinds; ``GazePredictor.from_checkpoint`` serves the
+   validation pairs from the best_model.pt each wrote, within 2**-5 of the
+   largest |logit| of the trainer's own eval logits.
+21. The multimodal composite at full width (ViT-B/16 early fusion + the
+   flagship EEG encoder + the fuzzy gate), seeded weights saved as a
+   reference-named state_dict plus a meta with the ``model.multimodal``
+   stamp, served by ``MultimodalPredictor.from_checkpoint`` (bf16):
+   requests of 1, 8 and 32 pairs of uint8 images and (32, 1024) windows,
+   K1 launched once per forward inside the EEG encoder (N = 6, 48 and 192),
+   counted from 0 for the phase; per bucket the wall times, K1's time and
+   share of the kernel time from ``torch.profiler``, and the first 8 pairs'
+   logits, img_logits, eeg_logits and alpha within 2**-5 of each one's
+   largest |value| of the same checkpoint served on the CPU.
+22. One request of 8 pairs through ``serve --kind multimodal`` over HTTP,
+   equal to a direct ``predict``, alpha and labels included.
 
 Every phase runs in float32 (TF32 off) unless it says bf16.  There is no
 CPU fallback: without a CUDA device the script exits non-zero and prints no
@@ -132,9 +160,10 @@ peak rate for their type; for attention the operations are the matmuls)
 and its launches per request; for attention also the time its
 exponentials take on the SFU alone (``sfu_ex2_ms``, not a floor).  The
 second-to-last line of stdout is a JSON object with each kernel entry
-point's launches, error, times and bound (K1's launches are serving's and
-training's, with its timing at the train shape and the train step's
-median times and peak memory beside them; the f32 head-packed entry's are
+point's launches, error, times and bound (K1's launches are serving's,
+training's and the composite's, with its timing at the train shape and the
+train step's median times and peak memory beside them, and its time, bound
+and share at each composite bucket; the f32 head-packed entry's are
 serving's and ART training's, with its backward calls, the ART train
 step's medians and the autograd timing); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -281,6 +310,36 @@ GAZE_CPU_PAIRS = 8  # card vs CPU on the 8-pair request (ViT-B on the CPU is slo
 # tests/test_torch_vit.py holds the port's bf16 ViTs to against Flax's.
 GAZE_BF16_TOL_SHARE = 2.0 ** -5
 
+# Gaze training, eyegaze_tpu_torch.train_gaze's recipe at configs/gaze_earlyfusion.yaml's
+# values: ViT-B/16 at img 224, batch 16, bf16, dropout 0.1, AdamW at 1e-4 (weight
+# decay 0.01, clip 1.0), class-weighted CE, the flip + jitter augment on the card;
+# 48 synthetic trials (34 train, 14 validation: 2 steps and 1 eval batch).
+GAZE_TRAIN_BATCH = 16
+GAZE_TRAIN_LR = 1e-4
+GAZE_TRAIN_TRIALS = 48
+GAZE_TRAIN_KINDS = (("early", "concat"), ("late", "full"))
+GAZE_SERVE_KINDS = ("early", "datafusion")
+PROFILED_STEPS = 5
+
+# The multimodal composite at full width: ViT-B/16 (early fusion, concat) plus
+# the flagship encoder (d_model 256, 6 layers, 8 heads, d_ff 1024, eeg_max_len
+# 256) and the fuzzy gate ('full'), as configs/multimodal_fuzzy_fusion.yaml and
+# scripts/train_multimodal.py build it; served bf16 from a checkpoint.
+MM_GEOMETRY = dict(num_classes=3, gaze_fusion_mode="concat", fuzzy_mode="full",
+                   eeg_in_channels=CHANNELS, eeg_d_model=256, eeg_num_layers=6, eeg_num_heads=8,
+                   eeg_d_ff=1024, eeg_max_len=256, sampling_rate=SAMPLING_RATE,
+                   use_spectrogram=True, use_ibs=True, use_robust_ibs=True,
+                   use_cross_attention=True, vit_embed_dim=768, vit_depth=12, vit_num_heads=12,
+                   img_size=224, dropout=0.1)
+MM_REQUESTS = (1, 8, 32)  # pairs of 1,024-sample windows per request
+MM_BUCKETS = (1, 8, 32)
+MM_CPU_PAIRS = 8  # card vs CPU on the first 8 pairs (ViT-B in bf16 on the CPU is slow)
+# bf16 compute, card vs CPU: a share of the largest |output|, each encoder's
+# bound (GAZE_BF16_TOL_SHARE, LOGIT_BF16_TOL_SHARE), for the fused logits and
+# alpha too.
+MM_BF16_TOL_SHARE = 2.0 ** -5
+MM_OUTPUTS = ("logits", "img_logits", "eeg_logits", "alpha")
+
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # HBM bytes per second and dense operations per second by type.
 HBM_BYTES_PER_S = 3.35e12
@@ -364,6 +423,12 @@ def train_kernel_shapes() -> tuple:
     return ((6 * TRAIN_BATCH, CHANNELS, WINDOW), (6 * eval_rows, CHANNELS, WINDOW))
 
 
+def composite_kernel_shapes() -> tuple:
+    """The (N, C, T) at which the composite's EEG encoder launches K1: one
+    (N, 32, 1024) window pair per gaze pair, N = 6 bands x the bucket."""
+    return tuple((6 * b, CHANNELS, WINDOW) for b in MM_BUCKETS)
+
+
 def cuda_ms(fn, reps: int, calls: int = 1) -> list[float]:
     """Per-call device times of ``fn`` in ms, from CUDA events around
     ``calls`` calls in a row."""
@@ -396,8 +461,9 @@ def phase_kernel_phase(device, plv: bool) -> tuple[dict, dict]:
     element by element.  The tied pair (0, 0) must give mean sign and
     Phase_Diff 0 (and mean cos 1): padded samples add nothing.
 
-    Timed shapes: K1 the serving run's (``path_kernel_shapes``) and the
-    training run's (``train_kernel_shapes``), K2 PLV_SHAPES.  Kernel and
+    Timed shapes: K1 the serving run's (``path_kernel_shapes``), the
+    training run's (``train_kernel_shapes``) and the composite's
+    (``composite_kernel_shapes``), K2 PLV_SHAPES.  Kernel and
     plain version are timed in turns, one call between CUDA events, and the
     kernel again as 20 calls replayed from a CUDA graph (device time alone).
     Returns the JSON fields at the largest timed shape, and those of every
@@ -409,7 +475,8 @@ def phase_kernel_phase(device, plv: bool) -> tuple[dict, dict]:
     kernel = phase_metrics.phase_plv_metric_sums if plv else phase_metrics.phase_metric_sums
     plain = (phase_metrics.pairwise_phase_plv_metrics_reference if plv
              else phase_metrics.pairwise_phase_metrics_reference)
-    timed = PLV_SHAPES if plv else path_kernel_shapes() + train_kernel_shapes()
+    timed = PLV_SHAPES if plv else tuple(dict.fromkeys(
+        path_kernel_shapes() + train_kernel_shapes() + composite_kernel_shapes()))
     max_err = 0.0
     for seed, shape in enumerate(timed + (RAGGED_SHAPE, UNALIGNED_SHAPE)):
         x = phase_inputs(shape, device, seed)
@@ -1575,6 +1642,339 @@ def gaze_http_phase(device, path: Path) -> None:
           "labels included")
 
 
+def gaze_train_config(output_dir, *, bf16: bool = True, dropout: float = 0.1,
+                      fusion_mode: str = "concat"):
+    """configs/gaze_earlyfusion.yaml's training config built from the
+    dataclasses (no YAML), one epoch into ``output_dir``."""
+    from eyegaze_tpu_torch.config import (
+        DataConfig,
+        ExperimentConfig,
+        ModelConfig,
+        SystemConfig,
+        TrainingConfig,
+    )
+
+    return ExperimentConfig(
+        model=ModelConfig(fusion_mode=fusion_mode, img_size=GAZE_GEOMETRY["img_size"]),
+        data=DataConfig(synthetic=True, synthetic_trials=GAZE_TRAIN_TRIALS, random_seed=42),
+        training=TrainingConfig(output_dir=str(output_dir), num_train_epochs=1,
+                                per_device_train_batch_size=GAZE_TRAIN_BATCH,
+                                per_device_eval_batch_size=32, learning_rate=GAZE_TRAIN_LR,
+                                weight_decay=0.01, grad_clip=1.0, dropout=dropout,
+                                warmup_epochs=2, bf16=bf16, use_class_weights=True,
+                                scheduler="warmup_cosine_step"),
+        system=SystemConfig(seed=42, device="cuda"))
+
+
+def gaze_train_batch(n: int, device, seed: int) -> dict:
+    """A train batch as converted gaze data arrives: uint8 (n, 3, 224, 224)
+    pairs, labels cycling over the three classes."""
+    a, b = gaze_pairs(n, seed)
+    return {"img1": torch.from_numpy(a).to(device), "img2": torch.from_numpy(b).to(device),
+            "label": torch.from_numpy((np.arange(n) % 3).astype(np.int32)).to(device)}
+
+
+def gaze_class_weights(device) -> torch.Tensor:
+    """train_gaze's inverse-frequency class weights, of a train batch's
+    labels."""
+    from eyegaze_tpu_torch.data.metadata import class_weights
+
+    labels = np.arange(GAZE_TRAIN_BATCH) % 3
+    return torch.as_tensor(class_weights(labels.tolist()), device=device)
+
+
+def gaze_train_parity_phase(device) -> None:
+    """One f32 ViT-B/16 early-fusion (concat) train step at batch 16, without
+    dropout and without the augment, on the card and on the CPU from the
+    same seeded weights and batch: train_gaze's forward (on-device
+    to_unit_float and ImageNet normalization) and class-weighted CE, held to
+    the flagship step's bounds (``check_step_parity``) and every gradient
+    tensor to ``check_grad_parity``'s."""
+    from eyegaze_tpu_torch import train_gaze
+    from eyegaze_tpu_torch.train.losses import weighted_cross_entropy
+
+    cfg = gaze_train_config(".", bf16=False, dropout=0.0)
+    out = []
+    for dev in (device, torch.device("cpu")):
+        model = train_gaze.build_model(cfg, "early", device=dev)
+        _, forward = train_gaze.make_objective("early", img_size=cfg.model.img_size,
+                                               generator=torch.Generator(device=dev))
+        weights = gaze_class_weights(dev)
+
+        def loss_fn(m, batch, forward=forward, weights=weights):
+            return weighted_cross_entropy(forward(m, batch), batch["label"], weights), {}
+
+        out.append(one_step(model, loss_fn, gaze_train_batch(GAZE_TRAIN_BATCH, dev, seed=8),
+                            GAZE_TRAIN_LR))
+    name = (f"one f32 ViT-B/16 early-fusion train step at batch {GAZE_TRAIN_BATCH} without "
+            "dropout or augment")
+    check_step_parity(name, *out, GAZE_TRAIN_LR, LOGIT_TOL)
+    check_grad_parity(name, out[0][5], out[1][5], ())
+
+
+def profile_steps(step, n: int = PROFILED_STEPS) -> dict:
+    """``torch.profiler`` over ``n`` calls of ``step`` (each ending in a
+    synchronize): CUDA kernels per call, the summed kernel time against the
+    wall time (the device's busy share), and K1's kernel time per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time for e in kernels) / 1e3
+    k1 = sum(e.device_time for e in kernels if "phase_metrics_kernel" in e.name) / 1e3
+    return {"kernels_per_call": len(kernels) / n, "busy_share": busy / wall,
+            "kernel_ms_per_call": busy / n, "wall_ms_per_call": wall / n, "k1_ms_per_call": k1 / n}
+
+
+def gaze_train_timed_phase(device, kind: str, mode: str) -> dict:
+    """``Trainer.train_step`` with train_gaze's objective (the augment on the
+    card, class-weighted CE) on ViT-B/16 ``kind`` fusion at batch 16, bf16,
+    dropout 0.1: TRAIN_WARMUP steps, then TRAIN_STEPS steps each timed to a
+    ``torch.cuda.synchronize()``, then ``torch.profiler`` over
+    PROFILED_STEPS steps.  Every loss must be finite; no kernel of the port
+    launches (the ViT's attention is Flax's, in stock ops)."""
+    from eyegaze_tpu_torch import train_gaze
+    from eyegaze_tpu_torch.kernels import attention, phase_metrics
+    from eyegaze_tpu_torch.train.optim import make_optimizer
+    from eyegaze_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    name = f"ViT-B/16 {kind} fusion ({mode})"
+    cfg = gaze_train_config(".", fusion_mode=mode)
+    model = train_gaze.build_model(cfg, kind, device=device)
+    n_params = sum(p.numel() for p in model.parameters())
+    objective = train_gaze.make_objective(
+        kind, img_size=cfg.model.img_size, weights=gaze_class_weights(device),
+        generator=torch.Generator(device=device).manual_seed(0))
+    trainer = Trainer(model, make_optimizer(model, GAZE_TRAIN_LR, 0.01, grad_clip=1.0),
+                      *objective, TrainerConfig(seed=0), device=device)
+    batch = gaze_train_batch(GAZE_TRAIN_BATCH, device, seed=9)
+    reset_k1_count()
+    reset_attention_counts()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_WARMUP):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(device)
+    walls, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+    peak = torch.cuda.max_memory_allocated(device)
+
+    def step():
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+
+    prof = profile_steps(step)
+    if (not np.isfinite(losses).all() or any(phase_metrics.launch_count.values())
+            or any(attention.launch_count.values()) or any(attention.bf16_launch_count.values())):
+        raise RuntimeError(f"{name} training: losses {losses}, kernel launches "
+                           f"{phase_metrics.launch_count} {attention.launch_count}")
+    median = statistics.median(walls)
+    print(f"{name} train step (bf16 compute, dropout 0.1, augment on the card, batch "
+          f"{GAZE_TRAIN_BATCH}, {n_params:,} parameters): {TRAIN_WARMUP} warm-up steps "
+          f"{warmup_s:.2f} s; {TRAIN_STEPS} steps, CUDA-synchronized wall ms median "
+          f"{median:.3f}, min {min(walls):.3f}, max {max(walls):.3f}; "
+          f"{GAZE_TRAIN_BATCH * 1e3 / median:.1f} pairs/s; peak memory {peak / 2**30:.3f} GiB; "
+          f"losses {losses[0]:.4f} -> {losses[-1]:.4f}, all finite; torch.profiler over "
+          f"{PROFILED_STEPS} steps: {prof['kernels_per_call']:.0f} CUDA kernels a step, kernel "
+          f"time {prof['kernel_ms_per_call']:.3f} of {prof['wall_ms_per_call']:.3f} ms a step, "
+          f"busy share {prof['busy_share']:.1%} (of the unprofiled median "
+          f"{prof['kernel_ms_per_call'] / median:.1%}); no kernel of the port launched")
+    return {"median_ms": median, "walls_ms": walls, "peak_bytes": peak, "parameters": n_params,
+            "busy_share_of_median": prof["kernel_ms_per_call"] / median, **prof}
+
+
+def gaze_train_serve_phase(device, tmp: Path) -> None:
+    """``train_gaze.run`` (``main`` without its YAML) at full width for one
+    epoch on the 48 synthetic trials, bf16, for the early and datafusion
+    (horizontal paste) kinds; then ``GazePredictor.from_checkpoint`` serves
+    the validation pairs from the best_model.pt it wrote, on the card: its
+    logits must be the trainer's own eval logits within 2**-5 of the
+    largest |logit|."""
+    from eyegaze_tpu_torch import train_gaze
+    from eyegaze_tpu_torch.serving import GazePredictor
+
+    for kind in GAZE_SERVE_KINDS:
+        cfg = gaze_train_config(tmp / f"train_gaze_{kind}")
+        t0 = time.perf_counter()
+        result = train_gaze.run(cfg, kind, device=device)
+        run_s = time.perf_counter() - t0
+        trainer, val = result["trainer"], result["val"]
+        path = Path(cfg.training.output_dir) / "checkpoints" / "best_model.pt"
+        pred = GazePredictor.from_checkpoint(path, device=device, batch_buckets=GAZE_BUCKETS)
+        logits = pred.predict(val.arrays["img1"], val.arrays["img2"])["logits"]
+        want = trainer.eval_logits
+        gap = float(np.abs(logits - want).max())
+        tol = GAZE_BF16_TOL_SHARE * float(np.abs(want).max())
+        fusion = f", {pred.data_fusion_mode} paste" if kind == "datafusion" else ""
+        print(f"train_gaze --model {kind}, 1 epoch at full width: {trainer.optimizer.count} "
+              f"step(s) of {GAZE_TRAIN_BATCH}, {len(val)} validation pairs, {run_s:.2f} s; "
+              f"best_model.pt served by GazePredictor.from_checkpoint (bf16{fusion}): max "
+              f"|logits - the trainer's eval logits| {gap:.3e} (tolerance {tol:.3e}, 2**-5 of "
+              f"the largest |logit|)")
+        if not (logits.shape == want.shape and gap <= tol):
+            raise RuntimeError(f"train_gaze --model {kind}: the served checkpoint's logits "
+                               f"differ from training's: {gap:.3e}")
+
+
+def multimodal_inputs(n: int, seed: int) -> list:
+    """n uint8 gaze pairs and n (32, 1024) float32 EEG window pairs."""
+    r = np.random.default_rng(seed)
+    e1, e2 = (r.normal(size=(n, CHANNELS, WINDOW)).astype(np.float32) for _ in range(2))
+    return [*gaze_pairs(n, seed + 1), e1, e2]
+
+
+def multimodal_phase(device, tmp: Path) -> tuple[int, dict, Path]:
+    """The composite at full width (MM_GEOMETRY), seeded weights saved as a
+    reference-named state_dict plus a meta with the ``model.multimodal``
+    stamp, served by ``MultimodalPredictor.from_checkpoint`` (bf16) on the
+    card: requests of 1, 8 and 32 pairs, REPEATS times each, one K1 launch
+    per forward (inside the EEG encoder) and no attention-kernel launch;
+    per bucket ``torch.profiler`` over one request (K1's share of the
+    kernel time); the first 8 pairs of each request's logits, img_logits,
+    eeg_logits and alpha within 2**-5 of the largest |value| of the same
+    checkpoint served on the CPU.  Returns K1's launches, the per-bucket
+    numbers and the checkpoint's path."""
+    from eyegaze_tpu_torch.kernels import attention
+    from eyegaze_tpu_torch.models.multimodal import MultimodalFusionModel
+    from eyegaze_tpu_torch.serving import MultimodalPredictor
+
+    model = MultimodalFusionModel(**MM_GEOMETRY, device=torch.device("cpu"),
+                                  generator=torch.Generator().manual_seed(11))
+    meta = {"config": {"model": {"multimodal": MM_GEOMETRY, "num_labels": 3,
+                                 "img_size": MM_GEOMETRY["img_size"]}}}
+    path = save_checkpoint(model.state_dict(), meta, tmp / "multimodal.pt")
+    n_params = sum(p.numel() for p in model.parameters())
+    del model
+    inputs = multimodal_inputs(max(MM_REQUESTS), 12)
+    t0 = time.perf_counter()
+    want = MultimodalPredictor.from_checkpoint(path, device=torch.device("cpu"),
+                                               batch_buckets=(MM_CPU_PAIRS,)).predict(
+        *(x[:MM_CPU_PAIRS] for x in inputs))
+    cpu_s = time.perf_counter() - t0
+    reset_k1_count()
+    reset_attention_counts()
+    pred = MultimodalPredictor.from_checkpoint(path, device=device, batch_buckets=MM_BUCKETS)
+    t0 = time.perf_counter()
+    pred.warmup()
+    print(f"multimodal composite (ViT-B/16 early fusion + flagship EEG encoder + fuzzy gate), "
+          f"{n_params:,} parameters, served bf16 from a checkpoint on {device}; warmup of "
+          f"buckets {MM_BUCKETS}: {time.perf_counter() - t0:.2f} s; the CPU's reference on "
+          f"{MM_CPU_PAIRS} pairs: {cpu_s:.2f} s")
+    per_bucket = {}
+    for n in MM_REQUESTS:
+        before = k1_count()
+        walls = []
+        for _ in range(REPEATS):
+            t0 = time.perf_counter()
+            out = pred.predict(*(x[:n] for x in inputs))
+            walls.append((time.perf_counter() - t0) * 1e3)
+        launches = k1_count() - before
+        if launches != REPEATS or any(attention.launch_count.values()):
+            raise RuntimeError(f"composite, {n} pair(s): {launches} K1 launches for {REPEATS} "
+                               f"forwards; attention {attention.launch_count}")
+        prof = profile_steps(lambda: pred.predict(*(x[:n] for x in inputs)), 1)
+        rows = min(n, MM_CPU_PAIRS)
+        errors = {}
+        for k in MM_OUTPUTS:
+            got, ref = out[k][:rows], want[k][:rows]
+            if got.shape != ref.shape or not np.isfinite(out[k]).all():
+                raise RuntimeError(f"composite, {n} pair(s): bad {k} {out[k].shape}")
+            errors[k] = {"max_abs_err": float(np.abs(got - ref).max()),
+                         "bound": MM_BF16_TOL_SHARE * float(np.abs(ref).max())}
+        median = statistics.median(walls)
+        shape = (6 * n, CHANNELS, WINDOW)
+        k1_bound, k1_bound_by = phase_bound(shape, plv=False)
+        print(f"composite request of {n} pair(s) (bucket {n}): wall ms "
+              f"{[round(w, 3) for w in walls]}, median {median:.3f} (uint8 images and f32 "
+              f"windows to the card, forward, outputs back on the host); K1 launches "
+              f"{launches} for {REPEATS} requests; one profiled request: "
+              f"{prof['kernels_per_call']:.0f} CUDA kernels, kernel time "
+              f"{prof['kernel_ms_per_call']:.3f} of {prof['wall_ms_per_call']:.3f} ms (busy "
+              f"{prof['busy_share']:.1%}), K1 at N = {shape[0]} {prof['k1_ms_per_call']:.4f} ms "
+              f"(bound {k1_bound:.4f} ms, {k1_bound_by}), "
+              f"{prof['k1_ms_per_call'] / prof['kernel_ms_per_call']:.2%} of the kernel time; "
+              f"card vs CPU, bf16, first {rows} pair(s): "
+              + ", ".join(f"{k} {e['max_abs_err']:.3e} (bound {e['bound']:.3e})"
+                          for k, e in errors.items()))
+        bad = [k for k, e in errors.items() if not e["max_abs_err"] <= e["bound"]]
+        if bad:
+            raise RuntimeError(f"composite, {n} pair(s), card vs CPU: {bad} over the bound")
+        per_bucket[n] = {"wall_ms": walls, "median_ms": median, "k1_launches": launches,
+                         "k1_ms": prof["k1_ms_per_call"], "k1_bound_ms": k1_bound,
+                         "k1_bound_by": k1_bound_by,
+                         "k1_share_of_kernel_time": prof["k1_ms_per_call"]
+                         / prof["kernel_ms_per_call"],
+                         "kernels_per_request": prof["kernels_per_call"],
+                         "busy_share": prof["busy_share"], "card_vs_cpu": errors}
+    launches = k1_count()
+    expected = len(MM_BUCKETS) + len(MM_REQUESTS) * (REPEATS + 1)  # warmup, timed, profiled
+    if launches != expected:
+        raise RuntimeError(f"the composite launched K1 {launches} times for {expected} forwards")
+    return launches, per_bucket, path
+
+
+def multimodal_http_phase(device, path: Path) -> int:
+    """``python -m eyegaze_tpu_torch.serve --kind multimodal`` on the
+    composite's checkpoint, in a thread on 127.0.0.1 port 0, bucket 8: one
+    request of 8 pairs, its answer equal to a direct ``predict`` at the same
+    bucket, labels and alpha included.  Returns K1's launches: the server's
+    warmup, the request and the direct predict, one each."""
+    from eyegaze_tpu_torch import serve
+    from eyegaze_tpu_torch.serving import MultimodalPredictor
+
+    inputs = multimodal_inputs(MM_CPU_PAIRS, 13)
+    reset_k1_count()
+    want = MultimodalPredictor.from_checkpoint(path, device=device,
+                                               batch_buckets=(MM_CPU_PAIRS,)).predict(*inputs)
+    bound_, argv = [], ["--checkpoint", str(path), "--kind", "multimodal", "--device",
+                        str(device), "--host", "127.0.0.1", "--port", "0", "--buckets",
+                        str(MM_CPU_PAIRS)]
+    thread = threading.Thread(target=serve.main, args=(argv, bound_.append), daemon=True)
+    thread.start()
+    for _ in range(600):
+        if bound_ or not thread.is_alive():
+            break
+        thread.join(0.5)
+    if not bound_:
+        raise RuntimeError("eyegaze_tpu_torch.serve --kind multimodal did not start")
+    server = bound_[0]
+    try:
+        buf = io.BytesIO()
+        np.savez(buf, **dict(zip(("img1", "img2", "eeg1", "eeg2"), inputs)))
+        req = urllib.request.Request(f"http://127.0.0.1:{server.server_address[1]}/predict",
+                                     data=buf.getvalue(), method="POST")
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            got = json.load(resp)
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        server.shutdown()
+        thread.join(60)
+    launches = k1_count()
+    for k in MM_OUTPUTS:
+        if not np.array_equal(np.asarray(got[k], np.float32), want[k]):
+            raise RuntimeError(f"serve --kind multimodal answered another {k}: max |diff| "
+                               f"{float(np.abs(np.asarray(got[k]) - want[k]).max()):.3e}")
+    if got["labels"] != want["labels"] or launches != 3:
+        raise RuntimeError(f"serve --kind multimodal: labels {got['labels']} vs "
+                           f"{want['labels']}, {launches} K1 launches for 3 forwards")
+    print(f"HTTP, serve --kind multimodal (bucket {MM_CPU_PAIRS}): one request of "
+          f"{MM_CPU_PAIRS} pairs in {wall:.3f} ms, answer equal to the direct predict (logits, "
+          f"img_logits, eeg_logits, alpha, labels); K1 launches {launches} (server warmup, "
+          "request, direct predict)")
+    return launches
+
+
 F32_INSTANCES = {(16, 4), (16, 1), (32, 2), (32, 1), (64, 1), (128, 1)}  # (d, rows per thread)
 BF16_HEAD_DIMS = {16, 32, 64, 128}
 
@@ -1767,6 +2167,17 @@ def main() -> None:
 
     if any(phase_metrics.launch_count.values()):
         raise RuntimeError(f"ART training or gaze serving launched {phase_metrics.launch_count}")
+    gaze_train_parity_phase(device)
+    gaze_train = {kind: gaze_train_timed_phase(device, kind, mode)
+                  for kind, mode in GAZE_TRAIN_KINDS}
+    with tempfile.TemporaryDirectory() as tmp:
+        gaze_train_serve_phase(device, Path(tmp))
+        k1_mm_launches, mm_buckets, mm_path = multimodal_phase(device, Path(tmp))
+        k1_mm_launches += multimodal_http_phase(device, mm_path)
+    print("ViT-B/16 train step at batch {}, bf16, median ms: ".format(GAZE_TRAIN_BATCH)
+          + ", ".join(f"{kind} {g['median_ms']:.3f} ({g['kernels_per_call']:.0f} kernels, busy "
+                      f"{g['busy_share']:.1%}, peak {g['peak_bytes'] / 2**30:.3f} GiB)"
+                      for kind, g in gaze_train.items()))
     plain_step, k3_step = art_train[None], art_train[0.0]
     print(f"ART train step at batch {ART_TRAIN_BATCH}, median ms: attention dropout 0.1 (plain "
           f"attention) {plain_step['median_ms']:.3f}, attention dropout 0.0 (K3 + autograd "
@@ -1780,15 +2191,25 @@ def main() -> None:
     source = "eyegaze_tpu_torch/csrc/attention.cu"
     art_forwards = len(ART_REQUESTS) * REPEATS
     k1_serving = k1_launches + k1_bf16_launches
+    composite_ns = {6 * n: n for n in MM_BUCKETS}
     train_shape = (6 * TRAIN_BATCH, CHANNELS, WINDOW)
     art_bf16_all = art_bf16_launches + art_ckpt_launches
     kernels = [
         {"name": "pairwise_phase_metrics", "route": "cuda", "source": phase_source,
-         "replaces": "eyegaze_tpu/ops/pallas_kernels.py:74", "launches": k1_serving + k1_train,
+         "replaces": "eyegaze_tpu/ops/pallas_kernels.py:74",
+         "launches": k1_serving + k1_train + k1_mm_launches,
          "path": "EEG serving, f32 and bf16 from a checkpoint; flagship training, bf16 and "
-                 "f32 steps and one epoch of train_dual_eeg",
+                 "f32 steps and one epoch of train_dual_eeg; the multimodal composite served "
+                 "bf16 from a checkpoint, and over HTTP",
          "launches_per_request": k1_serving / (2 * len(REQUESTS) * REPEATS),
          "launches_serving": k1_serving, "launches_training": k1_train,
+         "launches_composite": k1_mm_launches,
+         "composite": {f"N={N}": {"bucket": n, **k1_shapes[(N, CHANNELS, WINDOW)],
+                                  **{k: mm_buckets[n][k] for k in
+                                     ("k1_ms", "k1_share_of_kernel_time", "median_ms",
+                                      "k1_launches")}}
+                       for N, n in composite_ns.items()},
+         "gaze_train_step_ms": {kind: g["median_ms"] for kind, g in gaze_train.items()},
          "launches_per_train_step": (bf16["launches"] + f32["launches"]) / (2 * TRAIN_STEPS),
          "train_shape_timing": k1_shapes[train_shape],
          "train_step_ms": {"bf16": bf16["median_ms"], "f32": f32["median_ms"]},

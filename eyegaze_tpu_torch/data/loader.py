@@ -1,7 +1,8 @@
 """Host-side batch loaders (numpy only).
 
-The port's copy of ``ArrayDataset``, ``batch_iterator`` and
-``DualEEGWindowDataset`` from ``eyegaze_tpu/data/loader.py``.  Trials live
+The port's copy of ``ArrayDataset``, ``batch_iterator``,
+``DualEEGWindowDataset`` and ``GazePairArrays`` from
+``eyegaze_tpu/data/loader.py``.  Trials live
 in numpy arrays, windowing is index math, and a batch is a dict of numpy
 arrays; the trainer moves it to the device.  The seeded shuffle draws from
 numpy's generator alone, so for the same (seed, epoch) both packages give
@@ -114,3 +115,22 @@ class DualEEGWindowDataset:
         for sel in _batch_indices(len(self), batch_size, shuffle, seed,
                                   drop_remainder, epoch):
             yield self.batch(sel)
+
+
+@dataclasses.dataclass
+class GazePairArrays:
+    """Gaze-pair samples as arrays: (N, 3, H, W) x2 + labels (+ pair ids)."""
+
+    img1: np.ndarray
+    img2: np.ndarray
+    labels: np.ndarray
+    pairs: Optional[np.ndarray] = None
+
+    def __len__(self):
+        return len(self.labels)
+
+    def as_dataset(self) -> ArrayDataset:
+        arrays = {"img1": self.img1, "img2": self.img2, "label": self.labels}
+        if self.pairs is not None:
+            arrays["pair"] = self.pairs
+        return ArrayDataset(arrays)

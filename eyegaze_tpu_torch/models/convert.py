@@ -1,7 +1,8 @@
 """JAX package parameters -> the port's state_dicts (numpy only).
 
 The counterparts of ``eyegaze_tpu/models/torch_port.py::export_dual_eeg_state_dict``,
-``export_art_state_dict`` and ``export_gaze_{early,late}_state_dict``.
+``export_art_state_dict``, ``export_gaze_{early,late}_state_dict`` and
+``export_multimodal_state_dict``.
 ``params`` is the Flax parameter tree as nested dicts of numpy arrays; the
 result maps the reference torch names (timm's for the ViTs) to float32 numpy
 arrays:
@@ -181,3 +182,20 @@ def gaze_late_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
     _vit(w, "encoder", "encoder")
     w.linear("classifier", "classifier")
     return w.state
+
+
+def multimodal_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
+    """MultimodalFusionModel: the early-fusion ViT under ``gaze_encoder.``, the
+    DualEEGTransformer under ``eeg_encoder.``, the gate's nine parameters
+    under ``fusion.`` by their own names."""
+    from eyegaze_tpu_torch.models.fuzzy_fusion import PARAM_NAMES
+
+    state = {f"gaze_encoder.{k}": v
+             for k, v in gaze_early_state_dict_from_flax(params["gaze_encoder"]).items()}
+    state.update({f"eeg_encoder.{k}": v
+                  for k, v in dual_eeg_state_dict_from_flax(params["eeg_encoder"]).items()})
+    w = _Writer(params)
+    for name in PARAM_NAMES:
+        w.put(f"fusion.{name}", w.get("fusion", name))
+    state.update(w.state)
+    return state

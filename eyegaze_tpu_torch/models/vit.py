@@ -11,7 +11,9 @@ timm's ``vit_base_patch16_224`` (``patch_embed.proj``, ``cls_token``,
 ``norm``, ``head``), under ``backbone.`` (early) or ``encoder.`` plus
 ``classifier`` (late), so the state_dicts of
 ``convert.gaze_{early,late}_state_dict_from_flax`` and of the JAX exporter
-load with ``strict=True``.
+load with ``strict=True``.  ``load_timm_state_dict`` copies a timm-named
+state_dict (such as pretrained ViT-B/16 weights from a local file) into a
+``VisionTransformer``.
 
 ``dtype`` is the Flax modules' compute type (the JAX ``GazePredictor.
 from_checkpoint`` serves bfloat16).  Parameters stay float32; the patch
@@ -21,14 +23,17 @@ parameters), and the residual stream stays in ``dtype``.  The attention is
 Flax's ``dot_product_attention``, not the package's ``MultiHeadAttention``:
 q is divided by sqrt(head dim) in ``dtype`` before the product, and the
 scores, the softmax and the weights are in ``dtype``, so in bf16 each is
-rounded to bf16 (``force_fp32_for_softmax`` is off).  Its 197 tokens go to
-no attention kernel.  Outputs are float32.
+rounded to bf16 (``force_fp32_for_softmax`` is off); in training,
+dropout falls on those weights (Flax's ``dropout_rate``).  Its 197 tokens go
+to no attention kernel.  Outputs are float32.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Mapping
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -83,21 +88,22 @@ class Attention(nn.Module):
     """Flax's ``MultiHeadDotProductAttention`` over one input, with timm's
     fused ``qkv`` and ``proj`` projections."""
 
-    def __init__(self, dim: int, num_heads: int, *, device: torch.device,
-                 dtype: torch.dtype = torch.float32):
+    def __init__(self, dim: int, num_heads: int, dropout: float = 0.0, *,
+                 device: torch.device, dtype: torch.dtype = torch.float32):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"embed dim {dim} is not divisible by num_heads {num_heads}")
         self.num_heads = num_heads
         self.qkv = Dense(dim, 3 * dim, device=device, dtype=dtype)
         self.proj = Dense(dim, dim, device=device, dtype=dtype)
+        self.drop = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, dim = x.shape
         hd = dim // self.num_heads
         q, k, v = self.qkv(x).reshape(b, t, 3, self.num_heads, hd).permute(2, 0, 3, 1, 4)
         q = q / torch.tensor(math.sqrt(hd), dtype=torch.float32).to(q.dtype)
-        p = _softmax(torch.matmul(q, k.transpose(-1, -2)))  # (B, H, T, T) in dtype
+        p = self.drop(_softmax(torch.matmul(q, k.transpose(-1, -2))))  # (B, H, T, T) in dtype
         return self.proj(torch.matmul(p, v).transpose(1, 2).reshape(b, t, dim))
 
 
@@ -125,7 +131,7 @@ class Block(nn.Module):
                  *, device: torch.device, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=1e-6, device=device)
-        self.attn = Attention(dim, num_heads, device=device, dtype=dtype)
+        self.attn = Attention(dim, num_heads, dropout, device=device, dtype=dtype)
         self.norm2 = LayerNorm(dim, eps=1e-6, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dropout, device=device, dtype=dtype)
 
@@ -260,3 +266,47 @@ class LateFusionViT(nn.Module):
         if return_features:
             return {"cls1": cls1, "cls2": cls2, "fused": fused}
         return self.classifier(self.drop(fused)).float()
+
+
+def load_timm_state_dict(vit: VisionTransformer, state: Mapping[str, np.ndarray],
+                         weight_init_strategy: str = "duplicate") -> None:
+    """Copies a timm ``vit_base_patch16_224`` state_dict (timm names -> numpy
+    arrays, such as the ``.npz`` that ``scripts/export_timm_weights.py``
+    writes) into ``vit`` in place: the counterpart of the JAX
+    ``load_timm_state_dict``.
+
+    Every parameter of ``vit`` but the head must be in ``state`` with its
+    shape, with one exception: a 3-channel patch kernel going into a
+    6-channel patch embed (early fusion's 'concat') is widened by the
+    reference's rule (early_fusion_vit.py:133-146), 'duplicate' copying the
+    RGB kernel into both halves, 'average' filling the second half with its
+    channel mean.  The head is copied only where ``state`` has one of
+    ``vit``'s shape.  Other keys of ``state`` are ignored.
+    """
+    if weight_init_strategy not in ("duplicate", "average"):
+        raise ValueError(f"weight_init_strategy must be 'duplicate' or 'average', "
+                         f"got {weight_init_strategy!r}")
+    own = vit.state_dict()
+    new = {}
+    for k, target in own.items():
+        if k.startswith("head."):
+            continue
+        if k not in state:
+            raise KeyError(f"the timm state_dict has no {k!r}")
+        v = np.asarray(state[k], np.float32)
+        if k == "patch_embed.proj.weight" and target.shape[1] == 6 and v.shape[1] == 3:
+            widened = np.zeros(tuple(target.shape), np.float32)
+            widened[:, :3] = v
+            widened[:, 3:] = v if weight_init_strategy == "duplicate" else v.mean(
+                axis=1, keepdims=True)
+            v = widened
+        if v.shape != tuple(target.shape):
+            raise ValueError(f"{k}: the model has shape {tuple(target.shape)}, the timm "
+                             f"state_dict {v.shape}")
+        new[k] = v
+    head = ("head.weight", "head.bias")
+    if all(k in own and k in state and np.shape(state[k]) == tuple(own[k].shape) for k in head):
+        new.update({k: np.asarray(state[k], np.float32) for k in head})
+    with torch.no_grad():
+        for k, v in new.items():
+            own[k].copy_(torch.from_numpy(v))

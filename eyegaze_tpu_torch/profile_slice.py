@@ -1,12 +1,12 @@
 """Where the serving paths' and the train steps' time goes on one CUDA
 device.
 
-    python -m eyegaze_tpu_torch.profile_slice           # serving: EEG, ART, gaze
+    python -m eyegaze_tpu_torch.profile_slice           # serving: EEG, ART, gaze, composite
     python -m eyegaze_tpu_torch.profile_slice --train   # the train steps
 
 It profiles the EEG and ART serving paths in turn, each in float32 and
 then in bf16 compute (the type the JAX package's ``from_checkpoint``
-serves), then the gaze ViTs in bf16.
+serves), then the gaze ViTs and the multimodal composite in bf16.
 
 EEG: builds the full-width DualEEGTransformer (random weights from seed 0)
 and serves raw (trials, 32, 3250) pairs through ``preprocess_eeg`` ->
@@ -32,6 +32,13 @@ from_checkpoint`` serves them) behind ``GazePredictor``, for requests of 1
 and 32 uint8 pairs (buckets 1 and 32): the median CUDA-event time of the
 forward on the normalized images and of one encoder pass.
 
+Composite: the multimodal fuzzy-gating model at full width (ViT-B/16 early
+fusion + the flagship EEG encoder + the gate, random weights from seed 11,
+bf16) behind ``MultimodalPredictor``, for requests of 1 and 32 pairs of
+uint8 images and (32, 1024) windows: the median CUDA-event time of the
+gaze encoder, the EEG encoder (K1 inside), the gate and the whole forward,
+and K1's share of the kernel time.
+
 For each request all three print the median synchronized wall time and, from
 ``torch.profiler`` over 5 requests, the summed CUDA-kernel time against the
 wall time (the device's busy share), the attention kernel's share of the
@@ -48,6 +55,10 @@ ART's train step the same way (``eyegaze_tpu_torch.train_art``'s recipe:
 full width, float32, batch 16 of (32, 1024) pairs, dropout 0.1, AdamW at
 1e-4 with clip 1.0), with attention dropout 0.1 (the plain attention path)
 and 0.0 (K3 and its autograd backward), and the attention kernel's share.
+Then the ViT-B/16 train step of ``eyegaze_tpu_torch.train_gaze`` (bf16,
+batch 16 of uint8 pairs, dropout 0.1, the augment on the card,
+class-weighted CE, AdamW at 1e-4 with clip 1.0), early (concat) and late
+(full) fusion.
 
 TF32 is off.  It needs a CUDA device.
 """
@@ -64,16 +75,25 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from eyegaze_tpu_torch import train_art
-from eyegaze_tpu_torch.config import ExperimentConfig, TrainingConfig
+from eyegaze_tpu_torch import train_art, train_gaze
+from eyegaze_tpu_torch.config import ExperimentConfig, ModelConfig, TrainingConfig
+from eyegaze_tpu_torch.data.image_fusion import imagenet_normalize
+from eyegaze_tpu_torch.data.metadata import class_weights
 from eyegaze_tpu_torch.kernels import attention
 from eyegaze_tpu_torch.models.art import ArtConfig, ArtifactRemovalTransformer
 from eyegaze_tpu_torch.models.dual_eeg import DualEEGTransformer
 from eyegaze_tpu_torch.ops.connectivity import connectivity_matrices
 from eyegaze_tpu_torch.ops.preprocess import preprocess_eeg, sliding_windows
 from eyegaze_tpu_torch.ops.spectral import stft_log_magnitude
+from eyegaze_tpu_torch.models.multimodal import MultimodalFusionModel
 from eyegaze_tpu_torch.models.vit import EarlyFusionViT, LateFusionViT
-from eyegaze_tpu_torch.serving import ArtDenoiser, GazePredictor, Predictor, _bucket
+from eyegaze_tpu_torch.serving import (
+    ArtDenoiser,
+    GazePredictor,
+    MultimodalPredictor,
+    Predictor,
+    _bucket,
+)
 from eyegaze_tpu_torch.train.optim import make_optimizer
 from eyegaze_tpu_torch.train_dual_eeg import BENCH_LOSSES, build_model, make_objective
 
@@ -86,6 +106,7 @@ GAZE_BUCKETS = (1, 8, 32)
 GAZE_REQUESTS = (1, 32)
 TRAIN_BATCH = 64
 ART_TRAIN_BATCH = 16
+GAZE_TRAIN_BATCH = 16
 
 
 def median_cuda_ms(fn, reps: int = 10) -> float:
@@ -258,7 +279,36 @@ def gaze(dev: torch.device) -> None:
             wall_and_profile(lambda: pred.predict(a[:n], b[:n]))
 
 
-def train_step_profile(title: str, model, opt, loss_fn, batch, kernel_share: str) -> None:
+def multimodal(dev: torch.device) -> None:
+    model = MultimodalFusionModel(device=dev, dtype=torch.bfloat16,
+                                  generator=torch.Generator().manual_seed(11))
+    pred = MultimodalPredictor(model, device=dev, batch_buckets=GAZE_BUCKETS)
+    pred.warmup()
+    r = np.random.default_rng(0)
+    n_max = max(GAZE_REQUESTS)
+    a, b = (r.integers(0, 256, size=(n_max, 3, 224, 224), dtype=np.uint8) for _ in range(2))
+    e1, e2 = (r.normal(size=(n_max, CHANNELS, WINDOW)).astype(np.float32) for _ in range(2))
+    for n in GAZE_REQUESTS:
+        x1, x2 = (imagenet_normalize(torch.from_numpy(x[:n]).to(dev).float() / 255.0)
+                  for x in (a, b))
+        w1, w2 = (torch.from_numpy(x[:n]).to(dev) for x in (e1, e2))
+        with torch.inference_mode():
+            img_logits = model.gaze_encoder(x1, x2)
+            eeg_logits = model.eeg_encoder(w1, w2)["logits"]
+            stages = {"model forward": lambda: model(x1, x2, w1, w2),
+                      "  gaze encoder (ViT-B/16, early fusion)": lambda: model.gaze_encoder(x1, x2),
+                      "  EEG encoder (K1 inside)": lambda: model.eeg_encoder(w1, w2),
+                      "  fuzzy gate": lambda: model.fusion(img_logits, eeg_logits)}
+            print(f"--- multimodal composite (bf16 compute), {n} pair(s), bucket "
+                  f"{_bucket(n, GAZE_BUCKETS)}: median CUDA-event ms")
+            for name, fn in stages.items():
+                print(f"  {name}: {median_cuda_ms(fn):.3f}")
+        wall_and_profile(lambda: pred.predict(a[:n], b[:n], e1[:n], e2[:n]),
+                         kernel_share="phase_metrics_kernel")
+
+
+def train_step_profile(title: str, model, opt, loss_fn, batch,
+                       kernel_share: str | None) -> None:
     """Median CUDA-event ms of the forward (loss included), the backward
     and the optimizer over 10 steps, then ``wall_and_profile`` of the
     synchronized step."""
@@ -324,11 +374,28 @@ def art_train(dev: torch.device, attn_dropout) -> None:
                        train_art.make_objective(False)[0], batch, "attention_kernel")
 
 
+def gaze_train(dev: torch.device, kind: str, mode: str) -> None:
+    cfg = ExperimentConfig(model=ModelConfig(fusion_mode=mode),
+                           training=TrainingConfig(dropout=0.1, bf16=True))
+    model = train_gaze.build_model(cfg, kind, device=dev)
+    labels = (np.arange(GAZE_TRAIN_BATCH) % 3).astype(np.int32)
+    loss_fn, _ = train_gaze.make_objective(
+        kind, img_size=224, weights=torch.as_tensor(class_weights(labels.tolist()), device=dev),
+        generator=torch.Generator(device=dev).manual_seed(0))
+    r = np.random.default_rng(1)
+    batch = {k: torch.from_numpy(r.integers(0, 256, size=(GAZE_TRAIN_BATCH, 3, 224, 224),
+                                            dtype=np.uint8)).to(dev) for k in ("img1", "img2")}
+    batch["label"] = torch.from_numpy(labels).to(dev)
+    train_step_profile(f"ViT-B/16 {kind} fusion ({mode}) train step (bf16 compute, dropout 0.1, "
+                       f"augment on the card), batch {GAZE_TRAIN_BATCH}", model,
+                       make_optimizer(model, 1e-4, 0.01, grad_clip=1.0), loss_fn, batch, None)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.strip().splitlines()[0])
     ap.add_argument("--train", action="store_true",
-                    help="profile the flagship's and ART's train steps instead of the serving "
-                         "paths")
+                    help="profile the train steps (the flagship, ART, the gaze ViTs) instead of "
+                         "the serving paths")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA device")
@@ -342,12 +409,15 @@ def main(argv=None) -> None:
             train(dev, dtype)
         for attn_dropout in (None, 0.0):
             art_train(dev, attn_dropout)
+        for kind, mode in (("early", "concat"), ("late", "full")):
+            gaze_train(dev, kind, mode)
         return
     for dtype in (torch.float32, torch.bfloat16):
         eeg(dev, dtype)
     for dtype in (torch.float32, torch.bfloat16):
         art(dev, dtype)
     gaze(dev)
+    multimodal(dev)
 
 
 if __name__ == "__main__":

@@ -4,7 +4,9 @@
 
 The counterpart of the JAX package's ``scripts/serve.py`` for the kinds the
 port serves, ``eeg`` (the flagship ``Predictor``), ``gaze`` (the early- and
-late-fusion ViTs, ``GazePredictor``) and ``art`` (``ArtDenoiser``).  It
+late-fusion ViTs and the datafusion ViT, ``GazePredictor``), ``art``
+(``ArtDenoiser``) and ``multimodal`` (the fuzzy-gating composite,
+``MultimodalPredictor``).  It
 loads one checkpoint with ``from_checkpoint`` (bf16 compute; ``model.pt`` is
 the reference-named state_dict that ``scripts/export_torch_checkpoint.py``
 writes, with the orbax checkpoint's ``.meta.json`` copied to
@@ -20,9 +22,12 @@ serves:
 
 Inputs, batched on the leading axis, any N:
 
-  eeg   eeg1, eeg2   (N, C, T) float32 trial pairs
-  gaze  img1, img2   (N, 3, S, S) uint8 image pairs, S the model's img_size
-  art   noisy        (N, C, T) float32
+  eeg         eeg1, eeg2               (N, C, T) float32 trial pairs
+  gaze        img1, img2               (N, 3, S, S) uint8 image pairs, S the
+                                       model's img_size
+  art         noisy                    (N, C, T) float32
+  multimodal  img1, img2, eeg1, eeg2   the gaze pairs and (N, C, T) float32
+                                       EEG windows
 
 It serves on a CUDA card unless ``--device cpu`` is passed; without a card
 it stops at once.  Device work is serialised by one lock (or by the dynamic
@@ -45,16 +50,20 @@ import torch
 
 from eyegaze_tpu_torch import serving
 
-REQUIRED_INPUTS = {"eeg": ("eeg1", "eeg2"), "gaze": ("img1", "img2"), "art": ("noisy",)}
+REQUIRED_INPUTS = {"eeg": ("eeg1", "eeg2"), "gaze": ("img1", "img2"), "art": ("noisy",),
+                   "multimodal": ("img1", "img2", "eeg1", "eeg2")}
 # Kinds the JAX package serves that the port does not serve yet.
-NOT_PORTED = ("multimodal", "hypereeg")
+NOT_PORTED = ("hypereeg",)
 
 
 def sniff_kind(state_path: Path) -> str:
     """The kind of a checkpoint: from its meta as the JAX ``sniff_kind``
     reads it (the multimodal and HyperEEG stamps, the gaze ``kind`` stamp,
     ArtConfig-only fields, else the flagship), and without a meta from the
-    state_dict's keys."""
+    state_dict's keys: the composite's ``gaze_encoder.``, ART's
+    reconstructor, a fusion ViT's ``backbone.`` or ``encoder.``, the
+    flagship's positional table, a bare (datafusion) ViT's root-level patch
+    embed."""
     mc = serving.read_meta(state_path).get("config", {}).get("model", {})
     if mc:
         if "multimodal" in mc:
@@ -67,14 +76,18 @@ def sniff_kind(state_path: Path) -> str:
             return "art"
         return "eeg"
     state = torch.load(state_path, map_location="cpu", weights_only=True)
+    if "gaze_encoder.backbone.cls_token" in state:
+        return "multimodal"
     if "reconstructor.proj.weight" in state:
         return "art"
     if "backbone.cls_token" in state or "encoder.cls_token" in state:
         return "gaze"
     if "cls_token" in state and "pos_embed.pos_embed.weight" in state:
         return "eeg"
+    if "cls_token" in state and "patch_embed.proj.weight" in state:
+        return "gaze"
     raise SystemExit(f"cannot tell the kind of {state_path} (no meta, and its keys are not the "
-                     "flagship's, a gaze ViT's or ART's); pass --kind")
+                     "flagship's, a gaze ViT's, ART's or the composite's); pass --kind")
 
 
 def build_predictor(kind: str, state_path: Path, buckets, device: torch.device):
@@ -82,7 +95,7 @@ def build_predictor(kind: str, state_path: Path, buckets, device: torch.device):
         raise SystemExit(f"kind {kind!r} is not yet ported to eyegaze_tpu_torch; it serves "
                          f"{sorted(REQUIRED_INPUTS)}")
     cls = {"eeg": serving.Predictor, "gaze": serving.GazePredictor,
-           "art": serving.ArtDenoiser}[kind]
+           "art": serving.ArtDenoiser, "multimodal": serving.MultimodalPredictor}[kind]
     return cls.from_checkpoint(state_path, device=device, batch_buckets=tuple(buckets))
 
 
@@ -94,6 +107,9 @@ def input_spec(kind: str, predictor) -> dict:
         return {"noisy": ["N", m.config.in_channels, f"T<={m.config.max_len}"]}
     if kind == "gaze":
         return {k: ["N", 3, m.img_size, m.img_size] for k in ("img1", "img2")}
+    if kind == "multimodal":
+        return {**{k: ["N", 3, m.img_size, m.img_size] for k in ("img1", "img2")},
+                **{k: ["N", m.eeg_in_channels, "T"] for k in ("eeg1", "eeg2")}}
     return {k: ["N", m.in_channels, "T"] for k in ("eeg1", "eeg2")}
 
 

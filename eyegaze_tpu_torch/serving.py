@@ -1,9 +1,9 @@
-"""Serving: the DualEEGTransformer, the gaze ViTs and the ART denoiser on one
-device behind bucketed batching, and the dynamic batcher that coalesces
-concurrent requests.
+"""Serving: the DualEEGTransformer, the gaze ViTs, the ART denoiser and the
+multimodal composite on one device behind bucketed batching, and the
+dynamic batcher that coalesces concurrent requests.
 
 Port of ``eyegaze_tpu/serving.py::Predictor``, ``GazePredictor``,
-``ArtDenoiser`` and ``DynamicBatcher``.  Request batches are zero-padded up to the next bucket
+``ArtDenoiser``, ``MultimodalPredictor`` and ``DynamicBatcher``.  Request batches are zero-padded up to the next bucket
 size, so the device sees a fixed set of batch shapes; above the largest
 bucket a request is chunked, and padding rows are stripped from the
 outputs.  The model runs in ``eval()`` under ``torch.inference_mode()``.
@@ -36,7 +36,9 @@ from eyegaze_tpu_torch.data.image_fusion import (
 )
 from eyegaze_tpu_torch.models.art import ArtConfig, ArtifactRemovalTransformer
 from eyegaze_tpu_torch.models.dual_eeg import DualEEGTransformer
-from eyegaze_tpu_torch.models.vit import EarlyFusionViT, LateFusionViT
+from eyegaze_tpu_torch.models.multimodal import FIELDS as MULTIMODAL_FIELDS
+from eyegaze_tpu_torch.models.multimodal import MultimodalFusionModel
+from eyegaze_tpu_torch.models.vit import EarlyFusionViT, LateFusionViT, VisionTransformer
 from eyegaze_tpu_torch.ops.preprocess import common_average_reference, zscore
 
 CLASS_NAMES = ("Single", "Competition", "Cooperation")
@@ -54,8 +56,9 @@ def _predict_batched(forward, buckets: Sequence[int], *arrays, device: torch.dev
 
     ``arrays`` are numpy arrays or tensors with the batch on the leading
     axis; each chunk goes to ``device`` once.  ``forward`` returns a tensor
-    whose padding rows are stripped; the chunks' results are concatenated
-    as one numpy array.
+    or a dict of tensors with the batch on the leading axis; padding rows
+    are stripped (key by key), and the chunks' results are concatenated as
+    one numpy array (a dict of them, key by key).
     """
     n = len(arrays[0])
     max_b = buckets[-1]
@@ -66,7 +69,13 @@ def _predict_batched(forward, buckets: Sequence[int], *arrays, device: torch.dev
         pad = _bucket(keep, buckets) - keep
         if pad:
             parts = [torch.cat([p, p.new_zeros((pad,) + p.shape[1:])]) for p in parts]
-        outs.append(forward(*parts)[:keep].cpu().numpy())
+        out = forward(*parts)
+        if isinstance(out, dict):
+            outs.append({k: v[:keep].cpu().numpy() for k, v in out.items()})
+        else:
+            outs.append(out[:keep].cpu().numpy())
+    if isinstance(outs[0], dict):
+        return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
     return np.concatenate(outs)
 
 
@@ -196,39 +205,49 @@ class GazePredictor:
     @classmethod
     def from_checkpoint(cls, state_path, *, device: torch.device, meta_path=None,
                         **kwargs) -> "GazePredictor":
-        """The counterpart of the JAX ``GazePredictor.from_checkpoint`` for
-        the kinds 'early' and 'late' (the export script writes no
-        'datafusion' state_dict: serve one through the constructor).  The
-        kind is the meta's ``model.kind``, else the state_dict's
-        ``backbone.`` (early) or ``encoder.`` (late) prefix; a meta whose
-        kind the prefix contradicts raises.  ``embed_dim`` comes from the
-        ``cls_token``, the depth from the number of blocks, the heads from
-        ``model.vit_num_heads`` (else max(embed_dim // 64, 4)),
-        ``fusion_mode``, ``num_labels`` and ``img_size`` from the meta
-        (JAX's defaults); bf16 compute, the state_dict loaded with
-        ``strict=True``.  ``load_checkpoint`` says what the paths hold."""
+        """The counterpart of the JAX ``GazePredictor.from_checkpoint``.  The
+        kind is the meta's ``model.kind``, else the state_dict's layout:
+        ``backbone.`` (early), ``encoder.`` (late), a root-level ViT
+        (datafusion, ``python -m eyegaze_tpu_torch.train_gaze --model
+        datafusion``); a meta whose kind the layout contradicts raises.
+        ``embed_dim`` comes from the ``cls_token``, the depth from the number
+        of blocks, the heads from ``model.vit_num_heads`` (else
+        max(embed_dim // 64, 4)), ``fusion_mode``, ``num_labels`` and
+        ``img_size`` from the meta (JAX's defaults); a datafusion model's
+        ``data_fusion_mode`` and ``image_norm`` default to the meta's (else
+        'horizontal' and 'imagenet').  bf16 compute, the state_dict loaded
+        with ``strict=True``.  ``load_checkpoint`` says what the paths hold."""
         state, meta = load_checkpoint(state_path, meta_path)
         mc = meta.get("config", {}).get("model", {})
         kind = mc.get("kind") or ("late" if "encoder.cls_token" in state
-                                  else "early" if "backbone.cls_token" in state else None)
-        if kind not in ("early", "late"):
-            raise ValueError(f"cannot serve gaze kind {kind!r} from a checkpoint (early and late "
-                             "only; a datafusion ViT is served through the constructor)")
-        prefix = "backbone" if kind == "early" else "encoder"
-        if f"{prefix}.cls_token" not in state:
+                                  else "early" if "backbone.cls_token" in state
+                                  else "datafusion")
+        if kind not in ("early", "late", "datafusion"):
+            raise ValueError(f"unsupported gaze model kind {kind!r} "
+                             "(expected early, late or datafusion)")
+        prefix = {"early": "backbone.", "late": "encoder.", "datafusion": ""}[kind]
+        if f"{prefix}cls_token" not in state:
             raise ValueError(f"the state_dict does not match the meta's kind {kind!r}: no "
-                             f"{prefix}.cls_token")
-        embed_dim = int(state[f"{prefix}.cls_token"].shape[-1])
-        depth = sum(1 for k in state if k.startswith(f"{prefix}.blocks.")
+                             f"{prefix}cls_token")
+        embed_dim = int(state[f"{prefix}cls_token"].shape[-1])
+        depth = sum(1 for k in state if k.startswith(f"{prefix}blocks.")
                     and k.endswith(".norm1.weight"))
         if depth == 0:
-            raise ValueError(f"no ViT blocks under {prefix}. in the state_dict")
-        cls_ = EarlyFusionViT if kind == "early" else LateFusionViT
-        model = cls_(num_classes=mc.get("num_labels", 3), img_size=mc.get("img_size", 224),
-                     fusion_mode=mc.get("fusion_mode", "concat"), embed_dim=embed_dim,
-                     depth=depth, num_heads=int(mc.get("vit_num_heads") or max(embed_dim // 64, 4)),
-                     device=torch.device("cpu"), generator=torch.Generator().manual_seed(0),
-                     dtype=torch.bfloat16)
+            raise ValueError(f"no ViT blocks under {prefix or 'the root'} in the state_dict")
+        common = dict(num_classes=mc.get("num_labels", 3), img_size=mc.get("img_size", 224),
+                      embed_dim=embed_dim, depth=depth,
+                      num_heads=int(mc.get("vit_num_heads") or max(embed_dim // 64, 4)),
+                      device=torch.device("cpu"), generator=torch.Generator().manual_seed(0),
+                      dtype=torch.bfloat16)
+        if kind == "datafusion":
+            model = VisionTransformer(**common)
+            # The fused pair's preprocessing is part of the model: replay the
+            # trainer's (docs/PARITY.md, "datafusion normalization").
+            kwargs.setdefault("data_fusion_mode", mc.get("data_fusion_mode", "horizontal"))
+            kwargs.setdefault("image_norm", mc.get("image_norm", "imagenet"))
+        else:
+            cls_ = EarlyFusionViT if kind == "early" else LateFusionViT
+            model = cls_(fusion_mode=mc.get("fusion_mode", "concat"), **common)
         model.load_state_dict(state, strict=True)
         return cls(model, device=device, **kwargs)
 
@@ -319,6 +338,115 @@ class ArtDenoiser:
                                              device=self.device)}
 
 
+class MultimodalPredictor:
+    """Bucketed predictor for the multimodal fuzzy-gating composite on one
+    device.
+
+    Requests are (N, 3, S, S) uint8 image pairs and (N, C, T) float32 EEG
+    windows.  ``to_unit_float`` and the ImageNet normalization run on the
+    device; the EEG goes to the model as it comes (the composite's forward
+    has no CAR or z-score, unlike the flagship ``Predictor``).  The answer
+    holds the fused prediction, each modality's logits and the gate's
+    ``alpha``, so a client sees which modality the gate trusted per sample.
+    """
+
+    def __init__(self, model: MultimodalFusionModel, *, device: torch.device,
+                 batch_buckets: Sequence[int] = (1, 8, 32)):
+        self.device = torch.device(device)
+        self.model = model.to(self.device).eval()
+        self.buckets = tuple(sorted(batch_buckets))
+
+    @classmethod
+    def from_checkpoint(cls, state_path, *, device: torch.device, meta_path=None,
+                        **kwargs) -> "MultimodalPredictor":
+        """The counterpart of the JAX ``MultimodalPredictor.from_checkpoint``
+        on the reference-named state_dict that ``scripts/export_torch_
+        checkpoint.py --kind multimodal`` writes.  The constructor's fields
+        come from the meta's ``model.multimodal`` stamp; without it they are
+        inferred as JAX infers them: the ViT's width and depth from the gaze
+        encoder's ``cls_token`` and blocks, the EEG encoder's ``max_len`` and
+        ``d_model`` from its positional table, its layers and ``d_ff`` from
+        its encoder, the ablation flags from which submodules are there, the
+        head counts from ``model.vit_num_heads`` and ``model.num_heads``
+        (else max(width // 64, 4) and max(d_model // 32, 4)), the rest from
+        the meta's ``model`` fields and JAX's defaults.  bf16 compute, the
+        state_dict loaded with ``strict=True``.  ``load_checkpoint`` says
+        what the paths hold."""
+        state, meta = load_checkpoint(state_path, meta_path)
+        mc = meta.get("config", {}).get("model", {})
+        if mc.get("multimodal"):
+            kw = {k: v for k, v in mc["multimodal"].items() if k in MULTIMODAL_FIELDS}
+        else:
+            if "gaze_encoder.backbone.cls_token" not in state:
+                raise ValueError("not a multimodal state_dict: no gaze_encoder.backbone.cls_token")
+            vit_embed = int(state["gaze_encoder.backbone.cls_token"].shape[-1])
+            pos = state["eeg_encoder.pos_embed.pos_embed.weight"]
+            d_model = int(pos.shape[-1])
+
+            def count(prefix: str, suffix: str) -> int:
+                return sum(1 for k in state if k.startswith(prefix) and k.endswith(suffix))
+
+            def has(prefix: str) -> bool:
+                return any(k.startswith(prefix) for k in state)
+
+            kw = dict(
+                num_classes=mc.get("num_labels", 3),
+                img_size=mc.get("img_size", 224),
+                gaze_fusion_mode=mc.get("fusion_mode", "concat"),
+                fuzzy_mode=mc.get("fuzzy_mode", "full"),
+                vit_embed_dim=vit_embed,
+                vit_depth=count("gaze_encoder.backbone.blocks.", ".norm1.weight"),
+                vit_num_heads=int(mc.get("vit_num_heads") or max(vit_embed // 64, 4)),
+                eeg_in_channels=mc.get("in_channels", 32),
+                eeg_d_model=d_model,
+                eeg_num_layers=count("eeg_encoder.encoder.layers.", ".ln1.weight"),
+                eeg_num_heads=int(mc.get("num_heads") or max(d_model // 32, 4)),
+                eeg_d_ff=int(state["eeg_encoder.encoder.layers.0.ffn.linear1.weight"].shape[0]),
+                eeg_max_len=int(pos.shape[0]),
+                use_spectrogram=has("eeg_encoder.spectrogram_generator."),
+                use_ibs=has("eeg_encoder.ibs_generator.") or has("eeg_encoder.ibs_tokenizer."),
+                use_robust_ibs=has("eeg_encoder.ibs_tokenizer."),
+                use_cross_attention=has("eeg_encoder.cross_attn."),
+            )
+        model = MultimodalFusionModel(**kw, device=torch.device("cpu"),
+                                      generator=torch.Generator().manual_seed(0),
+                                      dtype=torch.bfloat16)
+        model.load_state_dict(state, strict=True)
+        return cls(model, device=device, **kwargs)
+
+    @torch.inference_mode()
+    def _forward(self, img1, img2, eeg1, eeg2) -> Dict[str, torch.Tensor]:
+        out = self.model(imagenet_normalize(to_unit_float(img1)),
+                         imagenet_normalize(to_unit_float(img2)), eeg1.float(), eeg2.float())
+        # The batch-leading outputs: aux_info's gate internals and the scalar
+        # temp_reg are no rows of an answer.
+        return {k: out[k] for k in ("logits", "img_logits", "eeg_logits", "alpha")}
+
+    def warmup(self) -> None:
+        """Run every bucket once on black images and zero EEG windows of T =
+        min(1024, 4 eeg_max_len), which the positional table covers."""
+        m = self.model
+        t = min(1024, 4 * m.eeg_max_len)
+        for b in self.buckets:
+            zi = torch.zeros((b, 3, m.img_size, m.img_size), dtype=torch.uint8,
+                             device=self.device)
+            ze = torch.zeros((b, m.eeg_in_channels, t), dtype=torch.float32, device=self.device)
+            self._forward(zi, zi, ze, ze)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def predict(self, img1, img2, eeg1, eeg2) -> Dict[str, object]:
+        """uint8 (N, 3, S, S) pairs and float (N, C, T) pairs, numpy or
+        tensors -> {'logits', 'probs', 'preds', 'labels', 'img_logits',
+        'eeg_logits', 'alpha'} for any N."""
+        out = _predict_batched(self._forward, self.buckets, img1, img2, eeg1, eeg2,
+                               device=self.device)
+        result = _logits_to_output(out["logits"])
+        result.update(img_logits=out["img_logits"], eeg_logits=out["eeg_logits"],
+                      alpha=out["alpha"])
+        return result
+
+
 def _logits_to_output(logits: np.ndarray) -> Dict[str, np.ndarray]:
     probs = torch.softmax(torch.from_numpy(logits), dim=-1).numpy()
     preds = logits.argmax(axis=-1)
@@ -345,7 +473,7 @@ def _rows(out, off: int, n: int):
 
 
 class DynamicBatcher:
-    """Cross-request micro-batching over ``Predictor`` or ``ArtDenoiser``.
+    """Cross-request micro-batching over any predictor of this module.
 
     The counterpart of the JAX package's ``DynamicBatcher``: concurrent
     ``predict`` callers (the HTTP threads of ``eyegaze_tpu_torch.serve``)

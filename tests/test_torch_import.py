@@ -1,5 +1,7 @@
-"""Hygiene of the PyTorch port: it imports without jax, and its GPU smoke
-script refuses to run (and reports no result) where there is no CUDA device."""
+"""Hygiene of the PyTorch port: it imports without jax (and without PIL,
+which only ``data/images.py``'s ``load_image`` needs), and its GPU smoke
+script and entry points refuse to run (and report no result) where there
+is no CUDA device, unless asked for the CPU."""
 
 import os
 import pkgutil
@@ -25,11 +27,16 @@ def test_port_imports_without_jax():
             "eyegaze_tpu_torch.utils.logging", "eyegaze_tpu_torch.train_dual_eeg",
             "eyegaze_tpu_torch.run_experiments", "eyegaze_tpu_torch.train_art",
             "eyegaze_tpu_torch.data.art_data", "eyegaze_tpu_torch.data.native",
-            "eyegaze_tpu_torch.data.image_fusion", "eyegaze_tpu_torch.models.vit"} <= set(modules)
+            "eyegaze_tpu_torch.data.image_fusion", "eyegaze_tpu_torch.models.vit",
+            "eyegaze_tpu_torch.data.images", "eyegaze_tpu_torch.data.gaze_augment",
+            "eyegaze_tpu_torch.convert_gaze_images", "eyegaze_tpu_torch.train_gaze",
+            "eyegaze_tpu_torch.models.fuzzy_fusion",
+            "eyegaze_tpu_torch.models.multimodal"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "for banned in ('jax', 'flax', 'optax', 'orbax', 'eyegaze_tpu'):\n"
         "    sys.modules[banned] = None  # any import of it now raises ImportError\n"
+        "sys.modules['PIL'] = None  # only data/images.py's load_image needs it\n"
         "import eyegaze_tpu_torch\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
@@ -95,6 +102,18 @@ def test_train_art_fails_without_cuda_unless_asked_for_the_cpu():
     one it stops before it builds anything."""
     r = subprocess.run([sys.executable, "-m", "eyegaze_tpu_torch.train_art", "--tiny"],
                        cwd=ROOT, capture_output=True, text=True, timeout=300,
+                       env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert r.returncode != 0
+    assert "needs a CUDA device" in r.stderr and "--device cpu" in r.stderr
+    assert "[model]" not in r.stdout
+
+
+def test_train_gaze_fails_without_cuda_unless_asked_for_the_cpu():
+    """The gaze training entry point trains on the card by default (the
+    YAML's "tpu" included); without one it stops before it builds anything."""
+    r = subprocess.run([sys.executable, "-m", "eyegaze_tpu_torch.train_gaze", "--config",
+                        "configs/gaze_earlyfusion.yaml", "--tiny"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300,
                        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert r.returncode != 0
     assert "needs a CUDA device" in r.stderr and "--device cpu" in r.stderr
