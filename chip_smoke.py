@@ -151,6 +151,41 @@ instance with none, fails the run.  Then, each phase raising on any failure:
    largest |value| of the same checkpoint served on the CPU.
 22. One request of 8 pairs through ``serve --kind multimodal`` over HTTP,
    equal to a direct ``predict``, alpha and labels included.
+23. Multimodal training at full width (``train_multimodal``'s recipe at
+   configs/multimodal_fuzzy_fusion.yaml's values, the config built from the
+   dataclasses): one f32 step without dropout at batch 8 (uint8 pairs and
+   (32, 1024) windows) on the card and on the CPU from the same seeded
+   weights, held as the flagship's step, one K1 launch on the card; every
+   gradient tensor of the card's within ART's 2e-3 of its largest |entry|
+   of a float64 step on the CPU (``float64_casts``), the CPU's float32
+   gradients' distance from it printed beside; then
+   ``Trainer.train_step`` with the two-group optimizer (encoders 1e-5, gate
+   1e-4) in bf16 with dropout 0.1, 3 steps untimed, 20 timed to a
+   synchronize and ``torch.profiler`` over 5: median step time, peak
+   memory, CUDA kernels per step, busy share, K1 once a step (N = 48) with
+   its device time; then one step with ``freeze_encoders`` leaves every
+   encoder tensor equal to the bit.
+24. ``train_multimodal.run`` for one epoch at full width on the YAML's 24
+   synthetic trials (2 steps, one eval batch of 4 windows: K1 at N = 48 and
+   24), its best_model.pt served by ``MultimodalPredictor.from_checkpoint``
+   at the eval batch's size: logits equal to the bit to the trainer's eval
+   logits.
+25. HyperEEG serving at the documented preset (embed 128, 4 heads, sinc
+   kernel 125: 274,819 parameters), seeded weights saved with the
+   ``model.hypereeg`` stamp and served bf16 by
+   ``HyperEEGPredictor.from_checkpoint``: requests of 1, 8 and 32 (32,
+   1024) window pairs, no kernel of the port, the 8-pair logits within 2**-5
+   of the largest |logit| of the same checkpoint served on the CPU; one
+   request of 8 through ``serve --kind hypereeg`` over HTTP, equal to a
+   direct ``predict``.
+26. HyperEEG training as ``train_hypereeg`` trains it (f32): one step
+   without dropout or augment at batch 16, card against CPU (the key and
+   logvar biases, zero in exact arithmetic, held to the largest gradient's
+   share); ``Trainer.train_step`` at batch 256 with the augment drawn on the
+   card, 3 steps untimed, 20 timed, ``torch.profiler`` over 5: median step
+   time, peak memory, kernels per step, busy share; ``train_hypereeg.run``
+   for one epoch served back by ``HyperEEGPredictor.from_checkpoint``
+   within 2**-5 of the largest |logit| of the trainer's eval logits.
 
 Every phase runs in float32 (TF32 off) unless it says bf16.  There is no
 CPU fallback: without a CUDA device the script exits non-zero and prints no
@@ -161,9 +196,10 @@ and its launches per request; for attention also the time its
 exponentials take on the SFU alone (``sfu_ex2_ms``, not a floor).  The
 second-to-last line of stdout is a JSON object with each kernel entry
 point's launches, error, times and bound (K1's launches are serving's,
-training's and the composite's, with its timing at the train shape and the
-train step's median times and peak memory beside them, and its time, bound
-and share at each composite bucket; the f32 head-packed entry's are
+training's, the composite's and multimodal training's, with its timing at
+the train shape and the train step's median times and peak memory beside
+them, its time, bound and share at each composite bucket, and the
+composite train step's time, memory and K1 launches per step; the f32 head-packed entry's are
 serving's and ART training's, with its backward calls, the ART train
 step's medians and the autograd timing); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -171,6 +207,7 @@ step's medians and the autograd timing); the last line is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io
 import json
@@ -339,6 +376,35 @@ MM_CPU_PAIRS = 8  # card vs CPU on the first 8 pairs (ViT-B in bf16 on the CPU i
 # alpha too.
 MM_BF16_TOL_SHARE = 2.0 ** -5
 MM_OUTPUTS = ("logits", "img_logits", "eeg_logits", "alpha")
+# Multimodal training, eyegaze_tpu_torch.train_multimodal's recipe at the
+# YAML's values: batch 8, bf16, dropout 0.1, AdamW with the encoders at 1e-5
+# and the gate at 1e-4 (weight decay 0.01, clip 1.0); the YAML's 24 synthetic
+# trials (20 train, 4 validation windows: 2 steps and 1 eval batch).
+MM_TRAIN_BATCH = 8
+MM_TRAIN_LR, MM_ENCODER_LR = 1e-4, 1e-5
+MM_TRAIN_TRIALS = 24
+# The composite's gradient tensors are held to a float64 step on the CPU
+# from the same weights and batch (``float64_grads``), not to the CPU's
+# float32 step: the spectrogram's log(|STFT| + 1e-8) turns the CPU FFT's
+# absolute float32 rounding into large relative errors at small magnitudes,
+# which put the CPU's flagship-encoder gradients (FFN linear1, the temporal
+# and spectrogram convs) up to 2.15e-3 of their largest entry from float64,
+# while the card's stay within 5e-5.
+
+# HyperEEG at the documented preset (embed 128, 4 heads, sinc kernel 125),
+# served bf16 from a checkpoint on (N, 32, 1024) window pairs, and trained as
+# eyegaze_tpu_torch.train_hypereeg trains it: f32, batch 256, AdamW at 5e-4
+# (weight decay 0.01, clip 1.0), the augment on; the card-vs-CPU step at 16.
+HYPEREEG_PARAMETERS = 274_819
+HYPEREEG_REQUESTS = (1, 8, 32)  # window pairs per request, each request its own bucket
+HYPEREEG_CPU_PAIRS = 8
+HYPEREEG_TRAIN_BATCH = 256
+HYPEREEG_PARITY_BATCH = 16
+HYPEREEG_TRAIN_LR = 5e-4
+# The sinc bank's band edges are parameters of up to 40 Hz: at |p| < 64 the
+# float32 ulp, 7.6e-6, is 0.76% of HyperEEG's 2 lr = 1e-3, inside the step
+# bound's 1% (``check_step_parity``).
+HYPEREEG_PARAM_LIMIT = 64.0
 
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # HBM bytes per second and dense operations per second by type.
@@ -425,8 +491,12 @@ def train_kernel_shapes() -> tuple:
 
 def composite_kernel_shapes() -> tuple:
     """The (N, C, T) at which the composite's EEG encoder launches K1: one
-    (N, 32, 1024) window pair per gaze pair, N = 6 bands x the bucket."""
-    return tuple((6 * b, CHANNELS, WINDOW) for b in MM_BUCKETS)
+    (N, 32, 1024) window pair per gaze pair, N = 6 bands x the bucket when
+    served, 6 x the batch of 8 in a train step, 6 x the 4 validation
+    windows in the train run's eval."""
+    served = tuple((6 * b, CHANNELS, WINDOW) for b in MM_BUCKETS)
+    return served + ((6 * MM_TRAIN_BATCH, CHANNELS, WINDOW),
+                     (6 * max(MM_TRAIN_TRIALS // 5, 1), CHANNELS, WINDOW))
 
 
 def cuda_ms(fn, reps: int, calls: int = 1) -> list[float]:
@@ -1140,11 +1210,13 @@ def one_step(model, loss_fn, batch, lr: float) -> tuple:
     return loss.item(), norm.item(), step, before, time.perf_counter() - t0, grads
 
 
-def check_step_parity(name: str, card: tuple, cpu: tuple, lr: float, loss_tol: float) -> None:
+def check_step_parity(name: str, card: tuple, cpu: tuple, lr: float, loss_tol: float,
+                      param_limit: float = 8.0) -> None:
     """``one_step`` on the card against the CPU: the loss within
     ``loss_tol``, the gradient norm within PARITY_GRAD_NORM_RTOL, the
     largest parameter change within PARITY_STEP_RTOL and every entry within
-    2 lr + 1% (the Adam bound, reasoned at PARITY_STEP_RTOL)."""
+    2 lr + 1% (the Adam bound, reasoned at PARITY_STEP_RTOL for parameters
+    below ``param_limit``, whose float32 ulp is under 1% of 2 lr)."""
     (loss, norm, step, params, card_s, _), (cpu_loss, cpu_norm, cpu_step, _, cpu_s, _) = card, cpu
     largest = max(float(d.abs().max()) for d in step)
     cpu_largest = max(float(d.abs().max()) for d in cpu_step)
@@ -1160,30 +1232,33 @@ def check_step_parity(name: str, card: tuple, cpu: tuple, lr: float, loss_tol: f
     if not (abs(loss - cpu_loss) <= loss_tol
             and abs(norm / cpu_norm - 1) <= PARITY_GRAD_NORM_RTOL
             and abs(largest / cpu_largest - 1) <= PARITY_STEP_RTOL
-            and apart <= apart_bound and max_p < 8.0):
+            and apart <= apart_bound and max_p < param_limit):
         raise RuntimeError(f"{name}: the card's train step is not the CPU's within the bounds")
 
 
-def check_grad_parity(name: str, card: dict, cpu: dict, zero: tuple) -> None:
-    """Each gradient tensor of a ``one_step`` on the card against the CPU's:
-    within PARITY_GRAD_SHARE of the CPU tensor's largest |entry|, those
+def check_grad_parity(name: str, card: dict, want: dict, zero: tuple,
+                      against: str = "CPU") -> None:
+    """Each gradient tensor of a ``one_step`` on the card against ``want``
+    (the CPU's, or ``against`` another reference's): within
+    PARITY_GRAD_SHARE of the reference tensor's largest |entry|, those
     named with a suffix in ``zero`` within PARITY_ZERO_GRAD_SHARE of the
     largest gradient entry of all."""
-    if card.keys() != cpu.keys():
-        raise RuntimeError(f"{name}: the card and the CPU have gradients for other parameters")
-    largest = max(float(g.abs().max()) for g in cpu.values())
+    if card.keys() != want.keys():
+        raise RuntimeError(f"{name}: the card and the {against} have gradients for other "
+                           "parameters")
+    largest = max(float(g.abs().max()) for g in want.values())
     shares = []
-    for k, want in cpu.items():
+    for k, w in want.items():
         bound = (PARITY_ZERO_GRAD_SHARE * largest if k.endswith(zero)
-                 else PARITY_GRAD_SHARE * float(want.abs().max()))
-        shares.append((float((card[k] - want).abs().max()) / bound, k))
+                 else PARITY_GRAD_SHARE * float(w.abs().max()))
+        shares.append((float((card[k].double() - w.double()).abs().max()) / bound, k))
     shares.sort(reverse=True)
     worst = ", ".join(f"{k} {share:.3f}" for share, k in shares[:3])
-    print(f"{name}, card vs CPU, {len(cpu)} gradient tensors, the largest |difference| as a "
-          f"share of its bound ({PARITY_GRAD_SHARE} of the tensor's largest |entry|, "
+    print(f"{name}, card vs {against}, {len(want)} gradient tensors, the largest |difference| "
+          f"as a share of its bound ({PARITY_GRAD_SHARE} of the tensor's largest |entry|, "
           f"{PARITY_ZERO_GRAD_SHARE} of the largest gradient for {', '.join(zero)}): {worst}")
     if shares[0][0] > 1.0:
-        raise RuntimeError(f"{name}: the gradient {shares[0][1]} differs from the CPU's")
+        raise RuntimeError(f"{name}: the gradient {shares[0][1]} differs from the {against}'s")
 
 
 def train_parity_phase(device) -> None:
@@ -1219,12 +1294,88 @@ def k1_count() -> int:
     return phase_metrics.launch_count["phase_metric_sums"]
 
 
+def profile_steps(step, n: int = PROFILED_STEPS) -> dict:
+    """``torch.profiler`` over ``n`` calls of ``step`` (each ending in a
+    synchronize): CUDA kernels per call, the summed kernel time against the
+    wall time (the device's busy share), and K1's kernel time per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time for e in kernels) / 1e3
+    k1 = sum(e.device_time for e in kernels if "phase_metrics_kernel" in e.name) / 1e3
+    return {"kernels_per_call": len(kernels) / n, "busy_share": busy / wall,
+            "kernel_ms_per_call": busy / n, "wall_ms_per_call": wall / n, "k1_ms_per_call": k1 / n}
+
+
+def assert_no_port_kernel(name: str) -> None:
+    """Raises if K1, K2 or an attention kernel launched since the counts
+    were last set to 0."""
+    from eyegaze_tpu_torch.kernels import attention, phase_metrics
+
+    counts = {**phase_metrics.launch_count, **attention.launch_count,
+              **{f"bf16 {k}": v for k, v in attention.bf16_launch_count.items()}}
+    if any(counts.values()):
+        raise RuntimeError(f"{name} launched a kernel of the port: {counts}")
+
+
+def time_train_steps(name: str, trainer, batch, device, *, reset=None, read=None,
+                     profiled: bool = True) -> dict:
+    """TRAIN_WARMUP steps of ``trainer.train_step(batch)``; then ``reset()``
+    and TRAIN_STEPS steps from a fresh peak-memory count, each timed to a
+    ``torch.cuda.synchronize()``, and ``read()`` (the timed steps'
+    launches, as "counts"); then, where ``profiled``, ``profile_steps``
+    over PROFILED_STEPS more.  Raises unless every timed loss is finite.
+    Returns the times, losses, peak memory, counts and profile, with
+    ``summary``, a line of them for the phase's print."""
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_WARMUP):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(device)
+    if reset is not None:
+        reset()
+    walls, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+    median = statistics.median(walls)
+    out = {"median_ms": median, "walls_ms": walls, "peak_bytes":
+           torch.cuda.max_memory_allocated(device), "counts": read() if read else None}
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"{name}: losses {losses}")
+    out["summary"] = (f"{TRAIN_WARMUP} warm-up steps {warmup_s:.2f} s; {TRAIN_STEPS} steps, "
+                      f"CUDA-synchronized wall ms median {median:.3f}, min {min(walls):.3f}, "
+                      f"max {max(walls):.3f}; peak memory {out['peak_bytes'] / 2**30:.3f} GiB; "
+                      f"losses {losses[0]:.4f} -> {losses[-1]:.4f}, all finite")
+    if profiled:
+        def step():
+            trainer.train_step(batch)
+            torch.cuda.synchronize()
+
+        prof = profile_steps(step)
+        out.update(prof, busy_share_of_median=prof["kernel_ms_per_call"] / median)
+        out["summary"] += (
+            f"; torch.profiler over {PROFILED_STEPS} steps: {prof['kernels_per_call']:.0f} CUDA "
+            f"kernels a step, kernel time {prof['kernel_ms_per_call']:.3f} of "
+            f"{prof['wall_ms_per_call']:.3f} ms a step, busy share {prof['busy_share']:.1%} (of "
+            f"the unprofiled median {out['busy_share_of_median']:.1%})")
+    return out
+
+
 def train_timed_phase(device, dtype) -> dict:
     """``Trainer.train_step`` at full width on the bench's batch of 64,
-    with dropout 0.1 in ``dtype`` compute: TRAIN_WARMUP steps, then
-    TRAIN_STEPS steps each timed to a ``torch.cuda.synchronize()``.  Every
-    loss must be finite and every forward launch K1 once.  Returns the
-    times, the peak memory and K1's launches."""
+    with dropout 0.1 in ``dtype`` compute (``time_train_steps``, not
+    profiled).  Every forward must launch K1 once.  Returns the times, the
+    peak memory and K1's launches."""
     from eyegaze_tpu_torch.train.optim import make_optimizer
     from eyegaze_tpu_torch.train.trainer import Trainer, TrainerConfig
     from eyegaze_tpu_torch.train_dual_eeg import build_model, make_objective
@@ -1235,35 +1386,16 @@ def train_timed_phase(device, dtype) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     trainer = Trainer(model, make_optimizer(model, TRAIN_LR, 0.01, grad_clip=1.0),
                       *make_objective(cfg), TrainerConfig(seed=0), device=device)
-    batch = bench_batch(TRAIN_BATCH, device)
-    t0 = time.perf_counter()
-    for _ in range(TRAIN_WARMUP):
-        trainer.train_step(batch)
-    torch.cuda.synchronize()
-    warmup_s = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats(device)
-    reset_k1_count()
-    walls, losses = [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        metrics = trainer.train_step(batch)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-        losses.append(metrics["loss"].item())
-    launches = k1_count()
-    peak = torch.cuda.max_memory_allocated(device)
-    if not np.isfinite(losses).all() or launches != TRAIN_STEPS:
-        raise RuntimeError(f"{name} training: losses {losses}, {launches} K1 launches for "
-                           f"{TRAIN_STEPS} forwards")
-    median = statistics.median(walls)
+    t = time_train_steps(f"{name} training", trainer, bench_batch(TRAIN_BATCH, device), device,
+                         reset=reset_k1_count, read=k1_count, profiled=False)
+    launches = t["counts"]
+    if launches != TRAIN_STEPS:
+        raise RuntimeError(f"{name} training: {launches} K1 launches for {TRAIN_STEPS} forwards")
     print(f"flagship train step ({name} compute, dropout 0.1, batch {TRAIN_BATCH}, "
-          f"{n_params:,} parameters): {TRAIN_WARMUP} warm-up steps {warmup_s:.2f} s; "
-          f"{TRAIN_STEPS} steps, CUDA-synchronized wall ms median {median:.3f}, min "
-          f"{min(walls):.3f}, max {max(walls):.3f}; {TRAIN_BATCH * 1e3 / median:.1f} window "
-          f"pairs/s; peak memory {peak / 2**30:.3f} GiB; losses {losses[0]:.4f} -> "
-          f"{losses[-1]:.4f}, all finite; K1 launches {launches} for {TRAIN_STEPS} forwards")
-    return {"median_ms": median, "walls_ms": walls, "peak_bytes": peak, "launches": launches,
-            "parameters": n_params}
+          f"{n_params:,} parameters): {t['summary']}; "
+          f"{TRAIN_BATCH * 1e3 / t['median_ms']:.1f} window pairs/s; K1 launches {launches} for "
+          f"{TRAIN_STEPS} forwards")
+    return {**t, "launches": launches, "parameters": n_params}
 
 
 def train_serve_phase(device, tmp: Path) -> int:
@@ -1441,9 +1573,9 @@ def attention_train_timing(device) -> dict:
 def art_train_timed_phase(device, attn_dropout) -> dict:
     """``Trainer.train_step`` on ART at full width, batch 16 of (32, 1024)
     pairs, dropout 0.1, attention dropout ``attn_dropout`` (None: follows
-    dropout, the plain path; 0.0: K3 and its backward): TRAIN_WARMUP steps,
-    then TRAIN_STEPS each timed to a synchronize.  Every loss finite, and 18
-    K3 launches and backward calls a step at 0.0, none otherwise."""
+    dropout, the plain path; 0.0: K3 and its backward), through
+    ``time_train_steps`` (not profiled): 18 K3 launches and backward calls
+    a timed step at 0.0, none otherwise."""
     from eyegaze_tpu_torch import train_art
     from eyegaze_tpu_torch.train.optim import make_optimizer
     from eyegaze_tpu_torch.train.trainer import Trainer, TrainerConfig
@@ -1453,36 +1585,23 @@ def art_train_timed_phase(device, attn_dropout) -> dict:
     loss_fn, metrics_fn = train_art.make_objective(False)
     trainer = Trainer(model, make_optimizer(model, ART_TRAIN_LR, 0.01, grad_clip=1.0), loss_fn,
                       None, TrainerConfig(seed=7), device=device, eval_metrics_fn=metrics_fn)
-    batch = art_train_batch(ART_TRAIN_BATCH, device)
-    t0 = time.perf_counter()
-    for _ in range(TRAIN_WARMUP):
-        trainer.train_step(batch)
-    torch.cuda.synchronize()
-    warmup_s = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats(device)
-    reset_attention_counts()
-    reset_backward_count()
-    walls, losses = [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        metrics = trainer.train_step(batch)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-        losses.append(metrics["loss"].item())
-    launches, backward = art_train_counts()
-    peak = torch.cuda.max_memory_allocated(device)
+
+    def reset():
+        reset_attention_counts()
+        reset_backward_count()
+
+    t = time_train_steps(f"ART training ({name})", trainer,
+                         art_train_batch(ART_TRAIN_BATCH, device), device, reset=reset,
+                         read=art_train_counts, profiled=False)
+    launches, backward = t["counts"]
     want = ART_ATTENTION_CALLS * TRAIN_STEPS if attn_dropout == 0.0 else 0
-    if not np.isfinite(losses).all() or (launches, backward) != (want, want):
-        raise RuntimeError(f"ART training ({name}): losses {losses}, {launches} K3 launches and "
-                           f"{backward} backward calls for {TRAIN_STEPS} steps, not {want}")
-    median = statistics.median(walls)
-    print(f"ART train step (f32, dropout 0.1, {name}, batch {ART_TRAIN_BATCH}): {TRAIN_WARMUP} "
-          f"warm-up steps {warmup_s:.2f} s; {TRAIN_STEPS} steps, CUDA-synchronized wall ms "
-          f"median {median:.3f}, min {min(walls):.3f}, max {max(walls):.3f}; "
-          f"{ART_TRAIN_BATCH * 1e3 / median:.1f} windows/s; peak memory {peak / 2**30:.3f} GiB; "
-          f"losses {losses[0]:.4f} -> {losses[-1]:.4f}, all finite; per step "
+    if (launches, backward) != (want, want):
+        raise RuntimeError(f"ART training ({name}): {launches} K3 launches and {backward} "
+                           f"backward calls for {TRAIN_STEPS} steps, not {want}")
+    print(f"ART train step (f32, dropout 0.1, {name}, batch {ART_TRAIN_BATCH}): {t['summary']}; "
+          f"{ART_TRAIN_BATCH * 1e3 / t['median_ms']:.1f} windows/s; per step "
           f"{launches / TRAIN_STEPS:g} K3 launches, {backward / TRAIN_STEPS:g} backward calls")
-    return {"median_ms": median, "peak_bytes": peak, "launches": launches, "backward": backward}
+    return {**t, "launches": launches, "backward": backward}
 
 
 def art_train_serve_phase(device, tmp: Path) -> tuple[int, int]:
@@ -1598,19 +1717,16 @@ def gaze_phase(device, tmp: Path) -> Path:
     return paths["late"]
 
 
-def gaze_http_phase(device, path: Path) -> None:
-    """``python -m eyegaze_tpu_torch.serve --kind gaze`` on the late-fusion
-    checkpoint, in a thread on 127.0.0.1 port 0, bucket 8: one request of 8
-    uint8 pairs, its answer equal to a direct ``predict`` at the same
-    bucket, labels included."""
+def serve_request(kind: str, path: Path, device, bucket: int, arrays: dict) -> tuple[dict, float]:
+    """One POST /predict of ``arrays`` (an ``.npz`` body) to ``python -m
+    eyegaze_tpu_torch.serve --kind kind`` on the checkpoint ``path``, its
+    ``main`` in a thread on 127.0.0.1 port 0 with the one bucket
+    ``bucket``; the server is shut down after.  Returns the JSON answer and
+    the request's wall ms."""
     from eyegaze_tpu_torch import serve
-    from eyegaze_tpu_torch.serving import GazePredictor
 
-    a, b = gaze_pairs(GAZE_CPU_PAIRS, 7)
-    want = GazePredictor.from_checkpoint(path, device=device,
-                                         batch_buckets=(GAZE_CPU_PAIRS,)).predict(a, b)
-    bound_, argv = [], ["--checkpoint", str(path), "--kind", "gaze", "--device", str(device),
-                        "--host", "127.0.0.1", "--port", "0", "--buckets", str(GAZE_CPU_PAIRS)]
+    bound_, argv = [], ["--checkpoint", str(path), "--kind", kind, "--device", str(device),
+                        "--host", "127.0.0.1", "--port", "0", "--buckets", str(bucket)]
     thread = threading.Thread(target=serve.main, args=(argv, bound_.append), daemon=True)
     thread.start()
     for _ in range(600):
@@ -1618,11 +1734,11 @@ def gaze_http_phase(device, path: Path) -> None:
             break
         thread.join(0.5)
     if not bound_:
-        raise RuntimeError("eyegaze_tpu_torch.serve --kind gaze did not start")
+        raise RuntimeError(f"eyegaze_tpu_torch.serve --kind {kind} did not start")
     server = bound_[0]
     try:
         buf = io.BytesIO()
-        np.savez(buf, img1=a, img2=b)
+        np.savez(buf, **arrays)
         req = urllib.request.Request(f"http://127.0.0.1:{server.server_address[1]}/predict",
                                      data=buf.getvalue(), method="POST")
         t0 = time.perf_counter()
@@ -1632,6 +1748,20 @@ def gaze_http_phase(device, path: Path) -> None:
     finally:
         server.shutdown()
         thread.join(60)
+    return got, wall
+
+
+def gaze_http_phase(device, path: Path) -> None:
+    """``python -m eyegaze_tpu_torch.serve --kind gaze`` on the late-fusion
+    checkpoint (``serve_request``, bucket 8): one request of 8 uint8 pairs,
+    its answer equal to a direct ``predict`` at the same bucket, labels
+    included."""
+    from eyegaze_tpu_torch.serving import GazePredictor
+
+    a, b = gaze_pairs(GAZE_CPU_PAIRS, 7)
+    want = GazePredictor.from_checkpoint(path, device=device,
+                                         batch_buckets=(GAZE_CPU_PAIRS,)).predict(a, b)
+    got, wall = serve_request("gaze", path, device, GAZE_CPU_PAIRS, {"img1": a, "img2": b})
     logits = np.asarray(got["logits"], np.float32)
     if not np.array_equal(logits, want["logits"]) or got["labels"] != want["labels"]:
         raise RuntimeError(f"serve --kind gaze answered {got['labels']}, max |diff| "
@@ -1712,33 +1842,12 @@ def gaze_train_parity_phase(device) -> None:
     check_grad_parity(name, out[0][5], out[1][5], ())
 
 
-def profile_steps(step, n: int = PROFILED_STEPS) -> dict:
-    """``torch.profiler`` over ``n`` calls of ``step`` (each ending in a
-    synchronize): CUDA kernels per call, the summed kernel time against the
-    wall time (the device's busy share), and K1's kernel time per call."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            step()
-        wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.device_time for e in kernels) / 1e3
-    k1 = sum(e.device_time for e in kernels if "phase_metrics_kernel" in e.name) / 1e3
-    return {"kernels_per_call": len(kernels) / n, "busy_share": busy / wall,
-            "kernel_ms_per_call": busy / n, "wall_ms_per_call": wall / n, "k1_ms_per_call": k1 / n}
-
-
 def gaze_train_timed_phase(device, kind: str, mode: str) -> dict:
     """``Trainer.train_step`` with train_gaze's objective (the augment on the
     card, class-weighted CE) on ViT-B/16 ``kind`` fusion at batch 16, bf16,
-    dropout 0.1: TRAIN_WARMUP steps, then TRAIN_STEPS steps each timed to a
-    ``torch.cuda.synchronize()``, then ``torch.profiler`` over
-    PROFILED_STEPS steps.  Every loss must be finite; no kernel of the port
+    dropout 0.1, through ``time_train_steps``.  No kernel of the port
     launches (the ViT's attention is Flax's, in stock ops)."""
     from eyegaze_tpu_torch import train_gaze
-    from eyegaze_tpu_torch.kernels import attention, phase_metrics
     from eyegaze_tpu_torch.train.optim import make_optimizer
     from eyegaze_tpu_torch.train.trainer import Trainer, TrainerConfig
 
@@ -1751,46 +1860,16 @@ def gaze_train_timed_phase(device, kind: str, mode: str) -> dict:
         generator=torch.Generator(device=device).manual_seed(0))
     trainer = Trainer(model, make_optimizer(model, GAZE_TRAIN_LR, 0.01, grad_clip=1.0),
                       *objective, TrainerConfig(seed=0), device=device)
-    batch = gaze_train_batch(GAZE_TRAIN_BATCH, device, seed=9)
     reset_k1_count()
     reset_attention_counts()
-    t0 = time.perf_counter()
-    for _ in range(TRAIN_WARMUP):
-        trainer.train_step(batch)
-    torch.cuda.synchronize()
-    warmup_s = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats(device)
-    walls, losses = [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        metrics = trainer.train_step(batch)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-        losses.append(metrics["loss"].item())
-    peak = torch.cuda.max_memory_allocated(device)
-
-    def step():
-        trainer.train_step(batch)
-        torch.cuda.synchronize()
-
-    prof = profile_steps(step)
-    if (not np.isfinite(losses).all() or any(phase_metrics.launch_count.values())
-            or any(attention.launch_count.values()) or any(attention.bf16_launch_count.values())):
-        raise RuntimeError(f"{name} training: losses {losses}, kernel launches "
-                           f"{phase_metrics.launch_count} {attention.launch_count}")
-    median = statistics.median(walls)
+    t = time_train_steps(f"{name} training", trainer,
+                         gaze_train_batch(GAZE_TRAIN_BATCH, device, seed=9), device)
+    assert_no_port_kernel(f"{name} training")
     print(f"{name} train step (bf16 compute, dropout 0.1, augment on the card, batch "
-          f"{GAZE_TRAIN_BATCH}, {n_params:,} parameters): {TRAIN_WARMUP} warm-up steps "
-          f"{warmup_s:.2f} s; {TRAIN_STEPS} steps, CUDA-synchronized wall ms median "
-          f"{median:.3f}, min {min(walls):.3f}, max {max(walls):.3f}; "
-          f"{GAZE_TRAIN_BATCH * 1e3 / median:.1f} pairs/s; peak memory {peak / 2**30:.3f} GiB; "
-          f"losses {losses[0]:.4f} -> {losses[-1]:.4f}, all finite; torch.profiler over "
-          f"{PROFILED_STEPS} steps: {prof['kernels_per_call']:.0f} CUDA kernels a step, kernel "
-          f"time {prof['kernel_ms_per_call']:.3f} of {prof['wall_ms_per_call']:.3f} ms a step, "
-          f"busy share {prof['busy_share']:.1%} (of the unprofiled median "
-          f"{prof['kernel_ms_per_call'] / median:.1%}); no kernel of the port launched")
-    return {"median_ms": median, "walls_ms": walls, "peak_bytes": peak, "parameters": n_params,
-            "busy_share_of_median": prof["kernel_ms_per_call"] / median, **prof}
+          f"{GAZE_TRAIN_BATCH}, {n_params:,} parameters): {t['summary']}; "
+          f"{GAZE_TRAIN_BATCH * 1e3 / t['median_ms']:.1f} pairs/s; no kernel of the port "
+          "launched")
+    return {**t, "parameters": n_params}
 
 
 def gaze_train_serve_phase(device, tmp: Path) -> None:
@@ -1925,41 +2004,18 @@ def multimodal_phase(device, tmp: Path) -> tuple[int, dict, Path]:
 
 def multimodal_http_phase(device, path: Path) -> int:
     """``python -m eyegaze_tpu_torch.serve --kind multimodal`` on the
-    composite's checkpoint, in a thread on 127.0.0.1 port 0, bucket 8: one
-    request of 8 pairs, its answer equal to a direct ``predict`` at the same
-    bucket, labels and alpha included.  Returns K1's launches: the server's
-    warmup, the request and the direct predict, one each."""
-    from eyegaze_tpu_torch import serve
+    composite's checkpoint (``serve_request``, bucket 8): one request of 8
+    pairs, its answer equal to a direct ``predict`` at the same bucket,
+    labels and alpha included.  Returns K1's launches: the server's warmup,
+    the request and the direct predict, one each."""
     from eyegaze_tpu_torch.serving import MultimodalPredictor
 
     inputs = multimodal_inputs(MM_CPU_PAIRS, 13)
     reset_k1_count()
     want = MultimodalPredictor.from_checkpoint(path, device=device,
                                                batch_buckets=(MM_CPU_PAIRS,)).predict(*inputs)
-    bound_, argv = [], ["--checkpoint", str(path), "--kind", "multimodal", "--device",
-                        str(device), "--host", "127.0.0.1", "--port", "0", "--buckets",
-                        str(MM_CPU_PAIRS)]
-    thread = threading.Thread(target=serve.main, args=(argv, bound_.append), daemon=True)
-    thread.start()
-    for _ in range(600):
-        if bound_ or not thread.is_alive():
-            break
-        thread.join(0.5)
-    if not bound_:
-        raise RuntimeError("eyegaze_tpu_torch.serve --kind multimodal did not start")
-    server = bound_[0]
-    try:
-        buf = io.BytesIO()
-        np.savez(buf, **dict(zip(("img1", "img2", "eeg1", "eeg2"), inputs)))
-        req = urllib.request.Request(f"http://127.0.0.1:{server.server_address[1]}/predict",
-                                     data=buf.getvalue(), method="POST")
-        t0 = time.perf_counter()
-        with urllib.request.urlopen(req, timeout=300) as resp:
-            got = json.load(resp)
-        wall = (time.perf_counter() - t0) * 1e3
-    finally:
-        server.shutdown()
-        thread.join(60)
+    got, wall = serve_request("multimodal", path, device, MM_CPU_PAIRS,
+                              dict(zip(("img1", "img2", "eeg1", "eeg2"), inputs)))
     launches = k1_count()
     for k in MM_OUTPUTS:
         if not np.array_equal(np.asarray(got[k], np.float32), want[k]):
@@ -1973,6 +2029,457 @@ def multimodal_http_phase(device, path: Path) -> int:
           f"img_logits, eeg_logits, alpha, labels); K1 launches {launches} (server warmup, "
           "request, direct predict)")
     return launches
+
+
+def mm_train_config(output_dir, *, bf16: bool = True, dropout: float = 0.1,
+                    freeze: bool = False):
+    """configs/multimodal_fuzzy_fusion.yaml's training config built from the
+    dataclasses (no YAML), one epoch into ``output_dir``: the composite at
+    MM_GEOMETRY, batch 8, AdamW with the encoders at 1e-5 and the gate at
+    1e-4, the loss weights 0.3 / 0.3 / 0.1, 24 synthetic trials."""
+    from eyegaze_tpu_torch.config import (
+        DataConfig,
+        ExperimentConfig,
+        ModelConfig,
+        SystemConfig,
+        TrainingConfig,
+    )
+
+    return ExperimentConfig(
+        model=ModelConfig(in_channels=CHANNELS, d_model=256, num_layers=6, num_heads=8,
+                          d_ff=1024, fusion_mode="concat", fuzzy_mode="full", img_size=224),
+        data=DataConfig(window_size=WINDOW, stride=STRIDE, sampling_rate=SAMPLING_RATE,
+                        random_seed=42, synthetic=True, synthetic_trials=MM_TRAIN_TRIALS),
+        training=TrainingConfig(output_dir=str(output_dir), num_train_epochs=1,
+                                per_device_train_batch_size=MM_TRAIN_BATCH,
+                                per_device_eval_batch_size=16, learning_rate=MM_TRAIN_LR,
+                                encoder_learning_rate=MM_ENCODER_LR, weight_decay=0.01,
+                                grad_clip=1.0, dropout=dropout, bf16=bf16, lambda_img=0.3,
+                                lambda_eeg=0.3, lambda_temp_reg=0.1, freeze_encoders=freeze),
+        system=SystemConfig(seed=42, device="cuda"))
+
+
+def mm_train_model(cfg, device):
+    """``train_multimodal.build_model`` of ``cfg``, checked to be the
+    composite at MM_GEOMETRY."""
+    from eyegaze_tpu_torch import train_multimodal
+    from eyegaze_tpu_torch.models.multimodal import FIELDS
+
+    model = train_multimodal.build_model(cfg, device=device)
+    fields = {f: getattr(model, f) for f in FIELDS}
+    if fields != {**MM_GEOMETRY, "dropout": cfg.training.dropout}:
+        raise RuntimeError(f"train_multimodal built {fields}, not {MM_GEOMETRY}")
+    return model
+
+
+def mm_train_batch(n: int, device, seed: int) -> dict:
+    """A train batch as converted data arrives: uint8 (n, 3, 224, 224) pairs,
+    (n, 32, 1024) window pairs, labels cycling over the three classes."""
+    return {**{k: torch.from_numpy(v).to(device)
+               for k, v in zip(("img1", "img2", "eeg1", "eeg2"), multimodal_inputs(n, seed))},
+            "label": torch.from_numpy((np.arange(n) % 3).astype(np.int32)).to(device)}
+
+
+# Tensor factories whose float32 ``float64_casts`` makes float64.
+FACTORIES = ("tensor", "as_tensor", "zeros", "ones", "empty", "full", "arange", "linspace",
+             "hann_window", "zeros_like", "ones_like", "empty_like", "full_like")
+
+
+@contextlib.contextmanager
+def float64_casts():
+    """While open, float32 means float64 in the port's code:
+    ``Tensor.float``, ``Tensor.to(torch.float32)`` and the factories in
+    FACTORIES make float64, and K1's wrapper takes float64 inputs (its
+    plain version, on the CPU).  A model moved to float64 with ``.double()``
+    then runs in float64 from end to end: the witness that the float32
+    steps of the card and of the CPU are held to."""
+    from eyegaze_tpu_torch.kernels import phase_metrics
+
+    to, to_float, check = torch.Tensor.to, torch.Tensor.float, phase_metrics._check
+    factories = {f: getattr(torch, f) for f in FACTORIES}
+
+    def to64(self, *args, **kwargs):
+        args = tuple(torch.float64 if a is torch.float32 else a for a in args)
+        if kwargs.get("dtype") is torch.float32:
+            kwargs["dtype"] = torch.float64
+        return to(self, *args, **kwargs)
+
+    def wide(make):
+        def made(*args, **kwargs):
+            if kwargs.get("dtype") is torch.float32:
+                kwargs["dtype"] = torch.float64
+            return make(*args, **kwargs)
+        return made
+
+    torch.Tensor.to = to64
+    torch.Tensor.float = lambda self, *args, **kwargs: to(self, torch.float64)
+    phase_metrics._check = lambda tensors: None
+    for f, make in factories.items():
+        setattr(torch, f, wide(make))
+    try:
+        yield
+    finally:
+        torch.Tensor.to, torch.Tensor.float, phase_metrics._check = to, to_float, check
+        for f, make in factories.items():
+            setattr(torch, f, make)
+
+
+def float64_grads(model, loss_fn, batch) -> dict:
+    """Each parameter's gradient of ``loss_fn`` on ``batch`` with ``model``
+    (on the CPU, its dropouts off) and its floating inputs in float64,
+    inside ``float64_casts``."""
+    model = model.double().train()
+    batch = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
+    with float64_casts():
+        loss, _ = loss_fn(model, batch)
+        loss.backward()
+    if loss.dtype != torch.float64:
+        raise RuntimeError(f"the float64 witness computed its loss in {loss.dtype}")
+    return {n: p.grad.detach() for n, p in model.named_parameters() if p.grad is not None}
+
+
+def print_float64_gaps(name: str, card: dict, cpu: dict, f64: dict, zero: tuple) -> None:
+    """Prints how far the card's and the CPU's float32 gradients each stand
+    from the float64 witness's, as a share of the witness tensor's largest
+    |entry|, for the four tensors farthest on either side (those named
+    with a suffix in ``zero``, zero in exact arithmetic, left out)."""
+    gaps = []
+    for k, want in f64.items():
+        if not k.endswith(zero):
+            scale = float(want.abs().max())
+            gaps.append(tuple(float((g[k].double() - want).abs().max()) / scale
+                              for g in (card, cpu)) + (k,))
+    gaps.sort(key=lambda g: -max(g[:2]))
+    print(f"{name}, each side's largest |difference| from the float64 witness as a share of "
+          "the tensor's largest |entry| (card / CPU), the four tensors farthest on either side: "
+          + ", ".join(f"{k} {c:.3e} / {p:.3e}" for c, p, k in gaps[:4])
+          + f"; at most {max(g[0] for g in gaps):.3e} / {max(g[1] for g in gaps):.3e}")
+
+
+def mm_train_parity_phase(device) -> int:
+    """One f32 train step of the composite at full width and batch 8, without
+    dropout, on the card and on the CPU from the same seeded weights and
+    batch: train_multimodal's loss (the aux CEs on the temperature-scaled
+    logits, the temperature penalty), held to the flagship step's bounds
+    and every card gradient tensor to ``check_grad_parity``'s bound of the
+    float64 witness's (``float64_grads``; the EEG attentions' key biases,
+    zero in exact arithmetic, to the largest gradient's share), with the
+    CPU's float32 gradients' distance from it beside.  K1 launches once in
+    the card's step; returns that count."""
+    from eyegaze_tpu_torch import train_multimodal
+
+    cfg = mm_train_config(".", bf16=False, dropout=0.0)
+    loss_fn, _ = train_multimodal.make_objective(cfg)
+    out = []
+    for dev in (device, torch.device("cpu")):
+        model = mm_train_model(cfg, dev)
+        for m in model.modules():  # the flagship encoder's fixed-rate dropouts too
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        reset_k1_count()
+        out.append(one_step(model, loss_fn, mm_train_batch(MM_TRAIN_BATCH, dev, 14), MM_TRAIN_LR))
+        if dev.type == "cuda":
+            launches = k1_count()
+            if launches != 1:
+                raise RuntimeError(f"one composite train step launched K1 {launches} times")
+        del model
+    name = (f"one f32 multimodal composite train step at batch {MM_TRAIN_BATCH} without dropout "
+            "(1 K1 launch on the card)")
+    check_step_parity(name, *out, MM_TRAIN_LR, LOGIT_TOL)
+    model = mm_train_model(cfg, torch.device("cpu"))
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    t0 = time.perf_counter()
+    f64 = float64_grads(model, loss_fn, mm_train_batch(MM_TRAIN_BATCH, torch.device("cpu"), 14))
+    print(f"the float64 witness's step on the CPU: {time.perf_counter() - t0:.2f} s")
+    print_float64_gaps(name, out[0][5], out[1][5], f64, ("k_proj.bias",))
+    check_grad_parity(name, out[0][5], f64, ("k_proj.bias",), against="float64 witness")
+    return launches
+
+
+def mm_train_timed_phase(device) -> dict:
+    """``Trainer.train_step`` with train_multimodal's objective and two-group
+    optimizer on the composite at full width, batch 8, bf16, dropout 0.1,
+    through ``time_train_steps``: K1 launched once a timed and a profiled
+    step, no attention-kernel launch."""
+    from eyegaze_tpu_torch import train_multimodal
+    from eyegaze_tpu_torch.kernels import attention
+    from eyegaze_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = mm_train_config(".")
+    model = mm_train_model(cfg, device)
+    n_params = sum(p.numel() for p in model.parameters())
+    trainer = Trainer(model, train_multimodal.make_multimodal_optimizer(model, cfg),
+                      *train_multimodal.make_objective(cfg), TrainerConfig(seed=0), device=device)
+    reset_attention_counts()
+    t = time_train_steps("composite training", trainer,
+                         mm_train_batch(MM_TRAIN_BATCH, device, 15), device,
+                         reset=reset_k1_count, read=k1_count)
+    launches = t["counts"]
+    prof_launches = k1_count() - launches
+    if (launches != TRAIN_STEPS or prof_launches != PROFILED_STEPS
+            or any(attention.launch_count.values())):
+        raise RuntimeError(f"composite training: {launches} + {prof_launches} K1 launches for "
+                           f"{TRAIN_STEPS} + {PROFILED_STEPS} steps, attention "
+                           f"{attention.launch_count}")
+    n = 6 * MM_TRAIN_BATCH
+    k1_bound, k1_bound_by = phase_bound((n, CHANNELS, WINDOW), plv=False)
+    print(f"multimodal composite train step (bf16 compute, dropout 0.1, batch {MM_TRAIN_BATCH} "
+          f"uint8 pairs + (32, 1024) windows, encoders at {MM_ENCODER_LR} / gate at "
+          f"{MM_TRAIN_LR}, {n_params:,} parameters): {t['summary']}; "
+          f"{MM_TRAIN_BATCH * 1e3 / t['median_ms']:.1f} samples/s; K1 launches {launches} for "
+          f"{TRAIN_STEPS} steps; K1 at N = {n} {t['k1_ms_per_call']:.4f} ms a step (bound "
+          f"{k1_bound:.4f} ms, {k1_bound_by}), "
+          f"{t['k1_ms_per_call'] / t['kernel_ms_per_call']:.2%} of the kernel time")
+    return {**t, "parameters": n_params, "launches": launches + prof_launches,
+            "launches_per_step": launches / TRAIN_STEPS}
+
+
+def mm_frozen_phase(device) -> int:
+    """One bf16 train step of the composite with ``freeze_encoders`` leaves
+    every encoder tensor equal to the bit while the gate moves.  Returns
+    K1's launches (one)."""
+    from eyegaze_tpu_torch import train_multimodal
+    from eyegaze_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = mm_train_config(".", freeze=True)
+    model = mm_train_model(cfg, device)
+    trainer = Trainer(model, train_multimodal.make_multimodal_optimizer(model, cfg),
+                      *train_multimodal.make_objective(cfg), TrainerConfig(seed=0), device=device)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    reset_k1_count()
+    trainer.train_step(mm_train_batch(MM_TRAIN_BATCH, device, 16))
+    moved = {k.split(".")[0] for k, p in model.named_parameters()
+             if not torch.equal(p.detach(), before[k])}
+    encoders = sum(1 for k in before if k.split(".")[0] in train_multimodal.ENCODERS)
+    print(f"composite, freeze_encoders: one bf16 step leaves all {encoders} encoder tensors "
+          f"equal to the bit; the gate's {len(before) - encoders} tensors move")
+    if moved != {"fusion"}:
+        raise RuntimeError(f"a step with freeze_encoders moved {sorted(moved)}")
+    return k1_count()
+
+
+def mm_train_serve_phase(device, tmp: Path) -> int:
+    """``train_multimodal.run`` (``main`` without its YAML) at full width for
+    one epoch on the YAML's 24 synthetic trials, bf16, into ``tmp``: K1 once
+    a train step and once an eval batch.  Then
+    ``MultimodalPredictor.from_checkpoint`` serves the validation windows
+    from the best_model.pt it wrote at the eval batch's size: its logits
+    must equal the trainer's own eval logits to the bit, in one K1 launch.
+    Returns K1's launches, the served request's included."""
+    from eyegaze_tpu_torch import train_multimodal
+    from eyegaze_tpu_torch.serving import MultimodalPredictor
+
+    cfg = mm_train_config(tmp / "train_multimodal")
+    reset_k1_count()
+    t0 = time.perf_counter()
+    result = train_multimodal.run(cfg, device=device)
+    run_s = time.perf_counter() - t0
+    launches = k1_count()
+    trainer, val = result["trainer"], result["val"]
+    eval_rows = min(MM_TRAIN_BATCH, len(val))
+    eval_batches = math.ceil(len(val) / eval_rows)
+    if launches != trainer.optimizer.count + eval_batches:
+        raise RuntimeError(f"{trainer.optimizer.count} train steps and {eval_batches} eval "
+                           f"batches launched K1 {launches} times")
+    path = Path(cfg.training.output_dir) / "checkpoints" / "best_model.pt"
+    pred = MultimodalPredictor.from_checkpoint(path, device=device, batch_buckets=(eval_rows,))
+    rows = val.batch(list(range(len(val))))
+    reset_k1_count()
+    logits = pred.predict(rows["img1"], rows["img2"], rows["eeg1"], rows["eeg2"])["logits"]
+    served = k1_count()
+    want = trainer.eval_logits
+    equal = logits.shape == want.shape and np.array_equal(logits, want)
+    print(f"train_multimodal, 1 epoch at full width: {trainer.optimizer.count} step(s) of "
+          f"{MM_TRAIN_BATCH}, {len(val)} validation windows in {eval_batches} eval batch(es), "
+          f"{launches} K1 launches, {run_s:.2f} s; best_model.pt served by "
+          f"MultimodalPredictor.from_checkpoint (bf16, bucket {eval_rows}) in {served} K1 "
+          f"launch(es): logits equal to the trainer's eval logits: {equal} (max |diff| "
+          f"{float(np.abs(logits - want).max()):.3e})")
+    if not equal:
+        raise RuntimeError("the served checkpoint's logits differ from training's eval logits")
+    if served != 1:
+        raise RuntimeError(f"serving the {len(val)} validation windows launched K1 {served} times")
+    return launches + served
+
+
+def hypereeg_pairs(n: int, seed: int) -> list:
+    r = np.random.default_rng(seed)
+    return [r.normal(size=(n, CHANNELS, WINDOW)).astype(np.float32) for _ in range(2)]
+
+
+def hypereeg_phase(device, tmp: Path) -> tuple[Path, dict]:
+    """HyperEEG at the documented preset (embed 128, 4 heads, sinc kernel
+    125: 274,819 parameters), seeded weights saved as a state_dict plus a
+    meta with the ``model.hypereeg`` stamp, served by
+    ``HyperEEGPredictor.from_checkpoint`` (bf16) on the card: requests of
+    1, 8 and 32 (32, 1024) window pairs, REPEATS times each, no kernel of
+    the port; the 8-pair logits within 2**-5 of the largest |logit| of the
+    same checkpoint served on the CPU.  Returns the checkpoint's path and
+    each request's median wall ms."""
+    from eyegaze_tpu_torch.models.hypereeg import FIELDS, create_hypereeg_model
+    from eyegaze_tpu_torch.serving import HyperEEGPredictor
+
+    model = create_hypereeg_model("full", "documented", device=torch.device("cpu"),
+                                  generator=torch.Generator().manual_seed(17))
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != HYPEREEG_PARAMETERS:
+        raise RuntimeError(f"HyperEEG at the documented preset has {n_params:,} parameters")
+    meta = {"config": {"model": {"hypereeg": {f: getattr(model, f) for f in FIELDS}}}}
+    path = save_checkpoint(model.state_dict(), meta, tmp / "hypereeg.pt")
+    e1, e2 = hypereeg_pairs(max(HYPEREEG_REQUESTS), 18)
+    reset_k1_count()
+    reset_attention_counts()
+    pred = HyperEEGPredictor.from_checkpoint(path, device=device, batch_buckets=HYPEREEG_REQUESTS)
+    t0 = time.perf_counter()
+    pred.warmup()
+    print(f"HyperEEG (documented preset, {n_params:,} parameters), served bf16 from a checkpoint "
+          f"on {device}; warmup of buckets {HYPEREEG_REQUESTS}: {time.perf_counter() - t0:.2f} s")
+    medians = {}
+    for n in HYPEREEG_REQUESTS:
+        walls = []
+        for _ in range(REPEATS):
+            t0 = time.perf_counter()
+            out = pred.predict(e1[:n], e2[:n])
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if out["logits"].shape != (n, 3) or not np.isfinite(out["logits"]).all():
+                raise RuntimeError(f"HyperEEG, {n} pair(s): bad logits {out['logits'].shape}")
+            if n == HYPEREEG_CPU_PAIRS:
+                card = out["logits"]
+        medians[n] = statistics.median(walls)
+        print(f"HyperEEG request of {n} window pair(s): wall ms {[round(w, 3) for w in walls]}, "
+              f"median {medians[n]:.3f} (f32 windows to the card, forward, logits back on the "
+              "host)")
+    assert_no_port_kernel("HyperEEG serving")
+    want = HyperEEGPredictor.from_checkpoint(path, device=torch.device("cpu"),
+                                             batch_buckets=(HYPEREEG_CPU_PAIRS,)).predict(
+        e1[:HYPEREEG_CPU_PAIRS], e2[:HYPEREEG_CPU_PAIRS])["logits"]
+    gap = float(np.abs(card - want).max())
+    tol = LOGIT_BF16_TOL_SHARE * float(np.abs(want).max())
+    print(f"HyperEEG, {HYPEREEG_CPU_PAIRS}-pair logits, bf16 compute: card vs CPU max |diff| "
+          f"{gap:.3e} (tolerance {tol:.3e}, 2**-5 of the largest |logit| "
+          f"{float(np.abs(want).max()):.3f})")
+    if not gap <= tol:
+        raise RuntimeError(f"HyperEEG, card vs CPU: {gap:.3e} over {tol:.3e}")
+    return path, medians
+
+
+def hypereeg_http_phase(device, path: Path) -> float:
+    """``python -m eyegaze_tpu_torch.serve --kind hypereeg`` on HyperEEG's
+    checkpoint (``serve_request``, bucket 8): one request of 8 window pairs,
+    its answer equal to a direct ``predict`` at the same bucket, labels
+    included.  Returns the request's wall ms."""
+    from eyegaze_tpu_torch.serving import HyperEEGPredictor
+
+    e1, e2 = hypereeg_pairs(HYPEREEG_CPU_PAIRS, 19)
+    want = HyperEEGPredictor.from_checkpoint(path, device=device,
+                                             batch_buckets=(HYPEREEG_CPU_PAIRS,)).predict(e1, e2)
+    got, wall = serve_request("hypereeg", path, device, HYPEREEG_CPU_PAIRS,
+                              {"eeg1": e1, "eeg2": e2})
+    logits = np.asarray(got["logits"], np.float32)
+    if not np.array_equal(logits, want["logits"]) or got["labels"] != want["labels"]:
+        raise RuntimeError(f"serve --kind hypereeg answered {got['labels']}, max |diff| "
+                           f"{float(np.abs(logits - want['logits']).max()):.3e} from the direct "
+                           "predict")
+    print(f"HTTP, serve --kind hypereeg (bucket {HYPEREEG_CPU_PAIRS}): one request of "
+          f"{HYPEREEG_CPU_PAIRS} window pairs in {wall:.3f} ms, answer equal to the direct "
+          "predict, labels included")
+    return wall
+
+
+def hypereeg_args(*argv):
+    """train_hypereeg's flags at their defaults (the documented preset,
+    float32, batch 256, lr 5e-4) plus ``argv``."""
+    from eyegaze_tpu_torch import train_hypereeg
+
+    return train_hypereeg.parse_args(["--device", "cuda", *argv])
+
+
+def hypereeg_batch(n: int, device, seed: int) -> dict:
+    e1, e2 = hypereeg_pairs(n, seed)
+    return {"eeg1": torch.from_numpy(e1).to(device), "eeg2": torch.from_numpy(e2).to(device),
+            "label": torch.from_numpy((np.arange(n) % 3).astype(np.int32)).to(device)}
+
+
+def hypereeg_train_parity_phase(device) -> None:
+    """One f32 HyperEEG step (documented preset) at batch 16 without dropout
+    or augment on the card and on the CPU from the same seeded weights and
+    batch: held to the flagship step's bounds and every gradient tensor to
+    ``check_grad_parity``'s (the key and logvar biases, zero in exact
+    arithmetic, to the largest gradient's share)."""
+    from eyegaze_tpu_torch import train_hypereeg
+
+    args = hypereeg_args("--no-augment")
+    out = []
+    for dev in (device, torch.device("cpu")):
+        loss_fn, _ = train_hypereeg.make_objective(augment=False,
+                                                   generator=torch.Generator(device=dev))
+        model = train_hypereeg.build_model(args, device=dev, dropout=0.0)
+        out.append(one_step(model, loss_fn, hypereeg_batch(HYPEREEG_PARITY_BATCH, dev, 20),
+                            HYPEREEG_TRAIN_LR))
+    name = (f"one f32 HyperEEG train step at batch {HYPEREEG_PARITY_BATCH} without dropout or "
+            "augment")
+    check_step_parity(name, *out, HYPEREEG_TRAIN_LR, LOGIT_TOL,
+                      param_limit=HYPEREEG_PARAM_LIMIT)
+    check_grad_parity(name, out[0][5], out[1][5], ("key.bias", "logvar.bias"))
+
+
+def hypereeg_train_timed_phase(device) -> dict:
+    """``Trainer.train_step`` with train_hypereeg's objective (``augment_eeg``
+    on each stream, drawn on the card) on the documented preset in f32 at
+    batch 256, dropout 0.1, AdamW at 5e-4 (weight decay 0.01, clip 1.0),
+    through ``time_train_steps``.  No kernel of the port launches."""
+    from eyegaze_tpu_torch import train_hypereeg
+    from eyegaze_tpu_torch.train.optim import make_optimizer
+    from eyegaze_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    args = hypereeg_args()
+    model = train_hypereeg.build_model(args, device=device)
+    trainer = Trainer(model, make_optimizer(model, HYPEREEG_TRAIN_LR, 0.01, grad_clip=1.0),
+                      *train_hypereeg.make_objective(
+                          augment=True, generator=torch.Generator(device=device).manual_seed(0)),
+                      TrainerConfig(seed=0), device=device)
+    reset_k1_count()
+    reset_attention_counts()
+    t = time_train_steps("HyperEEG training", trainer,
+                         hypereeg_batch(HYPEREEG_TRAIN_BATCH, device, 21), device)
+    assert_no_port_kernel("HyperEEG training")
+    print(f"HyperEEG train step (f32, documented preset, augment on the card, dropout 0.1, batch "
+          f"{HYPEREEG_TRAIN_BATCH} window pairs): {t['summary']}; "
+          f"{HYPEREEG_TRAIN_BATCH * 1e3 / t['median_ms']:.1f} window pairs/s; no kernel of the "
+          "port launched")
+    return t
+
+
+def hypereeg_train_serve_phase(device, tmp: Path) -> None:
+    """``train_hypereeg.run`` at its defaults (documented preset, f32, the
+    augment on) for one epoch into ``tmp``; then
+    ``HyperEEGPredictor.from_checkpoint`` (bf16) serves the validation
+    windows from the best_model.pt it wrote, on the card: within 2**-5 of
+    the largest |logit| of the trainer's own (f32) eval logits."""
+    from eyegaze_tpu_torch import train_hypereeg
+    from eyegaze_tpu_torch.serving import HyperEEGPredictor
+
+    args = hypereeg_args("--epochs", "1", "--output-dir", str(tmp / "train_hypereeg"))
+    t0 = time.perf_counter()
+    result = train_hypereeg.run(args, device=device)
+    run_s = time.perf_counter() - t0
+    trainer, val = result["trainer"], result["val"]
+    path = Path(args.output_dir) / "checkpoints" / "best_model.pt"
+    pred = HyperEEGPredictor.from_checkpoint(path, device=device, batch_buckets=HYPEREEG_REQUESTS)
+    rows = val.batch(list(range(len(val))))
+    logits = pred.predict(rows["eeg1"], rows["eeg2"])["logits"]
+    want = trainer.eval_logits
+    gap = float(np.abs(logits - want).max())
+    tol = LOGIT_BF16_TOL_SHARE * float(np.abs(want).max())
+    print(f"train_hypereeg, 1 epoch (documented preset): {trainer.optimizer.count} step(s), "
+          f"{len(val)} validation windows, {run_s:.2f} s; best_model.pt served by "
+          f"HyperEEGPredictor.from_checkpoint (bf16): max |logits - the trainer's f32 eval "
+          f"logits| {gap:.3e} (tolerance {tol:.3e}, 2**-5 of the largest |logit|)")
+    if not (logits.shape == want.shape and gap <= tol):
+        raise RuntimeError(f"train_hypereeg: the served checkpoint's logits differ from "
+                           f"training's: {gap:.3e}")
 
 
 F32_INSTANCES = {(16, 4), (16, 1), (32, 2), (32, 1), (64, 1), (128, 1)}  # (d, rows per thread)
@@ -2174,6 +2681,31 @@ def main() -> None:
         gaze_train_serve_phase(device, Path(tmp))
         k1_mm_launches, mm_buckets, mm_path = multimodal_phase(device, Path(tmp))
         k1_mm_launches += multimodal_http_phase(device, mm_path)
+
+    k1_mm_train = mm_train_parity_phase(device)
+    mm_train = mm_train_timed_phase(device)
+    k1_mm_train += mm_train["launches"] + mm_frozen_phase(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        k1_mm_train += mm_train_serve_phase(device, Path(tmp))
+        reset_k1_count()
+        reset_attention_counts()
+        hx_path, hx_medians = hypereeg_phase(device, Path(tmp))
+        hx_http_ms = hypereeg_http_phase(device, hx_path)
+        hypereeg_train_parity_phase(device)
+        hx_train = hypereeg_train_timed_phase(device)
+        hypereeg_train_serve_phase(device, Path(tmp))
+        assert_no_port_kernel("HyperEEG serving and training")
+    print(f"multimodal composite train step at batch {MM_TRAIN_BATCH}, bf16: median "
+          f"{mm_train['median_ms']:.3f} ms, peak {mm_train['peak_bytes'] / 2**30:.3f} GiB, "
+          f"{mm_train['kernels_per_call']:.0f} kernels a step, busy "
+          f"{mm_train['busy_share_of_median']:.1%} of the median, K1 "
+          f"{mm_train['launches_per_step']:g} launch a step; HyperEEG (documented preset): "
+          "request median ms "
+          + ", ".join(f"{n} pair(s) {ms:.3f}" for n, ms in hx_medians.items())
+          + f", HTTP {hx_http_ms:.3f}; f32 train step at batch {HYPEREEG_TRAIN_BATCH} median "
+          f"{hx_train['median_ms']:.3f} ms, peak {hx_train['peak_bytes'] / 2**30:.3f} GiB, "
+          f"{hx_train['kernels_per_call']:.0f} kernels a step, busy "
+          f"{hx_train['busy_share_of_median']:.1%} of the median")
     print("ViT-B/16 train step at batch {}, bf16, median ms: ".format(GAZE_TRAIN_BATCH)
           + ", ".join(f"{kind} {g['median_ms']:.3f} ({g['kernels_per_call']:.0f} kernels, busy "
                       f"{g['busy_share']:.1%}, peak {g['peak_bytes'] / 2**30:.3f} GiB)"
@@ -2197,13 +2729,24 @@ def main() -> None:
     kernels = [
         {"name": "pairwise_phase_metrics", "route": "cuda", "source": phase_source,
          "replaces": "eyegaze_tpu/ops/pallas_kernels.py:74",
-         "launches": k1_serving + k1_train + k1_mm_launches,
+         "launches": k1_serving + k1_train + k1_mm_launches + k1_mm_train,
          "path": "EEG serving, f32 and bf16 from a checkpoint; flagship training, bf16 and "
                  "f32 steps and one epoch of train_dual_eeg; the multimodal composite served "
-                 "bf16 from a checkpoint, and over HTTP",
+                 "bf16 from a checkpoint, and over HTTP; multimodal training (the f32 parity "
+                 "step, bf16 timed and frozen steps, one epoch of train_multimodal and its "
+                 "served checkpoint)",
          "launches_per_request": k1_serving / (2 * len(REQUESTS) * REPEATS),
          "launches_serving": k1_serving, "launches_training": k1_train,
          "launches_composite": k1_mm_launches,
+         "launches_multimodal_training": k1_mm_train,
+         "multimodal_train": {
+             "launches_per_step": mm_train["launches_per_step"],
+             "step_ms": mm_train["median_ms"], "peak_gib": mm_train["peak_bytes"] / 2**30,
+             "kernels_per_step": mm_train["kernels_per_call"],
+             "busy_share_of_median": mm_train["busy_share_of_median"],
+             "k1_ms_per_step": mm_train["k1_ms_per_call"],
+             "train_shape_timing": k1_shapes[(6 * MM_TRAIN_BATCH, CHANNELS, WINDOW)],
+             "eval_shape_timing": k1_shapes[composite_kernel_shapes()[-1]]},
          "composite": {f"N={N}": {"bucket": n, **k1_shapes[(N, CHANNELS, WINDOW)],
                                   **{k: mm_buckets[n][k] for k in
                                      ("k1_ms", "k1_share_of_kernel_time", "median_ms",

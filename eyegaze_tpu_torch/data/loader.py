@@ -1,7 +1,7 @@
 """Host-side batch loaders (numpy only).
 
 The port's copy of ``ArrayDataset``, ``batch_iterator``,
-``DualEEGWindowDataset`` and ``GazePairArrays`` from
+``DualEEGWindowDataset``, ``GazePairArrays`` and ``MultimodalArrays`` from
 ``eyegaze_tpu/data/loader.py``.  Trials live
 in numpy arrays, windowing is index math, and a batch is a dict of numpy
 arrays; the trainer moves it to the device.  The seeded shuffle draws from
@@ -134,3 +134,34 @@ class GazePairArrays:
         if self.pairs is not None:
             arrays["pair"] = self.pairs
         return ArrayDataset(arrays)
+
+
+class MultimodalArrays(DualEEGWindowDataset):
+    """Gaze-image pairs joined to dual-EEG windows: one sample is one
+    sliding EEG window of a trial with that trial's two images, which
+    repeat across the trial's windows (MultimodalDataset,
+    multimodal_dataset.py:19-275).  Images may be uint8 (converted arrays,
+    ``data/images.py``); the trainer makes them unit-float on the device."""
+
+    def __init__(
+        self,
+        img1: np.ndarray,
+        img2: np.ndarray,
+        eeg1: np.ndarray,
+        eeg2: np.ndarray,
+        labels: np.ndarray,
+        window_size: int = 1024,
+        stride: int = 512,
+        pairs: Optional[np.ndarray] = None,
+    ):
+        if not len(img1) == len(img2) == len(eeg1) == len(labels):
+            raise ValueError(f"trial counts differ: images {len(img1)}/{len(img2)}, EEG "
+                             f"{len(eeg1)}, labels {len(labels)}")
+        super().__init__(eeg1, eeg2, labels, window_size, stride, pairs)
+        self.img1 = img1
+        self.img2 = img2
+
+    def batch(self, items: Sequence[int]) -> Dict[str, np.ndarray]:
+        trial = self.index.trial_ids[items]
+        return {"img1": np.asarray(self.img1[trial]), "img2": np.asarray(self.img2[trial]),
+                **super().batch(items)}

@@ -2,7 +2,8 @@
 
 The counterparts of ``eyegaze_tpu/models/torch_port.py::export_dual_eeg_state_dict``,
 ``export_art_state_dict``, ``export_gaze_{early,late}_state_dict`` and
-``export_multimodal_state_dict``.
+``export_multimodal_state_dict``, and ``hypereeg_state_dict_from_flax``,
+which has no JAX exporter: its names mirror the Flax paths.
 ``params`` is the Flax parameter tree as nested dicts of numpy arrays; the
 result maps the reference torch names (timm's for the ViTs) to float32 numpy
 arrays:
@@ -16,6 +17,9 @@ arrays:
 - ViT attention: the per-head query / key / value kernels (E, H, hd) ->
   one timm ``qkv`` weight (3E, E), their biases (H, hd) -> (3E,); the
   ``out`` kernel (H, hd, E) -> ``proj`` weight (E, E)
+- HyperEEG's attentions keep Flax's four projections: each (E, H, hd)
+  ``query`` / ``key`` / ``value`` kernel -> an (E, E) weight, (H, hd) bias
+  -> (E,), the (H, hd, E) ``out`` kernel -> (E, E)
 
 Load it with ``model.load_state_dict({k: torch.from_numpy(v) ...}, strict=True)``.
 """
@@ -59,6 +63,16 @@ class _Writer:
     def mha(self, key: str, *path) -> None:
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             self.linear(f"{key}.{name}", *path, name)
+
+    def flax_mha(self, key: str, *path) -> None:
+        """Flax's ``MultiHeadDotProductAttention`` under its own names."""
+        for name in ("query", "key", "value"):
+            kernel = self.get(*path, name, "kernel")  # (E, H, hd)
+            self.put(f"{key}.{name}.weight", kernel.reshape(kernel.shape[0], -1).T)
+            self.put(f"{key}.{name}.bias", self.get(*path, name, "bias").reshape(-1))
+        kernel = self.get(*path, "out", "kernel")  # (H, hd, E)
+        self.put(f"{key}.out.weight", kernel.reshape(-1, kernel.shape[-1]).T)
+        self.put(f"{key}.out.bias", self.get(*path, "out", "bias"))
 
     def layers(self, name: str) -> range:
         return range(sum(1 for k in self.params[name] if k.startswith("layer_")))
@@ -199,3 +213,35 @@ def multimodal_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
         w.put(f"fusion.{name}", w.get("fusion", name))
     state.update(w.state)
     return state
+
+
+def hypereeg_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
+    """HyperEEGEncoder (``models/hypereeg.py``): every Flax path becomes a
+    dotted name (``temporal/sinc/low_hz`` -> ``temporal.sinc.low_hz``,
+    ``graph/attn/query`` -> ``graph.attn.query.weight`` / ``.bias``); the
+    modules an ablation switches off are absent in both."""
+    w = _Writer(params)
+    temporal = params["temporal"]
+    if "sinc" in temporal:
+        for name in ("low_hz", "band_hz"):
+            w.put(f"temporal.sinc.{name}", w.get("temporal", "sinc", name))
+    else:
+        w.conv("temporal.plain_conv", "temporal", "plain_conv")
+    for name in sorted(k for k in temporal if k.startswith("down_")):
+        w.conv(f"temporal.{name}", "temporal", name)
+    w.linear("temporal.proj", "temporal", "proj")
+    if "graph" in params:
+        w.flax_mha("graph.attn", "graph", "attn")
+        for name in ("ln1", "ln2"):
+            w.norm(f"graph.{name}", "graph", name)
+        for name in ("ff1", "ff2"):
+            w.linear(f"graph.{name}", "graph", name)
+    if "cross" in params:
+        w.flax_mha("cross.cross", "cross", "cross")
+        w.norm("cross.ln", "cross", "ln")
+    if "fusion" in params:
+        for name in ("mu", "logvar"):
+            w.linear(f"fusion.{name}", "fusion", name)
+    w.linear("cls1", "cls1")
+    w.linear("cls2", "cls2")
+    return w.state

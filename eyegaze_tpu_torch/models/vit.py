@@ -20,12 +20,14 @@ from_checkpoint`` serves bfloat16).  Parameters stay float32; the patch
 embed, every Dense, the CLS token and the positions compute in ``dtype``;
 each LayerNorm runs in float32 and returns float32 (Flax's with float32
 parameters), and the residual stream stays in ``dtype``.  The attention is
-Flax's ``dot_product_attention``, not the package's ``MultiHeadAttention``:
-q is divided by sqrt(head dim) in ``dtype`` before the product, and the
-scores, the softmax and the weights are in ``dtype``, so in bf16 each is
-rounded to bf16 (``force_fp32_for_softmax`` is off); in training,
-dropout falls on those weights (Flax's ``dropout_rate``).  Its 197 tokens go
-to no attention kernel.  Outputs are float32.
+Flax's ``dot_product_attention`` (``dot_product_attention`` here), not the
+package's ``MultiHeadAttention``: q is divided by sqrt(head dim) in
+``dtype`` before the product, and the scores, the softmax and the weights
+are in ``dtype``, so in bf16 each is rounded to bf16
+(``force_fp32_for_softmax`` is off); in training, dropout falls on those
+weights as Flax's ``broadcast_dropout`` drops them: one keep-mask of shape
+(1, 1, Tq, Tk) per call, shared by every batch row and head.  Its 197
+tokens go to no attention kernel.  Outputs are float32.
 """
 
 from __future__ import annotations
@@ -57,6 +59,25 @@ def _softmax(x: torch.Tensor) -> torch.Tensor:
     return e / e.sum(dim=-1, keepdim=True)
 
 
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          dropout: float = 0.0) -> torch.Tensor:
+    """Flax's ``dot_product_attention`` on (B, H, Tq, hd) queries and (B, H,
+    Tk, hd) keys and values, all in the compute type: q divided by
+    sqrt(hd) in that type, the scores and ``_softmax`` in it, then, where
+    ``dropout`` > 0, the weights times ``keep / keep_prob`` (both in the
+    compute type, so ``keep_prob`` 0.9 is 0.8984375 in bf16), ``keep`` one
+    Bernoulli(``keep_prob``) mask of shape (1, 1, Tq, Tk) drawn from the
+    device's default generator (``broadcast_dropout=True``); then the
+    product with v.  Pass ``dropout`` 0 outside training."""
+    q = q / torch.tensor(math.sqrt(q.shape[-1]), dtype=torch.float32).to(q.dtype)
+    p = _softmax(torch.matmul(q, k.transpose(-1, -2)))  # (B, H, Tq, Tk)
+    if dropout > 0.0:
+        keep_prob = 1.0 - dropout
+        keep = torch.rand(p.shape[-2:], device=p.device) < keep_prob
+        p = p * (keep.to(p.dtype) / torch.tensor(keep_prob, dtype=p.dtype, device=p.device))
+    return torch.matmul(p, v)
+
+
 class PatchEmbed(nn.Module):
     """timm's patch embedding: ``proj``, a Conv2d(C, E, p, stride p), on
     (B, C, H, W) -> (B, N, E) patch tokens in row order, in ``dtype`` as
@@ -86,7 +107,8 @@ class PatchEmbed(nn.Module):
 
 class Attention(nn.Module):
     """Flax's ``MultiHeadDotProductAttention`` over one input, with timm's
-    fused ``qkv`` and ``proj`` projections."""
+    fused ``qkv`` and ``proj`` projections; ``dropout`` falls on the
+    attention weights in training (``dot_product_attention``)."""
 
     def __init__(self, dim: int, num_heads: int, dropout: float = 0.0, *,
                  device: torch.device, dtype: torch.dtype = torch.float32):
@@ -96,15 +118,14 @@ class Attention(nn.Module):
         self.num_heads = num_heads
         self.qkv = Dense(dim, 3 * dim, device=device, dtype=dtype)
         self.proj = Dense(dim, dim, device=device, dtype=dtype)
-        self.drop = nn.Dropout(dropout)
+        self.dropout = dropout
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, dim = x.shape
-        hd = dim // self.num_heads
-        q, k, v = self.qkv(x).reshape(b, t, 3, self.num_heads, hd).permute(2, 0, 3, 1, 4)
-        q = q / torch.tensor(math.sqrt(hd), dtype=torch.float32).to(q.dtype)
-        p = self.drop(_softmax(torch.matmul(q, k.transpose(-1, -2))))  # (B, H, T, T) in dtype
-        return self.proj(torch.matmul(p, v).transpose(1, 2).reshape(b, t, dim))
+        q, k, v = self.qkv(x).reshape(b, t, 3, self.num_heads, dim // self.num_heads).permute(
+            2, 0, 3, 1, 4)
+        o = dot_product_attention(q, k, v, self.dropout if self.training else 0.0)
+        return self.proj(o.transpose(1, 2).reshape(b, t, dim))
 
 
 class Mlp(nn.Module):

@@ -101,8 +101,11 @@ def power_spectrum(x: torch.Tensor):
 
 
 def hann_window(n: int, device: torch.device) -> torch.Tensor:
-    """Periodic Hann window, torch.hann_window's default."""
-    return torch.hann_window(n, periodic=True, dtype=torch.float32, device=device)
+    """Periodic Hann window, torch.hann_window's default, computed on the CPU
+    and copied to ``device``: the card's cosine differs in the last bit, so
+    a model built on the card and one built on the CPU and moved there
+    would take other spectrograms."""
+    return torch.hann_window(n, periodic=True, dtype=torch.float32).to(device)
 
 
 def stft(x: torch.Tensor, n_fft: int = 128, hop_length: int = 64,

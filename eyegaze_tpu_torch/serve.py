@@ -2,11 +2,11 @@
 
     python -m eyegaze_tpu_torch.serve --checkpoint model.pt [--dynamic-batch]
 
-The counterpart of the JAX package's ``scripts/serve.py`` for the kinds the
-port serves, ``eeg`` (the flagship ``Predictor``), ``gaze`` (the early- and
+The counterpart of the JAX package's ``scripts/serve.py``, with all its
+kinds: ``eeg`` (the flagship ``Predictor``), ``gaze`` (the early- and
 late-fusion ViTs and the datafusion ViT, ``GazePredictor``), ``art``
-(``ArtDenoiser``) and ``multimodal`` (the fuzzy-gating composite,
-``MultimodalPredictor``).  It
+(``ArtDenoiser``), ``multimodal`` (the fuzzy-gating composite,
+``MultimodalPredictor``) and ``hypereeg`` (``HyperEEGPredictor``).  It
 loads one checkpoint with ``from_checkpoint`` (bf16 compute; ``model.pt`` is
 the reference-named state_dict that ``scripts/export_torch_checkpoint.py``
 writes, with the orbax checkpoint's ``.meta.json`` copied to
@@ -28,6 +28,7 @@ Inputs, batched on the leading axis, any N:
   art         noisy                    (N, C, T) float32
   multimodal  img1, img2, eeg1, eeg2   the gaze pairs and (N, C, T) float32
                                        EEG windows
+  hypereeg    eeg1, eeg2               (N, C, T) float32 windowed pairs
 
 It serves on a CUDA card unless ``--device cpu`` is passed; without a card
 it stops at once.  Device work is serialised by one lock (or by the dynamic
@@ -51,9 +52,9 @@ import torch
 from eyegaze_tpu_torch import serving
 
 REQUIRED_INPUTS = {"eeg": ("eeg1", "eeg2"), "gaze": ("img1", "img2"), "art": ("noisy",),
-                   "multimodal": ("img1", "img2", "eeg1", "eeg2")}
-# Kinds the JAX package serves that the port does not serve yet.
-NOT_PORTED = ("hypereeg",)
+                   "multimodal": ("img1", "img2", "eeg1", "eeg2"), "hypereeg": ("eeg1", "eeg2")}
+# Kinds the JAX package serves that the port does not serve yet: none left.
+NOT_PORTED = ()
 
 
 def sniff_kind(state_path: Path) -> str:
@@ -63,7 +64,7 @@ def sniff_kind(state_path: Path) -> str:
     state_dict's keys: the composite's ``gaze_encoder.``, ART's
     reconstructor, a fusion ViT's ``backbone.`` or ``encoder.``, the
     flagship's positional table, a bare (datafusion) ViT's root-level patch
-    embed."""
+    embed, HyperEEG's temporal block and classifier."""
     mc = serving.read_meta(state_path).get("config", {}).get("model", {})
     if mc:
         if "multimodal" in mc:
@@ -86,8 +87,11 @@ def sniff_kind(state_path: Path) -> str:
         return "eeg"
     if "cls_token" in state and "patch_embed.proj.weight" in state:
         return "gaze"
+    if "temporal.proj.weight" in state and "cls1.weight" in state:
+        return "hypereeg"
     raise SystemExit(f"cannot tell the kind of {state_path} (no meta, and its keys are not the "
-                     "flagship's, a gaze ViT's, ART's or the composite's); pass --kind")
+                     "flagship's, a gaze ViT's, ART's, the composite's or HyperEEG's); pass "
+                     "--kind")
 
 
 def build_predictor(kind: str, state_path: Path, buckets, device: torch.device):
@@ -95,7 +99,8 @@ def build_predictor(kind: str, state_path: Path, buckets, device: torch.device):
         raise SystemExit(f"kind {kind!r} is not yet ported to eyegaze_tpu_torch; it serves "
                          f"{sorted(REQUIRED_INPUTS)}")
     cls = {"eeg": serving.Predictor, "gaze": serving.GazePredictor,
-           "art": serving.ArtDenoiser, "multimodal": serving.MultimodalPredictor}[kind]
+           "art": serving.ArtDenoiser, "multimodal": serving.MultimodalPredictor,
+           "hypereeg": serving.HyperEEGPredictor}[kind]
     return cls.from_checkpoint(state_path, device=device, batch_buckets=tuple(buckets))
 
 
@@ -110,7 +115,7 @@ def input_spec(kind: str, predictor) -> dict:
     if kind == "multimodal":
         return {**{k: ["N", 3, m.img_size, m.img_size] for k in ("img1", "img2")},
                 **{k: ["N", m.eeg_in_channels, "T"] for k in ("eeg1", "eeg2")}}
-    return {k: ["N", m.in_channels, "T"] for k in ("eeg1", "eeg2")}
+    return {k: ["N", m.in_channels, "T"] for k in ("eeg1", "eeg2")}  # eeg, hypereeg
 
 
 class _HTTPServer(ThreadingHTTPServer):

@@ -1,9 +1,10 @@
-"""Serving: the DualEEGTransformer, the gaze ViTs, the ART denoiser and the
-multimodal composite on one device behind bucketed batching, and the
-dynamic batcher that coalesces concurrent requests.
+"""Serving: the DualEEGTransformer, the gaze ViTs, the ART denoiser, the
+multimodal composite and HyperEEG on one device behind bucketed batching,
+and the dynamic batcher that coalesces concurrent requests.
 
 Port of ``eyegaze_tpu/serving.py::Predictor``, ``GazePredictor``,
-``ArtDenoiser``, ``MultimodalPredictor`` and ``DynamicBatcher``.  Request batches are zero-padded up to the next bucket
+``ArtDenoiser``, ``MultimodalPredictor``, ``HyperEEGPredictor`` and
+``DynamicBatcher``.  Request batches are zero-padded up to the next bucket
 size, so the device sees a fixed set of batch shapes; above the largest
 bucket a request is chunked, and padding rows are stripped from the
 outputs.  The model runs in ``eval()`` under ``torch.inference_mode()``.
@@ -36,6 +37,8 @@ from eyegaze_tpu_torch.data.image_fusion import (
 )
 from eyegaze_tpu_torch.models.art import ArtConfig, ArtifactRemovalTransformer
 from eyegaze_tpu_torch.models.dual_eeg import DualEEGTransformer
+from eyegaze_tpu_torch.models.hypereeg import FIELDS as HYPEREEG_FIELDS
+from eyegaze_tpu_torch.models.hypereeg import HyperEEGEncoder
 from eyegaze_tpu_torch.models.multimodal import FIELDS as MULTIMODAL_FIELDS
 from eyegaze_tpu_torch.models.multimodal import MultimodalFusionModel
 from eyegaze_tpu_torch.models.vit import EarlyFusionViT, LateFusionViT, VisionTransformer
@@ -445,6 +448,73 @@ class MultimodalPredictor:
         result.update(img_logits=out["img_logits"], eeg_logits=out["eeg_logits"],
                       alpha=out["alpha"])
         return result
+
+
+class HyperEEGPredictor:
+    """Bucketed predictor for HyperEEG on one device: (N, C, T) windowed EEG
+    pairs in, logits out (``python -m eyegaze_tpu_torch.serve --kind
+    hypereeg``).  The windows go to the model as they come: HyperEEG's
+    forward has no CAR or z-score."""
+
+    def __init__(self, model: HyperEEGEncoder, *, device: torch.device,
+                 batch_buckets: Sequence[int] = (1, 8, 32)):
+        self.device = torch.device(device)
+        self.model = model.to(self.device).eval()
+        self.buckets = tuple(sorted(batch_buckets))
+
+    @classmethod
+    def from_checkpoint(cls, state_path, *, device: torch.device, meta_path=None,
+                        **kwargs) -> "HyperEEGPredictor":
+        """The counterpart of the JAX ``HyperEEGPredictor.from_checkpoint`` on
+        a port checkpoint (``python -m eyegaze_tpu_torch.train_hypereeg``'s
+        ``best_model.pt``).  The constructor's fields come from the meta's
+        ``model.hypereeg`` stamp; without it they are inferred as JAX infers
+        them: ``embed_dim`` from ``cls1``'s input width, ``num_classes`` from
+        ``cls2``'s rows, ``use_graph``, ``use_cross_attn`` and
+        ``use_uncertainty`` from whether the submodule is there, ``use_sinc``
+        from whether ``temporal.sinc.low_hz`` is, the rest at their defaults.
+        bf16 compute, the state_dict loaded with ``strict=True``.
+        ``load_checkpoint`` says what the paths hold."""
+        state, meta = load_checkpoint(state_path, meta_path)
+        mc = meta.get("config", {}).get("model", {})
+        if mc.get("hypereeg"):
+            kw = {k: v for k, v in mc["hypereeg"].items() if k in HYPEREEG_FIELDS}
+        else:
+            if "cls1.weight" not in state or "temporal.proj.weight" not in state:
+                raise ValueError("not a hypereeg state_dict: no cls1.weight or "
+                                 "temporal.proj.weight")
+
+            def has(prefix: str) -> bool:
+                return any(k.startswith(prefix) for k in state)
+
+            kw = dict(embed_dim=int(state["cls1.weight"].shape[1]),
+                      num_classes=int(state["cls2.weight"].shape[0]),
+                      use_graph=has("graph."), use_cross_attn=has("cross."),
+                      use_uncertainty=has("fusion."), use_sinc="temporal.sinc.low_hz" in state)
+        model = HyperEEGEncoder(**kw, device=torch.device("cpu"),
+                                generator=torch.Generator().manual_seed(0), dtype=torch.bfloat16)
+        model.load_state_dict(state, strict=True)
+        return cls(model, device=device, **kwargs)
+
+    @torch.inference_mode()
+    def _forward(self, eeg1: torch.Tensor, eeg2: torch.Tensor) -> torch.Tensor:
+        return self.model(eeg1.float(), eeg2.float())["logits"]
+
+    def warmup(self, c: int | None = None, t: int = 1024) -> None:
+        """Run every bucket once on zero (N, c, t) windows, ``c`` the
+        model's ``in_channels`` by default."""
+        c = c or self.model.in_channels
+        for b in self.buckets:
+            z = torch.zeros((b, c, t), dtype=torch.float32, device=self.device)
+            self._forward(z, z)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def predict(self, eeg1, eeg2) -> Dict[str, np.ndarray]:
+        """(N, C, T) windowed pairs, numpy or tensors -> {'logits', 'probs',
+        'preds', 'labels'} for any N."""
+        logits = _predict_batched(self._forward, self.buckets, eeg1, eeg2, device=self.device)
+        return _logits_to_output(logits)
 
 
 def _logits_to_output(logits: np.ndarray) -> Dict[str, np.ndarray]:

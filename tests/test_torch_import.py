@@ -9,6 +9,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 import eyegaze_tpu_torch
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -31,7 +33,9 @@ def test_port_imports_without_jax():
             "eyegaze_tpu_torch.data.images", "eyegaze_tpu_torch.data.gaze_augment",
             "eyegaze_tpu_torch.convert_gaze_images", "eyegaze_tpu_torch.train_gaze",
             "eyegaze_tpu_torch.models.fuzzy_fusion",
-            "eyegaze_tpu_torch.models.multimodal"} <= set(modules)
+            "eyegaze_tpu_torch.models.multimodal", "eyegaze_tpu_torch.train_multimodal",
+            "eyegaze_tpu_torch.models.hypereeg", "eyegaze_tpu_torch.data.augment",
+            "eyegaze_tpu_torch.train_hypereeg"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "for banned in ('jax', 'flax', 'optax', 'orbax', 'eyegaze_tpu'):\n"
@@ -115,6 +119,22 @@ def test_train_gaze_fails_without_cuda_unless_asked_for_the_cpu():
                         "configs/gaze_earlyfusion.yaml", "--tiny"], cwd=ROOT,
                        capture_output=True, text=True, timeout=300,
                        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert r.returncode != 0
+    assert "needs a CUDA device" in r.stderr and "--device cpu" in r.stderr
+    assert "[model]" not in r.stdout
+
+
+@pytest.mark.parametrize("argv", [
+    ["eyegaze_tpu_torch.train_multimodal", "--config", "configs/multimodal_fuzzy_fusion.yaml",
+     "--tiny"],
+    ["eyegaze_tpu_torch.train_hypereeg", "--tiny"],
+], ids=["train_multimodal", "train_hypereeg"])
+def test_multimodal_and_hypereeg_training_fail_without_cuda_unless_asked_for_the_cpu(argv):
+    """The multimodal and HyperEEG training entry points train on the card
+    by default (the YAML's "tpu" included); without one they stop before
+    they build anything."""
+    r = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT, capture_output=True, text=True,
+                       timeout=300, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert r.returncode != 0
     assert "needs a CUDA device" in r.stderr and "--device cpu" in r.stderr
     assert "[model]" not in r.stdout

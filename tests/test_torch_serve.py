@@ -329,13 +329,10 @@ def test_sniff_kind_without_meta(eeg_checkpoint, art_checkpoint, tmp_path):
 
 @pytest.mark.parametrize("kind", ["multimodal", "hypereeg"])
 def test_unported_kind_is_refused(eeg_checkpoint, kind):
-    """A kind the port does not serve (hypereeg) is refused by name; the
-    multimodal kind, served since the composite's port, refuses an EEG
-    checkpoint by its keys."""
+    """Every kind of the JAX package is served now (``NOT_PORTED`` is
+    empty); the multimodal and hypereeg kinds refuse an EEG checkpoint by
+    its keys."""
+    assert serve.NOT_PORTED == ()
     argv = ["--checkpoint", str(eeg_checkpoint), "--kind", kind, "--device", "cpu"]
-    if kind in serve.NOT_PORTED:
-        with pytest.raises(SystemExit, match="not yet ported"):
-            serve.main(argv)
-    else:
-        with pytest.raises(ValueError, match="not a multimodal state_dict"):
-            serve.main(argv)
+    with pytest.raises(ValueError, match=f"not a {kind} state_dict"):
+        serve.main(argv)
