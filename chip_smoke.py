@@ -186,6 +186,25 @@ instance with none, fails the run.  Then, each phase raising on any failure:
    time, peak memory, kernels per step, busy share; ``train_hypereeg.run``
    for one epoch served back by ``HyperEEGPredictor.from_checkpoint``
    within 2**-5 of the largest |logit| of the trainer's eval logits.
+27. The offline EEG pipeline's first stages: 32 synthetic trial pairs at
+   (32, 3250) written as CSVs (channel-major, two time-major) with
+   ``synthetic_metadata``'s records, through ``preprocess_eeg_raw`` (the
+   native loader in use, CSVs per second, every trial within the CSV's six
+   decimals of its source); its two splits saved as the trial arrays
+   ``preprocess_eeg_windows`` reads, which runs on the card and with
+   ``--device cpu``: windows within 1e-3, labels, pairs and metadata equal.
+28. ``extract_eeg_features`` on 256 synthetic pairs at (32, 3250), fs 250,
+   after a warm-up run at each chunk size: ``--trial-chunk`` 8 and 1, two
+   runs each in turns, with their end-to-end trials per second
+   (asynchronous writes), the
+   CUDA-event ms of one chunk's features, kernels per chunk and busy share
+   from one profiled chunk and the projected wall time for the dataset's
+   4,463 trials; every file's arrays at their byte sizes, chunk 8 against
+   chunk 1 and against ``--device cpu`` on 4 trials at the test bounds;
+   ``--resume`` after deleting 3 files writes exactly those 3; then
+   ``spectral_entropy`` on (256, 32, 3250) and ``spatial_entropy`` on 16
+   float heatmaps at (1583, 3000, 3), card against CPU.  Neither phase
+   launches a kernel of the port.
 
 Every phase runs in float32 (TF32 off) unless it says bf16.  There is no
 CPU fallback: without a CUDA device the script exits non-zero and prints no
@@ -405,6 +424,34 @@ HYPEREEG_TRAIN_LR = 5e-4
 # float32 ulp, 7.6e-6, is 0.76% of HyperEEG's 2 lr = 1e-3, inside the step
 # bound's 1% (``check_step_parity``).
 HYPEREEG_PARAM_LIMIT = 64.0
+
+# The offline EEG pipeline (phases 27-28) at the recorded trial shape: 32
+# channels x 3,250 samples at 250 Hz, seeded synthetic trials.
+OFFLINE_FS = 250.0
+CSV_TRIALS = 32
+CSV_TIME_MAJOR = ((3, "player1"), (22, "player2"))  # a train and a validation file
+WINDOWS_TOL = 1e-3  # tests/test_torch_ops.py::test_preprocess_eeg_matches_jax
+FEATURE_TRIALS = 256
+FEATURE_CHUNKS = (8, 1)
+FEATURE_PARITY_TRIALS = 4
+FEATURE_WARMUP_TRIALS = 16  # run first at each chunk size, so that the timed runs are warm
+FEATURE_ROUNDS = 2
+FEATURE_ROW_CHUNK = 8
+RESUME_DELETED = (5, 100, 255)
+DATASET_TRIALS = 4463  # trials of the recorded dataset: the projected wall time
+# One trial's npz arrays: psd (2, 32, 129), band_energy (2, 32, 5), intra
+# (2, 7, 5, 32, 32), inter (7, 5, 32, 32), float32.
+FEATURE_BYTES = {"psd": 33_024, "band_energy": 1_280, "intra": 286_720, "inter": 143_360}
+# tests/test_torch_features.py's bounds: PSD and band energy 1e-3 relative
+# and 1e-5 absolute; pearson, power_corr, PLV, coherence 1e-3 absolute;
+# phase_diff 1e-2 rad wrapped where PLV >= 1e-2; PLI and wPLI (means of
+# signs) 0.1 at most and 1e-2 on average; intra PLI 0 on the diagonal.
+# Between chunkings tests/test_scripts.py's: 0.08 for intra and inter, 1e-3
+# for the rest.
+CHUNK_TOL = {"intra": 0.08, "inter": 0.08}
+SPECTRAL_ENTROPY_TOL = 1e-4  # bits, tests/test_torch_entropy.py
+SPATIAL_ENTROPY_RTOL = 1e-5
+HEATMAPS, HEATMAP_SHAPE = 16, (1583, 3000)  # the native gaze heatmap, (H, W, 3)
 
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # HBM bytes per second and dense operations per second by type.
@@ -1308,8 +1355,13 @@ def profile_steps(step, n: int = PROFILED_STEPS) -> dict:
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.device_time for e in kernels) / 1e3
     k1 = sum(e.device_time for e in kernels if "phase_metrics_kernel" in e.name) / 1e3
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return {"kernels_per_call": len(kernels) / n, "busy_share": busy / wall,
-            "kernel_ms_per_call": busy / n, "wall_ms_per_call": wall / n, "k1_ms_per_call": k1 / n}
+            "kernel_ms_per_call": busy / n, "wall_ms_per_call": wall / n, "k1_ms_per_call": k1 / n,
+            "top_kernels": [(name[:60], ms / max(busy, 1e-9)) for name, ms in top]}
 
 
 def assert_no_port_kernel(name: str) -> None:
@@ -2482,6 +2534,304 @@ def hypereeg_train_serve_phase(device, tmp: Path) -> None:
                            f"training's: {gap:.3e}")
 
 
+
+def offline_raw_windows_phase(device, tmp: Path) -> None:
+    """``preprocess_eeg_raw`` on CSV_TRIALS synthetic pairs at (32, 3250)
+    written as CSVs (channel-major, two time-major) with
+    ``synthetic_metadata``'s records; the native loader must be in use, and
+    every trial must come back within the CSV's six decimals.  Then the two
+    splits, saved as the trial arrays ``preprocess_eeg_windows`` reads,
+    through it on the card and with ``--device cpu``: windows within 1e-3,
+    labels, pairs and metadata equal."""
+    from eyegaze_tpu_torch import preprocess_eeg_raw, preprocess_eeg_windows
+    from eyegaze_tpu_torch.data import native
+    from eyegaze_tpu_torch.data.synthetic import synthetic_eeg_pair_dataset, synthetic_metadata
+
+    meta = synthetic_metadata(CSV_TRIALS, seed=27)
+    data = synthetic_eeg_pair_dataset(CSV_TRIALS, C=CHANNELS, T=RAW_SAMPLES, fs=OFFLINE_FS,
+                                      seed=27)
+    csv_dir = tmp / "csv"
+    csv_dir.mkdir()
+    for i, m in enumerate(meta):
+        for player, eeg in (("player1", data["eeg1"]), ("player2", data["eeg2"])):
+            arr = eeg[i].T if (i, player) in CSV_TIME_MAJOR else eeg[i]
+            np.savetxt(csv_dir / f"{m[player]}.csv", arr, delimiter=",", fmt="%.6f")
+    (tmp / "metadata.json").write_text(json.dumps(meta))
+    raw = tmp / "raw"
+    t0 = time.perf_counter()
+    if preprocess_eeg_raw.main(["--metadata", str(tmp / "metadata.json"), "--eeg-dir",
+                                str(csv_dir), "--output-dir", str(raw)]) != 0:
+        raise RuntimeError("preprocess_eeg_raw failed")
+    raw_s = time.perf_counter() - t0
+    if not native.native_available():
+        raise RuntimeError("preprocess_eeg_raw parsed the CSVs without the native loader")
+    arrays = {}
+    for split in ("train", "val"):
+        idx = json.loads((raw / f"{split}_metadata.json").read_text())["metadata_indices"]
+        for k in (1, 2):
+            got, want = np.load(raw / f"{split}_eeg{k}.npy"), data[f"eeg{k}"][idx]
+            tol = 5e-7 + float(np.spacing(np.abs(want).max()))  # six decimals, then float32
+            gap = float(np.abs(got - want).max())
+            if got.shape != (len(idx), CHANNELS, RAW_SAMPLES) or not gap <= tol:
+                raise RuntimeError(f"preprocess_eeg_raw, {split} eeg{k}: shape {got.shape}, "
+                                   f"max |diff| {gap:.3e} over {tol:.3e}")
+        arrays[split] = {name: np.load(raw / f"{split}_{name}.npy")
+                         for name in ("eeg1", "eeg2", "labels", "pairs")}
+    n_train, n_val = len(arrays["train"]["labels"]), len(arrays["val"]["labels"])
+    if n_train + n_val != CSV_TRIALS:
+        raise RuntimeError(f"preprocess_eeg_raw kept {n_train} + {n_val} trials")
+    print(f"preprocess_eeg_raw: {2 * CSV_TRIALS} CSVs of (32, 3250) ({len(CSV_TIME_MAJOR)} "
+          f"time-major) in {raw_s:.3f} s, {2 * CSV_TRIALS / raw_s:.1f} CSVs/s, native loader "
+          f"{native.native_available()}; {n_train} train + {n_val} val trials, each within the "
+          "CSV's six decimals of its source")
+
+    trials = tmp / "trials"
+    trials.mkdir()
+    for name in ("eeg1", "eeg2", "labels", "pairs"):
+        np.save(trials / f"{name}.npy", np.concatenate([arrays[s][name] for s in arrays]))
+    walls = {}
+    for run in ("first card", "cpu", "card"):  # the first run makes the host constants
+        t0 = time.perf_counter()
+        if preprocess_eeg_windows.main(["--input-dir", str(trials), "--output-dir",
+                                        str(tmp / f"windows_{run.split()[-1]}"), "--device",
+                                        "cpu" if run == "cpu" else device.type]) != 0:
+            raise RuntimeError(f"preprocess_eeg_windows ({run}) failed")
+        walls[run] = time.perf_counter() - t0
+    gaps = {}
+    for split in ("train", "val"):
+        card, cpu = tmp / "windows_card", tmp / "windows_cpu"
+        for k in (1, 2):
+            got, want = (np.load(d / f"{split}_eeg{k}.npy") for d in (card, cpu))
+            gaps[f"{split}_eeg{k}"] = gap = float(np.abs(got - want).max())
+            if got.shape != want.shape or got.shape[1:] != (CHANNELS, WINDOW) or not (
+                    np.isfinite(got).all() and gap <= WINDOWS_TOL):
+                raise RuntimeError(f"preprocess_eeg_windows, {split} eeg{k}: card vs CPU "
+                                   f"{got.shape} / {want.shape}, max |diff| {gap:.3e}")
+        for name in (f"{split}_labels.npy", f"{split}_pairs.npy", f"{split}_metadata.json"):
+            if (card / name).read_bytes() != (cpu / name).read_bytes():
+                raise RuntimeError(f"preprocess_eeg_windows: {name} differs card vs CPU")
+    windows = len(np.load(tmp / "windows_card" / "train_labels.npy"))
+    print(f"preprocess_eeg_windows (stride 256, window 1024, pair split): {windows} train "
+          f"windows; wall {walls['card']:.3f} s on {device} ({walls['first card']:.3f} s the first "
+          f"time), {walls['cpu']:.3f} s with --device cpu; card vs CPU max |diff| {max(gaps.values()):.3e} (bound {WINDOWS_TOL:g}); "
+          "labels, pairs and metadata equal")
+
+
+def assert_features_close(name: str, got, want, *, chunking: bool = False) -> dict:
+    """One trial's npz against another at the card-vs-CPU bounds (or, with
+    ``chunking``, at the bounds between chunkings); returns the largest gaps."""
+    if got.files != want.files:
+        raise RuntimeError(f"{name}: arrays {got.files} against {want.files}")
+    gaps = {}
+    for k in got.files:
+        g, w = got[k], want[k]
+        if g.shape != w.shape or g.dtype != w.dtype or not np.isfinite(g).all():
+            raise RuntimeError(f"{name}:{k}: {g.shape} {g.dtype} against {w.shape} {w.dtype}")
+        if k in ("label", "pair"):
+            if g != w:
+                raise RuntimeError(f"{name}:{k}: {g} against {w}")
+            continue
+        gaps[k] = float(np.abs(g - w).max())
+        if chunking:
+            ok = gaps[k] <= CHUNK_TOL.get(k, 1e-3)
+        elif k in ("psd", "band_energy"):
+            ok = bool(np.all(np.abs(g - w) <= 1e-5 + 1e-3 * np.abs(w)))
+        else:
+            ok = metrics_close(g, w, intra=k == "intra", gaps=gaps)
+        if not ok:
+            raise RuntimeError(f"{name}:{k}: over the bound, gaps {gaps}")
+    return gaps
+
+
+def metrics_close(got: np.ndarray, want: np.ndarray, *, intra: bool, gaps: dict) -> bool:
+    """(..., 7, 5, C, C) at tests/test_torch_features.py's bounds, the
+    largest gap of each metric into ``gaps``."""
+    from eyegaze_tpu_torch.ops.features import METRIC_NAMES
+
+    ok = True
+    off = ~np.eye(got.shape[-1], dtype=bool)
+    for m, name in enumerate(METRIC_NAMES):
+        g, w = got[..., m, :, :, :], want[..., m, :, :, :]
+        if name == "phase_diff":
+            defined = want[..., METRIC_NAMES.index("plv"), :, :, :] >= 1e-2
+            gap = np.abs(np.angle(np.exp(1j * (g - w))))[defined]
+            ok &= bool(defined.any()) and gap.max() <= 1e-2
+        elif name in ("pli", "wpli"):
+            if intra and name == "pli":
+                ok &= bool((g[..., ~off] == 0).all() and (w[..., ~off] == 0).all())
+                g, w = g[..., off], w[..., off]
+            gap = np.abs(g - w)
+            ok &= gap.max() <= 0.1 and gap.mean() <= 1e-2
+        else:
+            gap = np.abs(g - w)
+            ok &= gap.max() <= 1e-3
+        gaps[f"{name}{' intra' if intra else ''}"] = float(gap.max())
+    return ok
+
+
+def offline_features_phase(device, tmp: Path) -> dict:
+    """``extract_eeg_features`` on FEATURE_TRIALS synthetic pairs at (32,
+    3250), fs 250, read through ``--input-dir``, at ``--trial-chunk`` 8 and 1
+    on the card: end-to-end trials per second, CUDA-event ms of one chunk's
+    features, kernels per chunk and busy share from one profiled chunk, the
+    projected wall time for DATASET_TRIALS trials; every file's arrays at
+    their shapes, chunk 8 against chunk 1 on FEATURE_PARITY_TRIALS trials at
+    the chunking bounds and against the CPU path (``--device cpu``) at the
+    test bounds.  ``--resume`` after deleting RESUME_DELETED's files writes
+    exactly those.  Then ``spectral_entropy`` on all the trials' first
+    streams and ``spatial_entropy`` on HEATMAPS float heatmaps at (1583,
+    3000, 3), card against CPU.  Returns the numbers."""
+    from eyegaze_tpu_torch import extract_eeg_features
+    from eyegaze_tpu_torch.data.synthetic import synthetic_eeg_pair_dataset
+
+    data = synthetic_eeg_pair_dataset(FEATURE_TRIALS, C=CHANNELS, T=RAW_SAMPLES, fs=OFFLINE_FS,
+                                      seed=28)
+    inputs = {"eeg1": data["eeg1"], "eeg2": data["eeg2"], "labels": data["label"],
+              "pairs": data["pair"]}
+    trials, parity_in, warm_in = tmp / "trials", tmp / "parity_trials", tmp / "warmup_trials"
+    for d, n in ((trials, FEATURE_TRIALS), (parity_in, FEATURE_PARITY_TRIALS),
+                 (warm_in, FEATURE_WARMUP_TRIALS)):
+        d.mkdir()
+        for name, arr in inputs.items():
+            np.save(d / f"{name}.npy", arr[:n])
+    t0 = time.perf_counter()
+    for chunk in FEATURE_CHUNKS:  # the first calls at each chunk's shapes
+        if extract_eeg_features.main(["--input-dir", str(warm_in), "--output-dir",
+                                      str(tmp / f"warmup_{chunk}"), "--trial-chunk", str(chunk),
+                                      "--device", device.type]) != 0:
+            raise RuntimeError(f"extract_eeg_features --trial-chunk {chunk} failed")
+    print(f"extract_eeg_features, first calls in the process ({FEATURE_WARMUP_TRIALS} trials at "
+          f"each chunk size: FFT plans, filter constants, memory pools): "
+          f"{time.perf_counter() - t0:.3f} s")
+    walls = {chunk: [] for chunk in FEATURE_CHUNKS}
+    for rnd in range(FEATURE_ROUNDS):  # in turns: the host's pace drifts
+        for chunk in FEATURE_CHUNKS:
+            d = tmp / f"features_{chunk}" if rnd == 0 else tmp / f"features_{chunk}_{rnd}"
+            t0 = time.perf_counter()
+            if extract_eeg_features.main(["--input-dir", str(trials), "--output-dir", str(d),
+                                          "--trial-chunk", str(chunk), "--device",
+                                          device.type]) != 0:
+                raise RuntimeError(f"extract_eeg_features --trial-chunk {chunk} failed")
+            walls[chunk].append(time.perf_counter() - t0)
+            names = sorted(p.name for p in d.glob("trial_*.npz"))
+            if names != [f"trial_{i:05d}.npz" for i in range(FEATURE_TRIALS)]:
+                raise RuntimeError(f"extract_eeg_features --trial-chunk {chunk}: {len(names)} "
+                                   "files")
+            for name in (names[0], names[-1]):
+                f = np.load(d / name)
+                sizes = {k: f[k].nbytes for k in FEATURE_BYTES}
+                if sizes != FEATURE_BYTES or f["intra"].shape != (2, 7, 5, CHANNELS, CHANNELS):
+                    raise RuntimeError(f"{name}: array bytes {sizes}")
+    out = {}
+    for chunk in FEATURE_CHUNKS:
+        e1, e2 = (torch.from_numpy(data[k][:chunk]).to(device) for k in ("eeg1", "eeg2"))
+
+        def features():
+            return extract_eeg_features.chunk_features(e1, e2, OFFLINE_FS, FEATURE_ROW_CHUNK)
+
+        features()
+        device_ms = statistics.median(cuda_ms(features, 5))
+        prof = profile_steps(lambda: (features(), torch.cuda.synchronize()), n=1)
+        rates = [FEATURE_TRIALS / w for w in walls[chunk]]
+        rate = statistics.median(rates)
+        out[chunk] = {"trials_per_s_runs": rates, "trials_per_s": rate,
+                      "device_ms_per_chunk": device_ms,
+                      "kernels_per_chunk": prof["kernels_per_call"],
+                      "busy_share": prof["busy_share"],
+                      "kernel_ms_per_chunk": prof["kernel_ms_per_call"],
+                      "wall_ms_per_profiled_chunk": prof["wall_ms_per_call"],
+                      "projected_dataset_s": DATASET_TRIALS / rate}
+        print(f"extract_eeg_features --trial-chunk {chunk}: {FEATURE_TRIALS} trials end to end in "
+              f"{', '.join(f'{w:.3f}' for w in walls[chunk])} s, "
+              f"{', '.join(f'{r:.2f}' for r in rates)} trials/s (projected {DATASET_TRIALS} "
+              f"trials at the median: {DATASET_TRIALS / rate:.1f} s); one chunk's features "
+              f"{device_ms:.3f} ms between CUDA events ({device_ms / chunk:.3f} ms a trial); one "
+              f"profiled chunk {prof['kernels_per_call']:.0f} kernels, "
+              f"{prof['kernel_ms_per_call']:.3f} ms of kernel time in "
+              f"{prof['wall_ms_per_call']:.3f} ms, busy {prof['busy_share']:.1%}; top kernels by "
+              "device time: "
+              + ", ".join(f"{name} {share:.1%}" for name, share in prof["top_kernels"]))
+    card, single = tmp / "features_8", tmp / "features_1"
+    chunk_gaps, cpu_gaps = {}, {}
+    for i in range(FEATURE_PARITY_TRIALS):
+        name = f"trial_{i:05d}.npz"
+        for k, v in assert_features_close(f"chunk 8 vs 1, {name}", np.load(card / name),
+                                          np.load(single / name), chunking=True).items():
+            chunk_gaps[k] = max(chunk_gaps.get(k, 0.0), v)
+    t0 = time.perf_counter()
+    if extract_eeg_features.main(["--input-dir", str(parity_in), "--output-dir",
+                                  str(tmp / "features_cpu"), "--device", "cpu"]) != 0:
+        raise RuntimeError("extract_eeg_features --device cpu failed")
+    cpu_s = time.perf_counter() - t0
+    for i in range(FEATURE_PARITY_TRIALS):
+        name = f"trial_{i:05d}.npz"
+        for k, v in assert_features_close(f"card vs CPU, {name}", np.load(card / name),
+                                          np.load(tmp / "features_cpu" / name)).items():
+            cpu_gaps[k] = max(cpu_gaps.get(k, 0.0), v)
+    print(f"extract_eeg_features, {FEATURE_PARITY_TRIALS} trials: chunk 8 vs chunk 1 max "
+          f"|diff| {json.dumps({k: float(f'{v:.3e}') for k, v in chunk_gaps.items()})}; card vs "
+          f"--device cpu ({cpu_s:.2f} s on the CPU) "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in cpu_gaps.items()})}: within the "
+          "bounds")
+
+    before = {p.name: (p.stat().st_mtime_ns, p.read_bytes()) for p in card.glob("trial_*.npz")}
+    deleted = [f"trial_{i:05d}.npz" for i in RESUME_DELETED]
+    for name in deleted:
+        (card / name).unlink()
+    t0 = time.perf_counter()
+    if extract_eeg_features.main(["--input-dir", str(trials), "--output-dir", str(card),
+                                  "--trial-chunk", "8", "--resume", "--device",
+                                  device.type]) != 0:
+        raise RuntimeError("extract_eeg_features --resume failed")
+    resume_s = time.perf_counter() - t0
+    after = {p.name: (p.stat().st_mtime_ns, p.read_bytes()) for p in card.glob("trial_*.npz")}
+    rewritten = sorted(n for n in after if n not in before or after[n][0] != before[n][0])
+    if sorted(after) != sorted(before) or rewritten != deleted:
+        raise RuntimeError(f"--resume wrote {rewritten}, not {deleted}")
+    same = all(after[n][1] == before[n][1] for n in deleted)
+    print(f"extract_eeg_features --resume after deleting {deleted}: wrote exactly those in "
+          f"{resume_s:.3f} s, byte-identical to the first run's: {same}")
+
+    eeg = torch.from_numpy(data["eeg1"])
+    x = eeg.to(device)
+    from eyegaze_tpu_torch.ops import entropy
+
+    card_h = entropy.spectral_entropy(x, OFFLINE_FS)
+    spectral_ms = statistics.median(cuda_ms(lambda: entropy.spectral_entropy(x, OFFLINE_FS), 3))
+    t0 = time.perf_counter()
+    cpu_h = entropy.spectral_entropy(eeg, OFFLINE_FS)
+    spectral_cpu_s = time.perf_counter() - t0
+    gap = float((card_h.cpu() - cpu_h).abs().max())
+    if card_h.shape != (FEATURE_TRIALS, CHANNELS) or not gap <= SPECTRAL_ENTROPY_TOL:
+        raise RuntimeError(f"spectral_entropy card vs CPU: {tuple(card_h.shape)}, {gap:.3e}")
+    print(f"spectral_entropy on ({FEATURE_TRIALS}, 32, 3250): {spectral_ms:.3f} ms on the card "
+          f"(CUDA events), {spectral_cpu_s:.3f} s on the CPU; card vs CPU max |diff| "
+          f"{gap:.3e} bits (bound {SPECTRAL_ENTROPY_TOL:g}), mean "
+          f"{float(cpu_h.mean()):.4f} bits")
+    del x
+
+    from eyegaze_tpu_torch.data.synthetic import synthetic_gaze_heatmap
+
+    rng = np.random.default_rng(29)
+    maps = torch.from_numpy(np.stack([synthetic_gaze_heatmap(i % 3, *HEATMAP_SHAPE, rng)
+                                      .transpose(1, 2, 0) for i in range(HEATMAPS)]))
+    x = maps.to(device)
+    card_s = entropy.spatial_entropy(x)
+    spatial_ms = statistics.median(cuda_ms(lambda: entropy.spatial_entropy(x), 3))
+    t0 = time.perf_counter()
+    cpu_s_h = entropy.spatial_entropy(maps)
+    spatial_cpu_s = time.perf_counter() - t0
+    gap = float(((card_s.cpu() - cpu_s_h).abs() / cpu_s_h.abs()).max())
+    if card_s.shape != (HEATMAPS,) or not gap <= SPATIAL_ENTROPY_RTOL:
+        raise RuntimeError(f"spatial_entropy card vs CPU: {tuple(card_s.shape)}, {gap:.3e}")
+    print(f"spatial_entropy on {HEATMAPS} float heatmaps {(*HEATMAP_SHAPE, 3)}: {spatial_ms:.3f} ms on "
+          f"the card (CUDA events), {spatial_cpu_s:.3f} s on the CPU; card vs CPU max relative "
+          f"diff {gap:.3e} (bound {SPATIAL_ENTROPY_RTOL:g})")
+    return {"chunks": out, "cpu_gaps": cpu_gaps, "chunk_gaps": chunk_gaps,
+            "resume_byte_identical": same, "spectral_entropy_ms": spectral_ms,
+            "spatial_entropy_ms": spatial_ms}
+
+
 F32_INSTANCES = {(16, 4), (16, 1), (32, 2), (32, 1), (64, 1), (128, 1)}  # (d, rows per thread)
 BF16_HEAD_DIMS = {16, 32, 64, 128}
 
@@ -2695,6 +3045,16 @@ def main() -> None:
         hx_train = hypereeg_train_timed_phase(device)
         hypereeg_train_serve_phase(device, Path(tmp))
         assert_no_port_kernel("HyperEEG serving and training")
+    with tempfile.TemporaryDirectory() as tmp:
+        offline_raw_windows_phase(device, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        offline = offline_features_phase(device, Path(tmp))
+    assert_no_port_kernel("the offline EEG pipeline")
+    print("offline EEG features at (32, 3250), trials/s end to end: "
+          + ", ".join(f"chunk {c} {o['trials_per_s']:.2f} ({o['kernels_per_chunk']:.0f} kernels "
+                      f"a chunk, busy {o['busy_share']:.1%}, {o['device_ms_per_chunk']:.3f} ms "
+                      f"a chunk on the device)" for c, o in offline["chunks"].items())
+          + "; no kernel of the port launched")
     print(f"multimodal composite train step at batch {MM_TRAIN_BATCH}, bf16: median "
           f"{mm_train['median_ms']:.3f} ms, peak {mm_train['peak_bytes'] / 2**30:.3f} GiB, "
           f"{mm_train['kernels_per_call']:.0f} kernels a step, busy "

@@ -6,8 +6,9 @@ first time a CSV is read, into ``eyegaze_tpu_torch/_build/`` (git-ignored),
 named by a hash of the source and the flags, never next to the source.  The
 pure-numpy parser ``numpy_parse`` is its plain twin: where no compiler is
 there, or the build fails, every read goes to it, and ``native_available``
-says which path is in use.  Host code only; the batch loader
-(``load_csv_batch_f32``) waits for HyperEEG's CSV path.
+says which path is in use.  Host code only.  ``load_csv_batch_f32`` reads
+many files into one block in a single call (the raw converter's path,
+``preprocess_eeg_raw``).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -58,6 +59,12 @@ def _library() -> Optional[ctypes.CDLL]:
     lib.csv_load_f32.argtypes = [
         ctypes.c_char_p, ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_int64,
         ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+    ]
+    lib.csv_load_batch_f32.restype = ctypes.c_int64
+    lib.csv_load_batch_f32.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_uint8),
     ]
     return lib
 
@@ -110,3 +117,32 @@ def load_csv_f32(path: str | Path, max_rows: int = 64,
     if rc != 0:
         raise IOError(f"csv_load_f32 failed ({rc}) for {path}")
     return out, r.value, c.value
+
+
+def load_csv_batch_f32(paths: Sequence[str | Path], max_rows: int = 64, max_cols: int = 8192
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Parse many CSVs into one zero-padded (n, max_rows, max_cols) float32
+    block; returns (block, rows (n,) int64, cols (n,) int64, ok (n,) bool).
+    A file that cannot be read leaves its slab zero and ``ok`` False."""
+    n = len(paths)
+    out = np.zeros((n, max_rows, max_cols), np.float32)
+    rows = np.zeros(n, np.int64)
+    cols = np.zeros(n, np.int64)
+    lib = _library()
+    if lib is None:
+        ok = np.zeros(n, bool)
+        for i, p in enumerate(paths):
+            try:
+                out[i], rows[i], cols[i] = numpy_parse(p, max_rows, max_cols)
+                ok[i] = True
+            except OSError:
+                pass
+        return out, rows, cols, ok
+    ok = np.zeros(n, np.uint8)
+    buf = b"".join(str(p).encode() + b"\0" for p in paths)
+    lib.csv_load_batch_f32(buf, n, out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                           max_rows, max_cols,
+                           rows.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                           cols.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                           ok.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    return out, rows, cols, ok.astype(bool)

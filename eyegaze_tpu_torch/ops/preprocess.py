@@ -7,6 +7,8 @@ sample) with the blocked recurrence: the SOS cascade is solved exactly per
 block of 128 samples as one matrix product against host-made constants, and
 the block-boundary states come from closed-form f64 powers.  The f64 host
 constants are cast to float32 once per device and kept there.
+``bandpass_filtfilt_bands`` runs several bands' filters in one recurrence,
+their constants stacked on a leading filter axis.
 """
 
 from __future__ import annotations
@@ -85,52 +87,61 @@ def _blocked_consts(sos_key: tuple, block: int):
 
 
 @functools.lru_cache(maxsize=64)
-def _device_consts(sos_key: tuple, zi_key: tuple, block: int, nb: int, device: torch.device):
-    """The filter's constants as float32 tensors on ``device``, made once."""
-    def put(a):
-        return torch.as_tensor(a, dtype=torch.float32, device=device)
+def _device_consts(filters: tuple, block: int, nb: int, device: torch.device):
+    """The constants of F filters of as many sections each, float32 on
+    ``device`` and made once, stacked on a leading filter axis: zi (F, S, 2)
+    and per section (b0 (F, 1, 1), A^(j+1)[0, 0] and [0, 1] (F, block),
+    Ktri (F, block, 2 block), Pn (F, nb, 2, 2), Kc (F, nb, nb, 2, 2))."""
+    def put(arrays):
+        return torch.as_tensor(np.stack(arrays), dtype=torch.float32, device=device)
 
-    zi = put(np.asarray(zi_key).reshape(-1, 2))
-    sections = [
-        (b0, put(apow), put(ktri).reshape(block, block * 2), put(pn), put(kc))
-        for (b0, apow, ktri), (pn, kc) in zip(_blocked_consts(sos_key, block),
-                                              _carry_kernel(sos_key, block, nb))
-    ]
+    zi = put([np.asarray(zi_key).reshape(-1, 2) for _, zi_key in filters])
+    per_filter = [list(zip(_blocked_consts(sos_key, block), _carry_kernel(sos_key, block, nb)))
+                  for sos_key, _ in filters]
+    sections = []
+    for parts in zip(*per_filter):  # one section of every filter
+        b0, apow, ktri = zip(*(blocked for blocked, _ in parts))
+        pn, kc = zip(*(carry for _, carry in parts))
+        apow = put(apow)
+        sections.append((put(b0).reshape(-1, 1, 1), apow[:, :, 0, 0], apow[:, :, 0, 1],
+                         put(ktri).reshape(len(filters), block, block * 2), put(pn), put(kc)))
     return zi, sections
 
 
-def _sosfilt_blocked(u: torch.Tensor, sos_key: tuple, zi_key: tuple) -> torch.Tensor:
-    """SOS cascade along the last axis of (L, T) float32, scipy sosfilt with
-    zi scaled by the first sample; y_t = b0 u_t + s_{t-1}[0]."""
+def _sosfilt_blocked(u: torch.Tensor, filters: tuple) -> torch.Tensor:
+    """F SOS cascades along the last axis of (F, L, T) float32, filter f on
+    u[f]: scipy sosfilt with zi scaled by the first sample; y_t = b0 u_t +
+    s_{t-1}[0]."""
     block = BLOCK
-    lanes, t = u.shape
+    n_filters, lanes, t = u.shape
     nb = -(-t // block)
-    zi, sections = _device_consts(sos_key, zi_key, block, nb, u.device)
-    x0 = u[:, :1]
-    for sidx, (b0, apow, ktri, pn, kc) in enumerate(sections):
-        ub = F.pad(u, (0, nb * block - t)).reshape(lanes * nb, block)  # causal: end pad unused
-        s_local = (ub @ ktri).reshape(lanes, nb, block, 2)  # zero-state states within blocks
-        s0 = zi[sidx][None, :] * x0  # (L, 2) initial state s_{-1}
-        ends = s_local[:, :, block - 1, :]  # (L, nb, 2)
-        starts = (torch.einsum("nts,ls->lnt", pn, s0)
-                  + torch.einsum("lks,knts->lnt", ends, kc))  # (L, nb, 2)
+    zi, sections = _device_consts(filters, block, nb, u.device)
+    x0 = u[..., :1]
+    for sidx, (b0, a00, a01, ktri, pn, kc) in enumerate(sections):
+        ub = F.pad(u, (0, nb * block - t)).reshape(n_filters, lanes * nb, block)  # end pad unused
+        s_local = torch.bmm(ub, ktri).reshape(n_filters, lanes, nb, block, 2)  # zero-state
+        s0 = zi[:, sidx, None, :] * x0  # (F, L, 2) initial state s_{-1}
+        ends = s_local[:, :, :, block - 1, :]  # (F, L, nb, 2)
+        starts = (torch.einsum("fnts,fls->flnt", pn, s0)
+                  + torch.einsum("flks,fknts->flnt", ends, kc))  # (F, L, nb, 2)
         # State component 0 at every sample: (A^(j+1) s_start)[0] + s_local[j][0].
-        s0c = (apow[:, 0, 0] * starts[:, :, None, 0]
-               + apow[:, 0, 1] * starts[:, :, None, 1]) + s_local[..., 0]
-        s_flat = s0c.reshape(lanes, nb * block)[:, :t]
-        s_prev0 = torch.cat([s0[:, :1], s_flat[:, :-1]], dim=1)
+        s0c = (a00[:, None, None, :] * starts[..., None, 0]
+               + a01[:, None, None, :] * starts[..., None, 1]) + s_local[..., 0]
+        s_flat = s0c.reshape(n_filters, lanes, nb * block)[..., :t]
+        s_prev0 = torch.cat([s0[..., :1], s_flat[..., :-1]], dim=-1)
         u = b0 * u + s_prev0
     return u
 
 
-def bandpass_filtfilt_blocked(
+def bandpass_filtfilt_bands(
     x: torch.Tensor,
-    low: float = 0.5,
-    high: float = 50.0,
+    bands,
     sampling_rate: float = 250.0,
     order: int = 4,
 ) -> torch.Tensor:
-    """Zero-phase Butterworth bandpass of (..., T) float32, filtfilt parity.
+    """Zero-phase Butterworth bandpasses of (..., T) float32, filtfilt
+    parity, one per (name, low, high) of ``bands``, all in one blocked
+    recurrence: (len(bands), ..., T).
 
     The block products must run in full float32: with TF32's short mantissa
     the block carries of a low-edge band diverge (the JAX package saw 1e26),
@@ -139,8 +150,11 @@ def bandpass_filtfilt_blocked(
     if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("bandpass_filtfilt_blocked needs full-f32 matmuls: "
                            "set torch.backends.cuda.matmul.allow_tf32 = False")
-    sos, zi = _butter_sos(order, float(low), float(high), float(sampling_rate))
-    sos_key, zi_key = tuple(sos.ravel()), tuple(zi.ravel())
+    filters = []
+    for _, low, high in bands:
+        sos, zi = _butter_sos(order, float(low), float(high), float(sampling_rate))
+        filters.append((tuple(sos.ravel()), tuple(zi.ravel())))
+    filters = tuple(filters)
     padlen = 3 * (2 * order + 1)
     t = x.shape[-1]
     if t <= padlen:
@@ -150,11 +164,23 @@ def bandpass_filtfilt_blocked(
     left = 2.0 * x[..., :1] - torch.flip(x[..., 1:padlen + 1], dims=(-1,))
     right = 2.0 * x[..., -1:] - torch.flip(x[..., -padlen - 1:-1], dims=(-1,))
     ext = torch.cat([left, x, right], dim=-1)
-    flat = ext.reshape(-1, ext.shape[-1])
-    y = _sosfilt_blocked(flat, sos_key, zi_key)
-    y = _sosfilt_blocked(torch.flip(y, dims=(-1,)), sos_key, zi_key)
-    y = torch.flip(y, dims=(-1,)).reshape(ext.shape)
+    flat = ext.reshape(1, -1, ext.shape[-1]).expand(len(filters), -1, -1)
+    y = _sosfilt_blocked(flat, filters)
+    y = _sosfilt_blocked(torch.flip(y, dims=(-1,)), filters)
+    y = torch.flip(y, dims=(-1,)).reshape((len(filters),) + ext.shape)
     return y[..., padlen:padlen + t]
+
+
+def bandpass_filtfilt_blocked(
+    x: torch.Tensor,
+    low: float = 0.5,
+    high: float = 50.0,
+    sampling_rate: float = 250.0,
+    order: int = 4,
+) -> torch.Tensor:
+    """Zero-phase Butterworth bandpass of (..., T) float32, filtfilt parity
+    (``bandpass_filtfilt_bands`` of one band)."""
+    return bandpass_filtfilt_bands(x, (("band", low, high),), sampling_rate, order)[0]
 
 
 def common_average_reference(x: torch.Tensor, channel_axis: int = -2) -> torch.Tensor:

@@ -11,6 +11,10 @@ kernels; the port does not need it.
   ``atan2(quad, band)`` and power ``band ** 2``.
 - ``stft`` is ``torch.stft(center=True, pad_mode='reflect', periodic Hann,
   onesided=True)``.
+- ``welch_psd`` is ``scipy.signal.welch``'s default estimate: periodic Hann
+  segments of ``nperseg`` (clamped to T) with half overlap, a constant
+  detrend per segment, density scaling, the one-sided doubling and the mean
+  over segments.
 """
 
 from __future__ import annotations
@@ -106,6 +110,42 @@ def hann_window(n: int, device: torch.device) -> torch.Tensor:
     a model built on the card and one built on the CPU and moved there
     would take other spectrograms."""
     return torch.hann_window(n, periodic=True, dtype=torch.float32).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def _welch_consts(nperseg: int, sampling_rate: float, device: torch.device):
+    """(periodic Hann window, one-sided correction, rfft frequencies), each
+    float32 on ``device``, made once: the correction is 2 except at DC and,
+    for even ``nperseg``, at Nyquist, where it is 1."""
+    corr = np.full(nperseg // 2 + 1, 2.0, np.float32)
+    corr[0] = 1.0
+    if nperseg % 2 == 0:
+        corr[-1] = 1.0
+    freqs = np.fft.rfftfreq(nperseg, d=1.0 / sampling_rate).astype(np.float32)
+    return (hann_window(nperseg, device), torch.as_tensor(corr, device=device),
+            torch.as_tensor(freqs, device=device))
+
+
+def unfold(x: torch.Tensor, frame_length: int, hop: int) -> torch.Tensor:
+    """Frames of the last axis, (..., T) -> (..., 1 + (T - frame_length) // hop,
+    frame_length), a strided view."""
+    return x.unfold(-1, frame_length, hop)
+
+
+def welch_psd(x: torch.Tensor, sampling_rate: float, nperseg: int = 256,
+              noverlap: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Welch PSD of (..., T) along the last axis: (freqs (F,), psd (..., F)),
+    float32 on ``x``'s device, F = nperseg // 2 + 1 after the clamp (the
+    frequencies are shared between calls: do not write to them)."""
+    nperseg = min(nperseg, x.shape[-1])
+    if noverlap is None:
+        noverlap = nperseg // 2
+    win, corr, freqs = _welch_consts(nperseg, float(sampling_rate), x.device)
+    frames = unfold(x.to(torch.float32), nperseg, nperseg - noverlap)
+    frames = frames - frames.mean(dim=-1, keepdim=True)
+    power = torch.abs(torch.fft.rfft(frames * win, dim=-1)) ** 2
+    scale = 1.0 / (sampling_rate * torch.sum(win ** 2))
+    return freqs, torch.mean(power * scale * corr, dim=-2)
 
 
 def stft(x: torch.Tensor, n_fft: int = 128, hop_length: int = 64,

@@ -3,6 +3,7 @@ device.
 
     python -m eyegaze_tpu_torch.profile_slice           # serving: EEG, ART, gaze, composite
     python -m eyegaze_tpu_torch.profile_slice --train   # the train steps
+    python -m eyegaze_tpu_torch.profile_slice --features   # the offline feature extractor
 
 It profiles the EEG and ART serving paths in turn, each in float32 and
 then in bf16 compute (the type the JAX package's ``from_checkpoint``
@@ -60,6 +61,16 @@ batch 16 of uint8 pairs, dropout 0.1, the augment on the card,
 class-weighted CE, AdamW at 1e-4 with clip 1.0), early (concat) and late
 (full) fusion.
 
+``--features``: the offline feature extractor (``extract_eeg_features``)
+on synthetic (32, 3250) trial pairs at fs 250, at chunks of 8 and 1 trials:
+the median CUDA-event time and the CUDA kernels of each stage of one
+chunk (the Welch PSD; the five bands' filtfilts in one blocked recurrence,
+and one band at a time for comparison; the Hilbert parts; the three
+metric sets; the whole chunk), the host's time to enqueue a chunk, and
+trials per second over FEATURE_TRIALS trials with the writes asynchronous
+(as the entry point writes), synchronous (each chunk copied and written in
+the loop) and left out, in turns.
+
 TF32 is off.  It needs a CUDA device.
 """
 
@@ -69,7 +80,9 @@ import argparse
 import math
 import statistics
 import subprocess
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -107,6 +120,9 @@ GAZE_REQUESTS = (1, 32)
 TRAIN_BATCH = 64
 ART_TRAIN_BATCH = 16
 GAZE_TRAIN_BATCH = 16
+FEATURE_TRIALS = 64
+FEATURE_FS = 250.0
+FEATURE_ROUNDS = 3
 
 
 def median_cuda_ms(fn, reps: int = 10) -> float:
@@ -391,11 +407,104 @@ def gaze_train(dev: torch.device, kind: str, mode: str) -> None:
                        make_optimizer(model, 1e-4, 0.01, grad_clip=1.0), loss_fn, batch, None)
 
 
+def kernel_count(fn) -> int:
+    """CUDA kernels launched by one call of ``fn``, from ``torch.profiler``."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+
+
+def extraction_rate(data: dict, chunk: int, writes: str, dev: torch.device) -> float:
+    """Trials per second of ``extract_eeg_features``'s loop over ``data``:
+    ``writes`` "async" as the entry point writes (``ChunkWriter``), "sync"
+    each chunk copied to the host and written in the loop, "none" no copy
+    and no file."""
+    from eyegaze_tpu_torch import extract_eeg_features as ex
+
+    n = len(data["label"])
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        writer = ex.ChunkWriter(out, data["label"], data["pair"], dev) if writes == "async" else None
+        t0 = time.perf_counter()
+        for lo in range(0, n, chunk):
+            hi = min(lo + chunk, n)
+            feats = ex.chunk_features(ex.upload(data["eeg1"][lo:hi], dev),
+                                      ex.upload(data["eeg2"][lo:hi], dev), FEATURE_FS, 8)
+            rows = list(enumerate(range(lo, hi)))
+            if writer is not None:
+                writer.submit(rows, feats)
+            elif writes == "sync":
+                arrays = {k: v.cpu().numpy() for k, v in feats.items()}
+                for j, i in rows:
+                    ex.write_trial(out, i, arrays, j, data["label"][i], data["pair"][i])
+        if writer is not None:
+            writer.close()
+        torch.cuda.synchronize()
+        return n / (time.perf_counter() - t0)
+
+
+def features(dev: torch.device) -> None:
+    from eyegaze_tpu_torch import extract_eeg_features as ex
+    from eyegaze_tpu_torch.data.synthetic import synthetic_eeg_pair_dataset
+    from eyegaze_tpu_torch.ops import features as feat
+    from eyegaze_tpu_torch.ops.preprocess import bandpass_filtfilt_blocked
+    from eyegaze_tpu_torch.ops.spectral import welch_psd
+
+    data = synthetic_eeg_pair_dataset(FEATURE_TRIALS, C=CHANNELS, T=RAW_SAMPLES, fs=FEATURE_FS,
+                                      seed=28)
+    bands = feat.FEATURE_BANDS_5
+    for chunk in (8, 1):
+        e1, e2 = (torch.from_numpy(data[k][:chunk]).to(dev) for k in ("eeg1", "eeg2"))
+        pair = torch.stack([e1, e2])
+        filtered = feat._filter_bands(pair, FEATURE_FS, bands)
+        parts = feat._parts(filtered, 256)
+        left = feat._Parts(*(torch.cat([x, x[:1]]) for x in parts))
+        right = feat._Parts(*(torch.cat([x, x[1:]]) for x in parts))
+        stages = {
+            "Welch PSD": lambda: welch_psd(torch.stack([e1, e2], dim=1), FEATURE_FS),
+            "filtfilt, 5 bands in one recurrence": lambda: feat._filter_bands(pair, FEATURE_FS,
+                                                                              bands),
+            "filtfilt, one band at a time": lambda: torch.stack(
+                [bandpass_filtfilt_blocked(pair, lo, hi, FEATURE_FS) for _, lo, hi in bands], -3),
+            "Hilbert parts": lambda: feat._parts(filtered, 256),
+            "metrics, 3 sets x 5 bands": lambda: feat._pair_metrics(left, right, 8),
+            "chunk_features": lambda: ex.chunk_features(e1, e2, FEATURE_FS, 8),
+        }
+        print(f"features, chunk of {chunk} trial pair(s) (32, 3250):")
+        for name, fn in stages.items():
+            print(f"  {name}: {median_cuda_ms(fn):.3f} ms (CUDA events), "
+                  f"{kernel_count(fn)} kernels")
+        enqueue = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ex.chunk_features(e1, e2, FEATURE_FS, 8)
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        print(f"  host time to enqueue chunk_features: median {statistics.median(enqueue):.3f} ms")
+    for chunk in (8, 1):
+        extraction_rate(data, chunk, "async", dev)  # the first call at this chunk's shapes
+        rates = {w: [] for w in ("async", "sync", "none")}
+        for _ in range(FEATURE_ROUNDS):
+            for writes, acc in rates.items():
+                acc.append(extraction_rate(data, chunk, writes, dev))
+        print(f"features, {FEATURE_TRIALS} trials at chunk {chunk}, trials/s in "
+              f"{FEATURE_ROUNDS} rounds in turns: "
+              + "; ".join(f"writes {w} {[round(r, 1) for r in acc]} (median "
+                          f"{statistics.median(acc):.1f})" for w, acc in rates.items()))
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.strip().splitlines()[0])
-    ap.add_argument("--train", action="store_true",
-                    help="profile the train steps (the flagship, ART, the gaze ViTs) instead of "
-                         "the serving paths")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--train", action="store_true",
+                      help="profile the train steps (the flagship, ART, the gaze ViTs) instead of "
+                           "the serving paths")
+    mode.add_argument("--features", action="store_true",
+                      help="profile the offline feature extractor instead of the serving paths")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA device")
@@ -404,6 +513,9 @@ def main(argv=None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    if args.features:
+        features(dev)
+        return
     if args.train:
         for dtype in (torch.bfloat16, torch.float32):
             train(dev, dtype)

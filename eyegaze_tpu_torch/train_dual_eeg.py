@@ -61,7 +61,7 @@ def resolve_device(name: str, program: str = "eyegaze_tpu_torch.train_dual_eeg")
     ``program`` stops with a message."""
     device = torch.device("cuda" if name in ("tpu", "gpu") else name)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"{program} needs a CUDA device; pass --device cpu to train on the CPU")
+        raise SystemExit(f"{program} needs a CUDA device; pass --device cpu to run on the CPU")
     return device
 
 

@@ -1,5 +1,6 @@
-"""Hygiene of the PyTorch port: it imports without jax (and without PIL,
-which only ``data/images.py``'s ``load_image`` needs), and its GPU smoke
+"""Hygiene of the PyTorch port: it imports without jax, pandas and
+matplotlib (and without PIL, which only ``data/images.py``'s
+``load_image`` needs), and its GPU smoke
 script and entry points refuse to run (and report no result) where there
 is no CUDA device, unless asked for the CPU."""
 
@@ -35,16 +36,21 @@ def test_port_imports_without_jax():
             "eyegaze_tpu_torch.models.fuzzy_fusion",
             "eyegaze_tpu_torch.models.multimodal", "eyegaze_tpu_torch.train_multimodal",
             "eyegaze_tpu_torch.models.hypereeg", "eyegaze_tpu_torch.data.augment",
-            "eyegaze_tpu_torch.train_hypereeg"} <= set(modules)
+            "eyegaze_tpu_torch.train_hypereeg", "eyegaze_tpu_torch.ops.features",
+            "eyegaze_tpu_torch.ops.entropy", "eyegaze_tpu_torch.preprocess_eeg_raw",
+            "eyegaze_tpu_torch.preprocess_eeg_windows", "eyegaze_tpu_torch.extract_eeg_features",
+            "eyegaze_tpu_torch.generate_metadata",
+            "eyegaze_tpu_torch.verify_metadata"} <= set(modules)
     code = (
         "import importlib, sys\n"
-        "for banned in ('jax', 'flax', 'optax', 'orbax', 'eyegaze_tpu'):\n"
+        "for banned in ('jax', 'flax', 'optax', 'orbax', 'eyegaze_tpu', 'pandas', 'matplotlib'):\n"
         "    sys.modules[banned] = None  # any import of it now raises ImportError\n"
         "sys.modules['PIL'] = None  # only data/images.py's load_image needs it\n"
         "import eyegaze_tpu_torch\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
-        "assert not any(m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'eyegaze_tpu')\n"
+        "assert not any(m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'eyegaze_tpu',\n"
+        "                                   'pandas', 'matplotlib')\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"
     )
@@ -138,3 +144,19 @@ def test_multimodal_and_hypereeg_training_fail_without_cuda_unless_asked_for_the
     assert r.returncode != 0
     assert "needs a CUDA device" in r.stderr and "--device cpu" in r.stderr
     assert "[model]" not in r.stdout
+
+
+@pytest.mark.parametrize("argv", [
+    ["eyegaze_tpu_torch.preprocess_eeg_windows", "--synthetic-trials", "3"],
+    ["eyegaze_tpu_torch.extract_eeg_features", "--synthetic-trials", "1"],
+], ids=["preprocess_eeg_windows", "extract_eeg_features"])
+def test_offline_eeg_entry_points_fail_without_cuda_unless_asked_for_the_cpu(argv, tmp_path):
+    """The offline EEG entry points that compute run on the card by
+    default; without one they stop before they read or write anything."""
+    r = subprocess.run([sys.executable, "-m", *argv, "--output-dir", str(tmp_path / "out")],
+                       cwd=ROOT, capture_output=True, text=True, timeout=300,
+                       env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert r.returncode != 0
+    assert "needs a CUDA device" in r.stderr and "--device cpu" in r.stderr
+    assert "synthetic mode" not in r.stdout
+    assert not (tmp_path / "out").exists()
