@@ -7,11 +7,12 @@ Run from the repository root on a machine with a CUDA card:
 It builds the port's CUDA kernels from ``eyegaze_tpu_torch/csrc`` with nvcc,
 one process per source, all at once, and prints each kernel's registers and
 spills, the tensor-core instructions (``HMMA``) in the SASS of each
-instance of the attention kernel, and the arithmetic, LDS and other instructions
-per pair and sample in the main loop of each phase-metrics instance: a
-phase-metrics or f32 attention instance that spills, an f32 attention
-instance with any ``HMMA`` (a TF32 product in the f32 path), or a bf16
-instance with none, fails the run.  Then, each phase raising on any failure:
+instance of the attention kernel and of K4's two backward kernels, and the
+arithmetic, LDS and other instructions per pair and sample in the main loop
+of each phase-metrics instance: a phase-metrics, f32 attention or backward
+instance that spills, an f32 attention instance with any ``HMMA`` (a TF32
+product in the f32 path), or a bf16 forward or backward instance with none,
+fails the run.  Then, each phase raising on any failure:
 
 1. K1 (phase metrics) against its plain PyTorch version on the card at the
    shapes the EEG serving run and flagship training launch it with (N =
@@ -34,7 +35,21 @@ instance with none, fails the run.  Then, each phase raising on any failure:
    one call between CUDA events, 20 back-to-back calls between one pair
    (where the host's enqueue time hides behind the device's work, if the
    device's is longer), and 20 calls captured in a CUDA graph and replayed
-   (device time alone).
+   (device time alone).  Then K4's backward, bf16 under autograd
+   (``attention_backward_phase``) at ART's training shape (16, 1024, 8,
+   16) head-packed, K4's (2, 8, 1024, 128) flash layout, d = 32 and 64, and
+   ART's cross attention with Tk 1000: the forward's saved log-sum-exp
+   within 1e-4 of the twin's, dq, dk, dv within the bf16 bound of
+   ``backward_bound`` of the twin backward on the same output and
+   log-sum-exp, and within SDPA_WITNESS_RTOL of
+   ``F.scaled_dot_product_attention``'s gradients; the two kernels alone
+   one call, 20 back to back and 20 from a CUDA graph, each kernel's device
+   time (``torch.profiler``), beside the twin and the library's backward
+   (``aten._scaled_dot_product_flash_attention_backward``), the bound (the
+   five products at the bf16 peak against the bytes) and the exponentials
+   on the SFU; the Function's forward + backward beside the library's and
+   beside the kernel forward + the stock-op backward K3 trained with, in
+   turns, with each one's peak memory in transit.
 4. The flagship EEG serving path at full width (DualEEGTransformer d_model
    256, 6 layers, 8 heads, random weights from a seed): raw (trials, 32,
    3250) pairs -> ``preprocess_eeg`` -> ``sliding_windows`` ->
@@ -72,7 +87,11 @@ instance with none, fails the run.  Then, each phase raising on any failure:
    output equal to the bit to phase 8's for the same windows.
 10. The flash route: a bf16 ``MultiHeadAttention`` with d_k 128, the
    counterpart of the JAX call site of the stock flash kernel, launches the
-   flash entry point on every forward and matches its own plain path.
+   flash entry point on every forward and matches its own plain path; then
+   it trains, 3 AdamW steps through the route (a K4 launch and a call of
+   K4's two backward kernels each, no stock backward), and one backward's
+   gradients match the plain route's within 2**-5 of each tensor's largest
+   |entry|.
 11. The connectivity shootout, ``eyegaze_tpu_torch.bench_connectivity.main``
    at its defaults: K1 against its plain version, PLV by four matrix
    products plus K1 against K2 alone, six coherence passes against one; its
@@ -205,6 +224,21 @@ instance with none, fails the run.  Then, each phase raising on any failure:
    ``spectral_entropy`` on (256, 32, 3250) and ``spatial_entropy`` on 16
    float heatmaps at (1583, 3000, 3), card against CPU.  Neither phase
    launches a kernel of the port.
+29. ART's bf16 train step at full width, ``bench.py``'s two bf16 recipes
+   (``ArtifactRemovalTransformer(ArtConfig(attn_dropout=...),
+   dtype=bfloat16)``): one dropout-free step at batch 2 at attention dropout
+   0.0 on the card (18 K3-bf16 launches, 18 calls of K4's backward kernels,
+   no stock backward) against the CPU's plain path from the same seeded
+   weights, the loss within 2**-8 relative and every gradient tensor within
+   ART_BF16_GRAD_SHARE on its module's scale, the parameters and gradients
+   f32; ``Trainer.train_step`` at batch 16 with dropout 0.1, 3 steps
+   untimed, 20 timed to a synchronize and ``torch.profiler`` over 5, at
+   attention dropout 0.1 (the plain path, no kernel) and 0.0 (per step 18
+   K3-bf16 launches and 18 backward calls of 2 kernel launches): median step
+   time, peak memory, kernels per step, busy share; then one epoch at 0.0
+   through ``Trainer.fit`` on 40 synthetic trials, its best_model.pt served
+   by ``ArtDenoiser.from_checkpoint`` (bf16) within 2**-5 of the largest
+   output of the trained model's bf16 forward.
 
 Every phase runs in float32 (TF32 off) unless it says bf16.  There is no
 CPU fallback: without a CUDA device the script exits non-zero and prints no
@@ -220,7 +254,12 @@ the train shape and the train step's median times and peak memory beside
 them, its time, bound and share at each composite bucket, and the
 composite train step's time, memory and K1 launches per step; the f32 head-packed entry's are
 serving's and ART training's, with its backward calls, the ART train
-step's medians and the autograd timing); the last line is
+step's medians and the autograd timing; the bf16 head-packed entry's are
+bf16 serving's and bf16 ART training's, with that step's medians; the two
+backward kernels', ``flash_attention_bwd_dkv`` and
+``flash_attention_bwd_dq``, are bf16 ART training's and the flash route's,
+timed at ART's training shape, each case of the backward phase beside);
+the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -292,6 +331,7 @@ ATTN_HEADS, ATTN_DK = 8, 16  # ART's attention geometry at T = 1024
 ATTN_RAGGED = (3, 200, 8, 16)
 FLASH_SHAPE = (2, 8, 1024, 128)  # (B, H, T, d)
 FLASH_CALLS = 3
+FLASH_TRAIN_STEPS = 3
 # f32: the kernel and the twin sum the same products in another order; an
 # output near zero is a sum that cancels, whose error scales with its O(1)
 # terms, hence the absolute part.
@@ -354,6 +394,49 @@ ART_TRAIN_TRIALS = 40
 # of each gradient's largest |entry|.
 ART_GRAD_SHARE = 1e-4
 ART_TRAIN_SHAPE = (ART_TRAIN_BATCH, WINDOW, ATTN_HEADS, ATTN_DK)  # (B, T, H, d)
+
+# K4's backward (phase 3) in bf16 under autograd, (entry, (B, Tq, H, d), Tk):
+# ART's training shape, K4's flash shape, d = 32 and 64, and ART's
+# cross-attention with a ragged Tk.  The first is the shape of the kernels
+# line.
+BWD_CASES = (("headpacked_attention", ART_TRAIN_SHAPE, WINDOW),
+             ("flash_attention", (2, 1024, 8, 128), 1024),
+             ("headpacked_attention", (8, 1024, 8, 32), 1024),
+             ("headpacked_attention", (4, 1024, 8, 64), 1024),
+             ("headpacked_attention", ART_TRAIN_SHAPE, 1000))
+# bf16's unit roundoff (8 significant bits).  The kernels and their twin
+# both round P to bf16 before dV and dS before dK and dQ, each rounding
+# moving a product by at most u of it, so a gradient entry differs by at
+# most 2u T, T the sum of the |products| it adds; each rounds its result to
+# bf16 once (2u |want| together); and the f32 parts (S, dP, Di summed in
+# other orders, ex2.approx) stay under 2**-16 of F, the sums over the
+# magnitudes whose difference dS is, where dP - Di cancels
+# (``backward_bound``).
+BF16_U = 2.0 ** -8
+BWD_F32_SHARE = 2.0 ** -16
+# F.scaled_dot_product_attention's gradients, a second witness: it rounds its
+# own output, P and dS, so it is held in relative Frobenius norm, a few bf16
+# steps (u = 2**-8 each) apart at most.
+SDPA_WITNESS_RTOL = 2.0 ** -6
+
+# ART's bf16 train step (phase 29): bench.py's flash recipe, attention
+# dropout 0.0, and the reference recipe (None), at batch 16, AdamW at 1e-4,
+# clip 1.0; the card-vs-CPU step at batch 2.  Each gradient tensor is held
+# to the CPU's plain path within 2**-4 of the largest |entry| of its
+# module's gradients of its kind (``module_scale``: the weights, or the
+# biases, of one attention block, FFN, LayerNorm or embedding), not of its
+# own: where an attention block barely depends on q and k (V's rows alike),
+# their own gradients are tiny, and the flash backward computes Di = sum_d O
+# dO from the bf16 output, as the Pallas backward does, while the plain path
+# sums dP P in f32; that rounding of O (u = 2**-8 of each term) then
+# outweighs them (the CPU twin against the CPU plain path at this width:
+# 1.75x decoder.layers.5.self_mha.q_proj's own largest |entry|, 0.0068 on
+# the module scale).  Two bf16 steps also round apart at every projection:
+# the CPU's bf16 step is 0.034 on the module scale from its f32 step.  The
+# two together stay under 2**-4; the run prints the CPU's bf16-vs-f32
+# distance beside the card's.  The loss within 2**-8 relative.
+ART_BF16_GRAD_SHARE = 2.0 ** -4
+ART_BF16_LOSS_RTOL = 2.0 ** -8
 
 # Gaze serving: ViT-B/16 at full width (224 x 224, patch 16, embed 768,
 # depth 12, 12 heads: 197 tokens), bf16 from a checkpoint, buckets (1, 8, 32).
@@ -1123,11 +1206,18 @@ def art_checkpoint_phase(device, tmp: Path, state, noisy, outs) -> int:
     return bf16["headpacked_attention"]
 
 
-def flash_route_phase(device) -> int:
+def flash_route_phase(device) -> tuple[int, int]:
     """A bf16 MultiHeadAttention with d_k 128 takes the flash route on every
-    forward and matches its own plain path (forced by returning weights)."""
+    forward and matches its own plain path (forced by returning weights);
+    then it trains through the route, FLASH_TRAIN_STEPS AdamW steps, each
+    one K4 launch and one backward call of K4's two backward kernels, and
+    one backward's gradients match the plain route's within 2**-5 of each
+    tensor's largest |entry| (k_proj.bias of the largest gradient; the
+    bound of tests/test_torch_attention.py).  Returns (K4 launches, backward
+    kernel launches), counted from 0 for the phase."""
     from eyegaze_tpu_torch.kernels import attention
     from eyegaze_tpu_torch.models.transformer import MultiHeadAttention, init_weights_
+    from eyegaze_tpu_torch.train.optim import make_optimizer
 
     b, h, t, d = FLASH_SHAPE
     mha = MultiHeadAttention(h * d, h, device=device, dtype=torch.bfloat16)
@@ -1136,6 +1226,7 @@ def flash_route_phase(device) -> int:
     x = torch.randn(b, t, h * d, generator=torch.Generator().manual_seed(3)).to(
         device, torch.bfloat16)
     reset_attention_counts()
+    reset_backward_count()
     with torch.inference_mode():
         outs = [mha(x, x, x) for _ in range(FLASH_CALLS)]
         launches, bf16 = dict(attention.launch_count), dict(attention.bf16_launch_count)
@@ -1151,7 +1242,45 @@ def flash_route_phase(device) -> int:
     print(f"flash route, bf16 MultiHeadAttention (B {b}, T {t}, H {h}, d_k {d}): "
           f"{launches['flash_attention']} launches for {FLASH_CALLS} forwards, "
           f"max |kernel route - plain route| {float((outs[0].float() - plain.float()).abs().max()):.3e}")
-    return launches["flash_attention"]
+
+    target = torch.randn(b, t, h * d, generator=torch.Generator().manual_seed(4)).to(device)
+    mha.train()  # no dropout in the module: the flash route under grad
+    opt = make_optimizer(mha, 1e-4, 0.01, grad_clip=1.0)
+    losses = []
+    for _ in range(FLASH_TRAIN_STEPS):
+        loss = (mha(x, x, x).float() - target).square().mean()
+        loss.backward()
+        opt.step()
+        opt.zero_grad()
+        losses.append(loss.item())
+    counts = (attention.launch_count["flash_attention"], attention.backward_count["flash_attention"],
+              attention.backward_launch_count["flash_attention"],
+              dict(attention.stock_backward_count))
+    want = (FLASH_CALLS + FLASH_TRAIN_STEPS, FLASH_TRAIN_STEPS, 2 * FLASH_TRAIN_STEPS,
+            {"float32": 0, "bfloat16": 0})
+    if counts != want or not np.isfinite(losses).all():
+        raise RuntimeError(f"{FLASH_TRAIN_STEPS} flash-route train steps: (K4 launches, "
+                           f"backward calls, backward kernel launches, stock) {counts}, not "
+                           f"{want}; losses {losses}")
+    launched = counts[0], counts[2]
+    grads = []
+    for weights in (False, True):  # the flash route, then the plain route
+        out = mha(x, x, x, return_weights=weights)
+        ((out[0] if weights else out).float() - target).square().mean().backward()
+        grads.append({n: p.grad.detach().clone() for n, p in mha.named_parameters()})
+        opt.zero_grad()
+    largest = max(float(g.abs().max()) for g in grads[1].values())
+    shares = sorted(((float((grads[0][n] - w).abs().max()) / (
+        largest if n == "k_proj.bias" else float(w.abs().max())), n)
+        for n, w in grads[1].items()), reverse=True)
+    print(f"flash route trains: {FLASH_TRAIN_STEPS} AdamW steps, losses "
+          f"{[round(v, 5) for v in losses]}, {counts[1]} backward calls of K4's backward "
+          f"({counts[2]} kernel launches), no stock backward; gradients against the plain "
+          f"route's, the largest |difference| as a share of the tensor's largest |entry| "
+          f"(bound 2**-5): " + ", ".join(f"{n} {v:.4f}" for v, n in shares[:3]))
+    if shares[0][0] > 2.0 ** -5:
+        raise RuntimeError(f"the flash route's gradient {shares[0][1]} is not the plain route's")
+    return launched
 
 
 def shootout_phase() -> tuple[dict, dict]:
@@ -1492,27 +1621,51 @@ def train_serve_phase(device, tmp: Path) -> int:
 def reset_backward_count() -> None:
     from eyegaze_tpu_torch.kernels import attention
 
-    attention.backward_count.update(headpacked_attention=0)
+    for counts in (attention.backward_count, attention.backward_launch_count):
+        counts.update(headpacked_attention=0, flash_attention=0)
+    attention.stock_backward_count.update(float32=0, bfloat16=0)
 
 
 def art_train_counts() -> tuple[int, int]:
     """(f32 head-packed launches, backward calls) since the last reset;
-    raises on any other attention launch."""
+    raises on any other attention launch, and on a backward call that did
+    not take the stock backward."""
     from eyegaze_tpu_torch.kernels import attention
 
     launches = attention.launch_count["headpacked_attention"]
-    if attention.launch_count["flash_attention"] or attention.bf16_launch_count[
-            "headpacked_attention"]:
+    backward = attention.backward_count["headpacked_attention"]
+    if (attention.launch_count["flash_attention"] or attention.bf16_launch_count[
+            "headpacked_attention"] or any(attention.backward_launch_count.values())
+            or attention.stock_backward_count != {"float32": backward, "bfloat16": 0}):
         raise RuntimeError(f"f32 ART training launched {attention.launch_count}, of them bf16 "
-                           f"{attention.bf16_launch_count}")
-    return launches, attention.backward_count["headpacked_attention"]
+                           f"{attention.bf16_launch_count}, backward kernels "
+                           f"{attention.backward_launch_count}; stock backward calls "
+                           f"{attention.stock_backward_count} of {backward}")
+    return launches, backward
 
 
-def art_train_model(device, attn_dropout):
+def art_bf16_train_counts() -> tuple[int, int, int]:
+    """(bf16 head-packed launches, backward calls, backward kernel launches)
+    since the last reset; raises on any other attention launch and on any
+    call of the stock backward."""
+    from eyegaze_tpu_torch.kernels import attention
+
+    launches = attention.bf16_launch_count["headpacked_attention"]
+    if (attention.launch_count != {"headpacked_attention": launches, "flash_attention": 0}
+            or attention.backward_count["flash_attention"]
+            or any(attention.stock_backward_count.values())):
+        raise RuntimeError(f"bf16 ART training launched {attention.launch_count}, of them bf16 "
+                           f"{attention.bf16_launch_count}; stock backward calls "
+                           f"{attention.stock_backward_count}")
+    return (launches, attention.backward_count["headpacked_attention"],
+            attention.backward_launch_count["headpacked_attention"])
+
+
+def art_train_model(device, attn_dropout, dtype=torch.float32):
     from eyegaze_tpu_torch.models.art import ArtConfig, ArtifactRemovalTransformer
 
     return ArtifactRemovalTransformer(ArtConfig(attn_dropout=attn_dropout), device=device,
-                                      generator=torch.Generator().manual_seed(42))
+                                      dtype=dtype, generator=torch.Generator().manual_seed(42))
 
 
 def art_train_batch(n: int, device) -> dict:
@@ -1522,15 +1675,15 @@ def art_train_batch(n: int, device) -> dict:
             for k, v in train_art.build_dataset(n, CHANNELS, WINDOW).arrays.items()}
 
 
-def art_train_parity_phase(device) -> tuple[float, tuple[int, int]]:
+def art_train_parity_phase(device) -> tuple[float, tuple[int, int], dict]:
     """One dropout-free ART step at full width (``attn_dropout=0.0``) at
     batch 2 on the card, through K3 and its autograd Function (18 launches,
     18 backward calls), and on the CPU through the plain path, from the
     same seeded weights: held as the flagship's step, and each gradient
     tensor against the CPU's.  Then the Function's dq, dk, dv at ART's
     training shape against autograd through the plain twin.  Returns their
-    largest difference and the step's (launches, backward calls) on the
-    card."""
+    largest difference, the step's (launches, backward calls) on the card
+    and the CPU's gradients."""
     from eyegaze_tpu_torch import train_art
     from eyegaze_tpu_torch.kernels import attention
 
@@ -1554,6 +1707,7 @@ def art_train_parity_phase(device) -> tuple[float, tuple[int, int]]:
             f"({ART_ATTENTION_CALLS} K3 launches and backward calls on the card)")
     check_step_parity(name, *out, ART_TRAIN_LR, ART_TOL)
     check_grad_parity(name, out[0][-1], out[1][-1], ("k_proj.bias",))
+    cpu_f32_grads = out[1][-1]
 
     q, k, v, g = attention_inputs(ART_TRAIN_SHAPE, torch.float32, device, 20) + \
         attention_inputs(ART_TRAIN_SHAPE, torch.float32, device, 21)[:1]
@@ -1571,7 +1725,7 @@ def art_train_parity_phase(device) -> tuple[float, tuple[int, int]]:
               f"{ART_GRAD_SHARE} of it)")
         if not err <= ART_GRAD_SHARE * largest:
             raise RuntimeError(f"K3's backward {name} off by {err:.3e}")
-    return max(errs), step_counts
+    return max(errs), step_counts, cpu_f32_grads
 
 
 def attention_train_timing(device) -> dict:
@@ -1620,6 +1774,206 @@ def attention_train_timing(device) -> dict:
     return {"fwd_ms": fwd_ms, "fwd_bwd_ms": ms, "library_fwd_bwd_ms": library_ms,
             "bwd_bound_ms": bwd_bound, "fwd_bwd_bound_ms": fwd_bound + bwd_bound,
             "bwd_transit_gib": transit / 2**30, "shape": list(ART_TRAIN_SHAPE)}
+
+
+def backward_bound(q, k, v, o, lse, g, scale) -> tuple:
+    """(B, H, T, d) f32 for dq, dk, dv: T, the sums of |products| each entry
+    adds (|dS| |K|, |dS|^T |Q|, P^T |dO|), and F, the same sums over P
+    (|dO| |V|^T + sum_d |O dO|) |scale|, the magnitudes whose difference dS
+    is (none for dv)."""
+    from eyegaze_tpu_torch.kernels import attention
+
+    q, k, v, o, g = (x.float() for x in (q, k, v, o, g))
+    p = torch.exp2(q @ k.transpose(-1, -2) * (scale * attention.LOG2E) - lse[..., None])
+    tv = p.transpose(-1, -2) @ g.abs()
+    ds = ((g @ v.transpose(-1, -2)) - (o * g).sum(-1, keepdim=True)) * p * scale
+    e = p * (g.abs() @ v.abs().transpose(-1, -2) + (o * g).abs().sum(-1, keepdim=True))
+    del p
+    e *= abs(scale)
+    terms = (ds.abs() @ k.abs(), ds.abs().transpose(-1, -2) @ q.abs(), tv)
+    del ds
+    return terms, (e @ k.abs(), e.transpose(-1, -2) @ q.abs(), 0.0)
+
+
+def assert_backward_within(name: str, got, want, bound_terms) -> dict:
+    """dq, dk, dv of the kernels against the twin's within 2u T + 2u |want|
+    + 2**-16 F (``backward_bound``, BF16_U); returns each one's largest
+    |difference| and the share of its bound used."""
+    out = {}
+    for label, a, w, t, f in zip(("dq", "dk", "dv"), got, want, *bound_terms):
+        w = w.float()
+        err = (a.float() - w).abs()
+        share = float((err / (2 * BF16_U * (t + w.abs()) + BWD_F32_SHARE * f)).max())
+        out[label] = {"max_abs_err": float(err.max()), "share_of_bound": share}
+        if not share <= 1.0:
+            raise AssertionError(f"{name} {label} off by {float(err.max()):.3e}: {share:.2f}x "
+                                 "its bf16 bound")
+    return out
+
+
+def attention_backward_phase(device, clock_hz) -> dict:
+    """K4's backward kernels in bf16 under autograd, at BWD_CASES: dq, dk,
+    dv against the twin on the same forward output and log-sum-exp (the
+    forward's LSE against the twin's too) and against
+    ``F.scaled_dot_product_attention``'s gradients; the kernels' time alone
+    (one call, back to back, graph; each kernel's device time from
+    ``torch.profiler``) beside the twin's and the library's backward
+    (``aten._scaled_dot_product_flash_attention_backward`` on its own
+    forward's outputs), the bound and the exponentials; the Function's
+    forward + backward beside the library's and beside the old stock
+    backward's, with each one's peak memory in transit.  Returns each
+    case's fields; the first case's are the kernels line's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from eyegaze_tpu_torch.kernels import attention
+
+    results = []
+    for seed, (entry, (b, tq, h, d), tk) in enumerate(BWD_CASES):
+        flash = entry == "flash_attention"
+        t_dim, h_dim = (2, 1) if flash else (1, 2)
+        scale = 1.0 / math.sqrt(d)
+        r = np.random.default_rng(40 + seed)
+        x = [torch.from_numpy(r.normal(size=(b, t, h, d)).astype(np.float32)).to(
+            device, torch.bfloat16) for t in (tq, tk, tk, tq)]
+        if flash:
+            x = [a.transpose(1, 2).contiguous() for a in x]
+        q, k, v, g = x
+        for a in (q, k, v):
+            a.requires_grad_()
+        fn = getattr(attention, entry)
+        shape = f"{entry} (B {b}, H {h}, Tq {tq}, Tk {tk}, d {d}) bf16"
+
+        def bhtd(a):
+            return a if flash else a.transpose(1, 2)
+
+        out = fn(q, k, v, scale)
+        o, lse = out.detach(), out.grad_fn.saved_tensors[4]
+        got = torch.autograd.grad(out, (q, k, v), g)
+        torch.cuda.synchronize()
+        qd, kd, vd = (a.detach() for a in (q, k, v))
+        qt, kt, vt, ot, gt = (bhtd(a) for a in (qd, kd, vd, o, g))
+        lse_err = float((lse - attention.attention_lse_reference(qt, kt, scale)).abs().max())
+        if not lse_err <= 1e-4:
+            raise RuntimeError(f"{shape}: the forward's log-sum-exp is off by {lse_err:.3e}")
+        want = attention.flash_attention_backward_reference(qt, kt, vt, ot, lse, gt, scale)
+        errs = assert_backward_within(shape, [bhtd(a) for a in got], want,
+                                      backward_bound(qt, kt, vt, ot, lse, gt, scale))
+        del want
+        qs, ks, vs = (bhtd(a).detach().clone().requires_grad_() for a in (q, k, v))
+        sdpa = torch.autograd.grad(F.scaled_dot_product_attention(qs, ks, vs, scale=scale),
+                                   (qs, ks, vs), gt)
+        witness = {label: float(torch.linalg.vector_norm((bhtd(a) - w).float())
+                                / torch.linalg.vector_norm(w.float()))
+                   for label, a, w in zip(("dq", "dk", "dv"), got, sdpa)}
+        del sdpa, qs, ks, vs
+        if max(witness.values()) > SDPA_WITNESS_RTOL:
+            raise RuntimeError(f"{shape}: the kernels' gradients are not "
+                               f"F.scaled_dot_product_attention's: {witness}")
+        print(f"{shape} backward: max |kernels - twin| "
+              + ", ".join(f"{k} {e['max_abs_err']:.3e} ({e['share_of_bound']:.2f} of its bound)"
+                          for k, e in errs.items())
+              + f"; forward LSE within {lse_err:.2e} of the twin's; relative Frobenius distance "
+              f"from F.scaled_dot_product_attention's gradients "
+              + ", ".join(f"{k} {e:.2e}" for k, e in witness.items())
+              + f" (bound {SDPA_WITNESS_RTOL:g})")
+
+        def kernels():
+            attention._launch_backward(entry, qd, kd, vd, o, lse, g, scale, t_dim, h_dim)
+
+        def twin():
+            attention.flash_attention_backward_reference(qt, kt, vt, ot, lse, gt, scale)
+
+        lib = torch.ops.aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, False, False,
+                                                                 scale=scale)
+
+        def library():
+            torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                gt, qt, kt, vt, lib[0], lib[1], lib[2], lib[3], lib[4], lib[5], 0.0, False,
+                lib[6], lib[7], scale=scale)
+
+        ms, plain_ms, library_ms = alternate_ms(kernels, twin, library)
+        ms_b2b, library_b2b = alternate_ms(kernels, library, calls=BACK_TO_BACK)
+        ms_graph, library_graph = graph_ms(kernels), graph_ms(library)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(BACK_TO_BACK):
+                kernels()
+            torch.cuda.synchronize()
+        per_kernel = {}
+        for ev in prof.events():
+            for name in ("attention_bwd_dq_kernel", "attention_bwd_dkv_kernel"):
+                if ev.device_type == torch.autograd.DeviceType.CUDA and name in ev.name:
+                    per_kernel[name] = per_kernel.get(name, 0.0) + ev.device_time / 1e3
+        per_kernel = {k: v / BACK_TO_BACK for k, v in per_kernel.items()}
+        if len(per_kernel) != 2:
+            raise RuntimeError(f"torch.profiler saw the backward kernels {sorted(per_kernel)}")
+
+        # The bound: the backward's five products (S, dP, dV, dK, dQ), 2 B H
+        # Tq Tk d operations each, against Q, K, V, O, dO read, dQ, dK, dV
+        # written (bf16), LSE read and Di written once (f32).  Each kernel's
+        # own: dQ recomputes S and dP and sums dQ (3 products), reads q, k,
+        # v, o, dO and LSE and writes dQ and Di; dK/dV recomputes S and dP
+        # and sums dV and dK (4), reads q, k, v, dO, LSE and Di, writes dK, dV.
+        mm = 2 * b * h * tq * tk * d
+        q_bytes, k_bytes, row_bytes = 2 * b * tq * h * d, 2 * b * tk * h * d, 4 * b * h * tq
+        bwd_bound, bwd_by = bound(4 * q_bytes + 4 * k_bytes + 2 * row_bytes, 5 * mm,
+                                  BF16_OPS_PER_S)
+        dq_bound = bound(3 * q_bytes + 2 * k_bytes + 2 * row_bytes + q_bytes, 3 * mm,
+                         BF16_OPS_PER_S)
+        dkv_bound = bound(2 * q_bytes + 2 * k_bytes + 2 * row_bytes + 2 * k_bytes, 4 * mm,
+                          BF16_OPS_PER_S)
+        sfu_ms = 2 * b * h * tq * tk / (SFU_EX2_PER_CLOCK * SMS * clock_hz) * 1e3
+
+        def function():
+            torch.autograd.grad(fn(q, k, v, scale), (q, k, v), g)
+
+        ql, kl, vl = (bhtd(a).detach().clone().requires_grad_() for a in (q, k, v))
+
+        def library_train():
+            torch.autograd.grad(F.scaled_dot_product_attention(ql, kl, vl, scale=scale),
+                                (ql, kl, vl), gt)
+
+        def stock():  # the kernel forward, then the stock-op backward K3 had
+            with torch.no_grad():
+                fn(qd, kd, vd, scale)
+            bthd = (lambda a: a.transpose(1, 2)) if flash else (lambda a: a)
+            attention.attention_backward_reference(bthd(qd), bthd(kd), bthd(vd), bthd(g), scale)
+
+        fwd_bwd_ms, library_fwd_bwd_ms, stock_ms = alternate_ms(function, library_train, stock)
+        transit = {}
+        for label, call in (("function", function), ("stock", stock)):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            call()
+            torch.cuda.synchronize()
+            transit[label] = (torch.cuda.max_memory_allocated(device) - base) / 2**30
+        print(f"{shape} backward kernels alone: one call {ms:.4f} ms (dQ kernel "
+              f"{per_kernel['attention_bwd_dq_kernel']:.4f}, dK/dV kernel "
+              f"{per_kernel['attention_bwd_dkv_kernel']:.4f} ms of device time, torch.profiler), "
+              f"back to back {ms_b2b:.4f}, CUDA graph {ms_graph:.4f}; twin {plain_ms:.4f}; the "
+              f"library's backward (aten flash backward) one call {library_ms:.4f}, back to back "
+              f"{library_b2b:.4f}, graph {library_graph:.4f}; bound {bwd_bound:.4f} ms "
+              f"({bwd_by}: 10 B H Tq Tk d = {5 * mm:.3g} operations at "
+              f"{BF16_OPS_PER_S / 1e12:g} TFLOP/s; dQ kernel {dq_bound[0]:.4f}, dK/dV kernel "
+              f"{dkv_bound[0]:.4f}); the two kernels' {2 * b * h * tq * tk:.3g} exponentials on "
+              f"the SFU alone {sfu_ms:.4f} ms (not a floor).  Forward + backward: Function "
+              f"{fwd_bwd_ms:.4f} ms, F.scaled_dot_product_attention {library_fwd_bwd_ms:.4f} ms, "
+              f"kernel forward + the stock-op backward {stock_ms:.4f} ms (in turns); peak "
+              f"memory in transit {transit['function']:.3f} GiB (Function) against "
+              f"{transit['stock']:.3f} GiB (stock backward)")
+        results.append({
+            "shape": [b, h, tq, d], "tk": tk, "entry": entry, "errors": errs,
+            "lse_max_abs_err": lse_err, "sdpa_relative_distance": witness,
+            "ms": ms, "ms_back_to_back": ms_b2b, "ms_graph": ms_graph,
+            "kernel_ms": per_kernel, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_ms_back_to_back": library_b2b, "library_ms_graph": library_graph,
+            "bound_ms": bwd_bound, "bound_by": bwd_by, "dq_bound": dq_bound,
+            "dkv_bound": dkv_bound, "sfu_ex2_ms": sfu_ms, "fwd_bwd_ms": fwd_bwd_ms,
+            "library_fwd_bwd_ms": library_fwd_bwd_ms, "stock_fwd_bwd_ms": stock_ms,
+            "transit_gib": transit})
+        del q, k, v, g, x, got, out, o, lse, lib, ql, kl, vl
+        torch.cuda.empty_cache()
+    return results
 
 
 def art_train_timed_phase(device, attn_dropout) -> dict:
@@ -1701,6 +2055,184 @@ def art_train_serve_phase(device, tmp: Path) -> tuple[int, int]:
     if den.model.dtype != torch.bfloat16 or got.shape != want.shape or not gap <= tol:
         raise RuntimeError(f"ART served from the trained checkpoint differs: {gap:.3e}")
     return launches, backward
+
+
+def module_scale(name: str) -> tuple[str, str]:
+    """The module a parameter belongs to for ART_BF16_GRAD_SHARE (an
+    attention block or FFN for its projections, else the parameter's own
+    module) and its kind (weight or bias)."""
+    owner, kind = name.rsplit(".", 1)
+    if owner.rsplit(".", 1)[-1] in ("q_proj", "k_proj", "v_proj", "out_proj", "linear1",
+                                    "linear2"):
+        owner = owner.rsplit(".", 1)[0]
+    return owner, kind
+
+
+def module_shares(got: dict, want: dict, own: bool = False) -> list:
+    """(share, name) for each tensor, largest first: its largest |got -
+    want| over the largest |entry| of ``want``'s gradients of its module
+    and kind (``module_scale``), or of its own with ``own``."""
+    scale = {}
+    for k, w in want.items():
+        key = k if own else module_scale(k)
+        scale[key] = max(scale.get(key, 0.0), float(w.abs().max()))
+    return sorted(((float((got[k].double() - w.double()).abs().max())
+                    / scale[k if own else module_scale(k)], k) for k, w in want.items()),
+                  reverse=True)
+
+
+def art_bf16_train_parity_phase(device, cpu_f32_grads: dict) -> tuple[int, int, int]:
+    """One dropout-free bf16 ART step at full width (``attn_dropout=0.0``)
+    at batch 2 on the card, through K3's bf16 instance and K4's backward
+    kernels (18 launches, 18 backward calls of 2 kernel launches, no stock
+    backward), and on the CPU through the plain path, from the same seeded
+    weights: the loss within ART_BF16_LOSS_RTOL, every gradient tensor within
+    ART_BF16_GRAD_SHARE on its module's scale (``module_shares``), beside
+    the CPU's own bf16-vs-f32 distance (``cpu_f32_grads``, the f32 parity
+    step's, same weights and batch); the parameters and gradients stay f32.
+    Returns the card's counts."""
+    from eyegaze_tpu_torch import train_art
+
+    loss_fn, _ = train_art.make_objective(False)
+    out = []
+    for dev in (device, torch.device("cpu")):
+        model = art_train_model(dev, 0.0, torch.bfloat16)
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        reset_attention_counts()
+        reset_backward_count()
+        out.append(one_step(model, loss_fn, art_train_batch(ART_PARITY_BATCH, dev),
+                            ART_TRAIN_LR))
+        if dev.type == "cuda":
+            counts = art_bf16_train_counts()
+            if counts != (ART_ATTENTION_CALLS, ART_ATTENTION_CALLS, 2 * ART_ATTENTION_CALLS):
+                raise RuntimeError(f"one bf16 ART step: {counts} (K3 launches, backward calls, "
+                                   f"backward kernel launches)")
+    (loss, norm, step, _, card_s, card), (cpu_loss, cpu_norm, _, _, cpu_s, cpu) = out
+    if card.keys() != cpu.keys() or any(g.dtype != torch.float32 for g in card.values()) or any(
+            d.dtype != torch.float32 for d in step):
+        raise RuntimeError("a bf16 ART step must leave f32 parameters and f32 gradients")
+    shares, level = module_shares(card, cpu), module_shares(cpu, cpu_f32_grads)
+    print(f"one bf16 ART train step at batch {ART_PARITY_BATCH} without dropout (card: "
+          f"{ART_ATTENTION_CALLS} K3-bf16 launches, {ART_ATTENTION_CALLS} backward calls of 2 "
+          f"kernels, no stock backward), card vs CPU (plain path): loss {loss:.6f} / "
+          f"{cpu_loss:.6f} (bound {ART_BF16_LOSS_RTOL:g} relative), grad norm {norm:.6f} / "
+          f"{cpu_norm:.6f}; {len(cpu)} gradient tensors, the largest |difference| as a share of "
+          f"the largest |entry| of the module's gradients of its kind (bound "
+          f"{ART_BF16_GRAD_SHARE:g}): "
+          + ", ".join(f"{k} {v:.4f}" for v, k in shares[:3])
+          + "; on their own scale: "
+          + ", ".join(f"{k} {v:.4f}" for v, k in module_shares(card, cpu, own=True)[:3])
+          + "; the CPU's own bf16 step against its f32 step on the module scale: "
+          + ", ".join(f"{k} {v:.4f}" for v, k in level[:3])
+          + f"; wall {card_s:.2f} / {cpu_s:.2f} s")
+    if not (abs(loss / cpu_loss - 1) <= ART_BF16_LOSS_RTOL
+            and shares[0][0] <= ART_BF16_GRAD_SHARE):
+        raise RuntimeError("the card's bf16 ART step is not the CPU's within the bounds")
+    return counts
+
+
+def art_bf16_train_timed_phase(device, attn_dropout) -> dict:
+    """``Trainer.train_step`` on ART at full width in bf16 compute, batch 16
+    of (32, 1024) pairs, dropout 0.1, attention dropout ``attn_dropout``
+    (None: the plain path; 0.0: K3-bf16 and K4's backward kernels), through
+    ``time_train_steps`` (profiled): at 0.0, per timed step 18 K3-bf16
+    launches and 18 backward calls of 2 kernel launches; none at None; no
+    stock backward in either."""
+    from eyegaze_tpu_torch import train_art
+    from eyegaze_tpu_torch.train.optim import make_optimizer
+    from eyegaze_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    name = f"attention dropout {0.1 if attn_dropout is None else attn_dropout}"
+    model = art_train_model(device, attn_dropout, torch.bfloat16)
+    loss_fn, metrics_fn = train_art.make_objective(False)
+    trainer = Trainer(model, make_optimizer(model, ART_TRAIN_LR, 0.01, grad_clip=1.0), loss_fn,
+                      None, TrainerConfig(seed=7), device=device, eval_metrics_fn=metrics_fn)
+
+    def reset():
+        reset_attention_counts()
+        reset_backward_count()
+
+    t = time_train_steps(f"bf16 ART training ({name})", trainer,
+                         art_train_batch(ART_TRAIN_BATCH, device), device, reset=reset,
+                         read=art_bf16_train_counts)
+    launches, backward, kernel_launches = t["counts"]
+    want = ART_ATTENTION_CALLS * TRAIN_STEPS if attn_dropout == 0.0 else 0
+    if (launches, backward, kernel_launches) != (want, want, 2 * want):
+        raise RuntimeError(f"bf16 ART training ({name}): {launches} K3 launches, {backward} "
+                           f"backward calls, {kernel_launches} backward kernel launches for "
+                           f"{TRAIN_STEPS} steps, not {want}, {want}, {2 * want}")
+    print(f"ART train step (bf16, dropout 0.1, {name}, batch {ART_TRAIN_BATCH}): "
+          f"{t['summary']}; {ART_TRAIN_BATCH * 1e3 / t['median_ms']:.1f} windows/s; per step "
+          f"{launches / TRAIN_STEPS:g} K3-bf16 launches, {backward / TRAIN_STEPS:g} backward "
+          f"calls, {kernel_launches / TRAIN_STEPS:g} backward kernel launches, 0 stock backward")
+    return {**t, "launches": launches, "backward": backward, "kernel_launches": kernel_launches}
+
+
+def art_bf16_epoch_phase(device, tmp: Path) -> tuple[int, int, int]:
+    """One epoch of the bf16 recipe at attention dropout 0.0 through the
+    port's ``Trainer`` (``train_art.run``'s split, optimizer and schedule on
+    ART_TRAIN_TRIALS synthetic trials, with a bf16 model; ``train_art`` has
+    no dtype flag, as the JAX script has none), its best checkpoint served
+    back by ``ArtDenoiser.from_checkpoint`` (bf16): within 2**-5 of the
+    largest output of the trained model's own bf16 forward.  Returns (K3
+    launches, backward calls, backward kernel launches) of the epoch."""
+    from eyegaze_tpu_torch import train_art
+    from eyegaze_tpu_torch.data.loader import ArrayDataset, batch_iterator
+    from eyegaze_tpu_torch.models.art import ArtConfig
+    from eyegaze_tpu_torch.serving import ArtDenoiser
+    from eyegaze_tpu_torch.train.optim import cosine_annealing_schedule, make_optimizer
+    from eyegaze_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    model = art_train_model(device, 0.0, torch.bfloat16)
+    ds = train_art.build_dataset(ART_TRAIN_TRIALS, CHANNELS, WINDOW)
+    n_val = ART_TRAIN_TRIALS // 5
+    train_ds = ArrayDataset({k: v[:-n_val] for k, v in ds.arrays.items()})
+    val_ds = ArrayDataset({k: v[-n_val:] for k, v in ds.arrays.items()})
+    steps = len(train_ds) // ART_TRAIN_BATCH
+    loss_fn, metrics_fn = train_art.make_objective(False)
+    trainer = Trainer(
+        model, make_optimizer(model, cosine_annealing_schedule(ART_TRAIN_LR, 1, steps), 0.01,
+                              grad_clip=1.0), loss_fn, None,
+        TrainerConfig(num_epochs=1, metric_for_best="loss", greater_is_better=False,
+                      checkpoint_dir=str(tmp / "art_bf16" / "checkpoints"), seed=7),
+        device=device, eval_metrics_fn=metrics_fn)
+    reset_attention_counts()
+    reset_backward_count()
+    t0 = time.perf_counter()
+    result = trainer.fit(
+        train_batches_fn=lambda epoch: batch_iterator(train_ds, ART_TRAIN_BATCH, shuffle=True,
+                                                      seed=42, drop_remainder=True, epoch=epoch),
+        eval_batches_fn=lambda: batch_iterator(val_ds, min(ART_TRAIN_BATCH, len(val_ds))),
+        config_dict={"model": dataclasses.asdict(ArtConfig(attn_dropout=0.0))})
+    run_s = time.perf_counter() - t0
+    launches, backward, kernel_launches = art_bf16_train_counts()
+    eval_batches = math.ceil(len(val_ds) / ART_TRAIN_BATCH)
+    if (launches, backward, kernel_launches) != (ART_ATTENTION_CALLS * (steps + eval_batches),
+                                                 ART_ATTENTION_CALLS * steps,
+                                                 2 * ART_ATTENTION_CALLS * steps):
+        raise RuntimeError(f"{steps} bf16 ART train steps and {eval_batches} eval batch(es): "
+                           f"{launches} K3 launches, {backward} backward calls, "
+                           f"{kernel_launches} backward kernel launches")
+    den = ArtDenoiser.from_checkpoint(tmp / "art_bf16" / "checkpoints" / "best_model.pt",
+                                      device=device, batch_buckets=ART_BUCKETS)
+    noisy = val_ds.arrays["input_values"]
+    got = den.predict(noisy)["denoised"]
+    trainer.model.eval()
+    with torch.inference_mode():
+        want = trainer.model(torch.from_numpy(noisy).to(device)).float().cpu().numpy()
+    gap, tol = float(np.abs(got - want).max()), ART_BF16_TOL_SHARE * float(np.abs(want).max())
+    history = result["history"][-1]
+    print(f"bf16 ART, 1 epoch at full width, attention dropout 0.0, {len(val_ds)} validation "
+          f"windows: {steps} step(s) of {ART_TRAIN_BATCH}, {eval_batches} eval batch(es), "
+          f"{launches} K3-bf16 launches, {backward} backward calls ({kernel_launches} backward "
+          f"kernel launches), {run_s:.2f} s; val/loss {history['val/loss']:.4f}; best_model.pt "
+          f"served by ArtDenoiser.from_checkpoint (bf16): max |denoised - the trained model's "
+          f"bf16 output| {gap:.3e} (tolerance {tol:.3e}, 2**-5 of the largest |output|)")
+    if den.model.dtype != torch.bfloat16 or got.shape != want.shape or not gap <= tol:
+        raise RuntimeError(f"bf16 ART served from the trained checkpoint differs: {gap:.3e}")
+    return launches, backward, kernel_launches
 
 
 def gaze_pairs(n: int, seed: int) -> list:
@@ -2910,31 +3442,35 @@ def phase_loop_counts(lib) -> dict:
 
 def tensor_core_proof(lib) -> dict:
     """HMMA (tensor-core) instructions in the SASS of each instance of the
-    attention kernel, from ``cuobjdump --dump-sass`` of the built library.
-    Raises unless every f32 instance has none (no TF32 product in the f32
-    path) and every bf16 instance has some."""
+    attention kernel and of K4's two backward kernels, from ``cuobjdump
+    --dump-sass`` of the built library.  Raises unless every f32 instance
+    has none (no TF32 product in the f32 path) and every bf16 forward and
+    backward instance has some."""
     counts, name = {}, None
     for line in dump_sass(lib).splitlines():
-        header = re.search(r"Function : \S*attention_kernel_(f32|bf16)ILi(\d+)E(?:Li(\d+)E)?", line)
+        header = re.search(r"Function : \S*attention_(kernel_f32|kernel_bf16|bwd_dq_kernel|"
+                           r"bwd_dkv_kernel)ILi(\d+)E(?:Li(\d+)E)?", line)
         if header:
             kind, d, rows = header.groups()
+            kind = kind.replace("kernel_", "").replace("_kernel", "")
             name = (kind, int(d), int(rows)) if kind == "f32" else (kind, int(d))
             counts[name] = 0
         elif "Function : " in line:
             name = None
         elif name and "HMMA" in line:
             counts[name] += 1
-    printable = {(f"f32 d={k[1]} R={k[2]}" if k[0] == "f32" else f"bf16 d={k[1]}"): n
+    printable = {(f"f32 d={k[1]} R={k[2]}" if k[0] == "f32" else f"{k[0]} d={k[1]}"): n
                  for k, n in counts.items()}
     print(f"HMMA instructions per attention kernel instance: {printable}")
     f32 = {k[1:]: n for k, n in counts.items() if k[0] == "f32"}
-    bf16 = {k[1]: n for k, n in counts.items() if k[0] == "bf16"}
     if set(f32) != F32_INSTANCES or any(f32.values()):
         raise RuntimeError(f"the f32 attention instances are not the {sorted(F32_INSTANCES)} "
                            f"without tensor-core instructions: {printable}")
-    if set(bf16) != BF16_HEAD_DIMS or not all(bf16.values()):
-        raise RuntimeError(f"a bf16 attention instance runs no tensor-core instruction: "
-                           f"{printable}")
+    for kind in ("bf16", "bwd_dq", "bwd_dkv"):
+        tc = {k[1]: n for k, n in counts.items() if k[0] == kind}
+        if set(tc) != BF16_HEAD_DIMS or not all(tc.values()):
+            raise RuntimeError(f"a {kind} attention instance runs no tensor-core instruction: "
+                               f"{printable}")
     return printable
 
 
@@ -2967,6 +3503,7 @@ def main() -> None:
             if "Compiling entry function" in line or "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
     assert_no_spill(built["attention"][1], "attention_kernel_f32")
+    assert_no_spill(built["attention"][1], "attention_bwd")
     assert_no_spill(built["phase_metrics"][1], "phase_metrics_kernel")
     tensor_core_proof(built["attention"][0])
     loop_counts = phase_loop_counts(built["phase_metrics"][0])
@@ -2976,6 +3513,7 @@ def main() -> None:
     k1_timing, k1_shapes = phase_kernel_phase(device, plv=False)
     k2_timing, _ = phase_kernel_phase(device, plv=True)
     attn_timing = attention_phase(device, clock_hz)
+    bwd_cases = attention_backward_phase(device, clock_hz)
 
     reset_attention_counts()
     k1_launches, medians, raw1, raw2, logits, state = slice_phase(device)
@@ -2993,7 +3531,7 @@ def main() -> None:
         art_cpu_parity(noisy[:n], outs[n], art_state)
         art_bf16_launches, noisy, outs, art_state = art_bf16_phase(device, art_medians, outs[n])
         art_ckpt_launches = art_checkpoint_phase(device, Path(tmp), art_state, noisy, outs)
-    flash_launches = flash_route_phase(device)
+    flash_launches, flash_bwd_launches = flash_route_phase(device)
 
     _, shootout_launches = shootout_phase()
     legacy_raw1, legacy_raw2, legacy_logits, legacy_state = legacy_phase(device)
@@ -3013,7 +3551,8 @@ def main() -> None:
     k1_train = bf16["launches"] + f32["launches"] + k1_train_serve_launches
 
     reset_k1_count()
-    art_grad_err, (parity_launches, parity_backward) = art_train_parity_phase(device)
+    art_grad_err, (parity_launches, parity_backward), cpu_f32_grads = \
+        art_train_parity_phase(device)
     attn_train = attention_train_timing(device)
     art_train = {ad: art_train_timed_phase(device, ad) for ad in (None, 0.0)}
     with tempfile.TemporaryDirectory() as tmp:
@@ -3050,6 +3589,11 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         offline = offline_features_phase(device, Path(tmp))
     assert_no_port_kernel("the offline EEG pipeline")
+
+    bf16_parity = art_bf16_train_parity_phase(device, cpu_f32_grads)
+    art_bf16_train = {ad: art_bf16_train_timed_phase(device, ad) for ad in (None, 0.0)}
+    with tempfile.TemporaryDirectory() as tmp:
+        bf16_epoch = art_bf16_epoch_phase(device, Path(tmp))
     print("offline EEG features at (32, 3250), trials/s end to end: "
           + ", ".join(f"chunk {c} {o['trials_per_s']:.2f} ({o['kernels_per_chunk']:.0f} kernels "
                       f"a chunk, busy {o['busy_share']:.1%}, {o['device_ms_per_chunk']:.3f} ms "
@@ -3078,6 +3622,20 @@ def main() -> None:
           f"{k3_step['peak_bytes'] / 2**30:.3f}")
     k3_train_launches = k3_step["launches"] + art_entry_launches + parity_launches
     k3_backward = k3_step["backward"] + art_entry_backward + parity_backward
+    bf16_plain, bf16_k4 = art_bf16_train[None], art_bf16_train[0.0]
+    print(f"bf16 ART train step at batch {ART_TRAIN_BATCH}, median ms: attention dropout 0.1 "
+          f"(plain attention) {bf16_plain['median_ms']:.3f}, attention dropout 0.0 (K3-bf16 + "
+          f"K4's backward kernels) {bf16_k4['median_ms']:.3f} "
+          f"({bf16_plain['median_ms'] / bf16_k4['median_ms']:.2f}x); peak memory GiB: "
+          f"{bf16_plain['peak_bytes'] / 2**30:.3f} / {bf16_k4['peak_bytes'] / 2**30:.3f}; "
+          f"kernels a step {bf16_plain['kernels_per_call']:.0f} / "
+          f"{bf16_k4['kernels_per_call']:.0f}; f32 at 0.0 {k3_step['median_ms']:.3f}")
+    # ART's bf16 training (the parity step, the timed steps, the epoch) and
+    # the flash route's train steps: each backward call launches both kernels.
+    bf16_train_launches = bf16_parity[0] + bf16_k4["launches"] + bf16_epoch[0]
+    bwd_calls = bf16_parity[1] + bf16_k4["backward"] + bf16_epoch[1]
+    bwd_kernel_launches = (bf16_parity[2] + bf16_k4["kernel_launches"] + bf16_epoch[2]
+                           + flash_bwd_launches)
 
     phase_source = "eyegaze_tpu_torch/csrc/phase_metrics.cu"
     source = "eyegaze_tpu_torch/csrc/attention.cu"
@@ -3142,15 +3700,59 @@ def main() -> None:
          **attn_timing["headpacked_attention", torch.float32]},
         {"name": "flash_attention", "route": "cuda", "source": source,
          "replaces": "eyegaze_tpu/models/transformer.py:232", "launches": flash_launches,
-         "path": "bf16 MultiHeadAttention, d_k 128",
-         "launches_per_request": flash_launches / FLASH_CALLS,
+         "path": "bf16 MultiHeadAttention, d_k 128, served and trained",
+         "launches_per_request": flash_launches / (FLASH_CALLS + FLASH_TRAIN_STEPS),
          **attn_timing["flash_attention", torch.bfloat16]},
         {"name": "headpacked_attention", "route": "cuda", "source": source,
-         "replaces": "eyegaze_tpu/ops/attn_kernels.py:78", "launches": art_bf16_all,
-         "path": "ART serving, bf16, and from a checkpoint",
+         "replaces": "eyegaze_tpu/ops/attn_kernels.py:78",
+         "launches": art_bf16_all + bf16_train_launches,
+         "path": "ART serving, bf16, and from a checkpoint; bf16 ART training at attention "
+                 "dropout 0.0 (parity step, timed steps, one epoch), its forward",
          "launches_per_request": art_bf16_all / (art_forwards + 1),
+         "launches_serving": art_bf16_all, "launches_training": bf16_train_launches,
+         "launches_per_train_step": bf16_k4["launches"] / TRAIN_STEPS,
+         "train_step_ms": {"attn_dropout_0.1_plain": bf16_plain["median_ms"],
+                           "attn_dropout_0.0_k3_k4bwd": bf16_k4["median_ms"]},
+         "train_peak_gib": {"attn_dropout_0.1_plain": bf16_plain["peak_bytes"] / 2**30,
+                            "attn_dropout_0.0_k3_k4bwd": bf16_k4["peak_bytes"] / 2**30},
+         "train_kernels_per_step": {"attn_dropout_0.1_plain": bf16_plain["kernels_per_call"],
+                                    "attn_dropout_0.0_k3_k4bwd": bf16_k4["kernels_per_call"]},
          **attn_timing["headpacked_attention", torch.bfloat16]},
     ]
+    art_bwd = bwd_cases[0]  # ART's training shape, the main path's
+    for name, kernel, line, errs, kernel_bound in (
+            ("flash_attention_bwd_dkv", "attention_bwd_dkv_kernel", 941, ("dk", "dv"),
+             art_bwd["dkv_bound"]),
+            ("flash_attention_bwd_dq", "attention_bwd_dq_kernel", 1287, ("dq",),
+             art_bwd["dq_bound"])):
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line}",
+            "launches": bwd_kernel_launches // 2,
+            "path": "bf16 ART training at attention dropout 0.0 (the head-packed entry: parity "
+                    "step, timed steps, one epoch) and the flash route's train steps",
+            "launches_per_request": bf16_k4["kernel_launches"] / (2 * TRAIN_STEPS),
+            "launches_per_train_step": bf16_k4["kernel_launches"] / (2 * TRAIN_STEPS),
+            "backward_calls": bwd_calls + FLASH_TRAIN_STEPS,
+            "max_abs_err": max(art_bwd["errors"][e]["max_abs_err"] for e in errs),
+            "share_of_bf16_bound": max(art_bwd["errors"][e]["share_of_bound"] for e in errs),
+            "ms": art_bwd["kernel_ms"][kernel], "bound_ms": kernel_bound[0],
+            "bound_by": kernel_bound[1],
+            # The plain version and the library call compute the whole
+            # backward, both kernels' work, as do the pair's times.
+            "plain_ms": art_bwd["plain_ms"], "library_ms": art_bwd["library_ms"],
+            "library_call": "torch.ops.aten._scaled_dot_product_flash_attention_backward",
+            "pair": {k: art_bwd[k] for k in (
+                "ms", "ms_back_to_back", "ms_graph", "bound_ms", "bound_by", "library_ms",
+                "library_ms_back_to_back", "library_ms_graph", "sfu_ex2_ms", "fwd_bwd_ms",
+                "library_fwd_bwd_ms", "stock_fwd_bwd_ms", "transit_gib")},
+            "cases": [{k: c[k] for k in ("entry", "shape", "tk", "errors", "ms", "ms_graph",
+                                         "kernel_ms", "bound_ms", "library_ms",
+                                         "fwd_bwd_ms", "library_fwd_bwd_ms",
+                                         "stock_fwd_bwd_ms", "transit_gib",
+                                         "sdpa_relative_distance")}
+                      for c in bwd_cases],
+            "shape": art_bwd["shape"], "dtype": "bfloat16"})
     for k in kernels:
         library = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         print(f"{k['name']} ({k['path']}) at {k['shape']}: {k['ms']:.4f} ms, bound "

@@ -38,19 +38,30 @@ launches the kernel, or raises.  ``launch_count`` counts the kernel's
 launches, one count for each entry point, and ``bf16_launch_count`` those of
 them that ran the bf16 instance.
 
-Gradients: the head-packed entry point trains.  Where an input requires
-grad it runs inside ``_HeadpackedAttention``, an autograd Function whose
-forward is the kernel (the twin on the CPU) and whose backward,
-``attention_backward_reference``, recomputes the standard attention gradient
-in stock ops from the saved q, k and v: the JAX package's ``custom_vjp``
-(``eyegaze_tpu/ops/attn_kernels.py::_headpacked_vjp_bwd``), which is einsum
-outside any Pallas kernel.  ``backward_count`` counts its calls.  At ART's
-training shape (16, 1024, 8, 16) one backward holds up to three (B, H, Tq,
-Tk) f32 tensors, 512 MiB each, for the length of the call (PERF.md gives
-the peak measured on the card).
-The flash entry point has no backward (the JAX package calls the stock
-Pallas kernel, whose backward no path of the port reaches): a CUDA input
-that requires grad raises there.
+Gradients: both entry points train.  Where an input requires grad the call
+runs inside an autograd Function, ``_HeadpackedAttention`` or
+``_FlashAttention``.  In bf16 both take K4's backward, written by hand for
+Hopper in the same source (``attention_backward_launch``): the forward
+launches the kernel with its row log-sum-exp saved, and the backward is two
+kernels, dQ (which also writes ``Di = sum_d O dO``) and then dK/dV,
+FlashAttention-2's backward with P recomputed from the log-sum-exp, as the
+stock Pallas ``_flash_attention_bwd_dq`` and ``_flash_attention_bwd_dkv``
+compute it: P in f32, rounded to bf16 before dV, and dS rounded to bf16
+before dK and dQ.  ``flash_attention_backward_reference`` is its plain twin.
+The bf16 head-packed route takes that backward too: in the JAX package bf16
+ART at attention dropout 0.0 trains its fused attention through the stock
+flash kernel (``bench.py:477-499``), whose backward is the Pallas pair; the
+port sends ART's d_k = 16 to the head-packed entry only for its layout, and
+the kernel is one.  In f32 both keep the JAX ``custom_vjp``'s einsum
+backward (``eyegaze_tpu/ops/attn_kernels.py::_headpacked_vjp_bwd``) in
+stock ops, ``attention_backward_reference``, which at ART's training shape
+(16, 1024, 8, 16) holds up to three (B, H, Tq, Tk) f32 tensors, 512 MiB
+each, for the length of the call (PERF.md gives the peak measured on the
+card).  On the CPU the Functions run the twins.  ``backward_count`` counts
+the Functions' backward calls by entry point, ``backward_launch_count`` the
+backward kernels' launches (two a call), and ``stock_backward_count`` the
+calls that took ``attention_backward_reference``, by dtype: its bf16 count
+stays 0.
 """
 
 from __future__ import annotations
@@ -64,6 +75,7 @@ from torch.autograd.function import once_differentiable
 from eyegaze_tpu_torch.kernels import build
 
 HEAD_DIMS = (16, 32, 64, 128)  # the head dims the kernel is instantiated for
+LOG2E = 1.4426950408889634
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's dtype argument
 DTYPES = tuple(_DTYPE_CODE)
 _MAX_GRID_YZ = 65535  # heads and batch run on the grid's y and z axes
@@ -72,8 +84,12 @@ _MAX_GRID_YZ = 65535  # heads and batch run on the grid's y and z axes
 # bf16_launch_count counts the launches of the bf16 instance among them.
 launch_count = {"headpacked_attention": 0, "flash_attention": 0}
 bf16_launch_count = {"headpacked_attention": 0, "flash_attention": 0}
-# Calls of the head-packed entry point's backward, on any device.
-backward_count = {"headpacked_attention": 0}
+# Calls of each entry point's backward, on any device; launches of the
+# backward kernels (two a call, on CUDA); calls that took the stock
+# backward ``attention_backward_reference``, by dtype.
+backward_count = {"headpacked_attention": 0, "flash_attention": 0}
+backward_launch_count = {"headpacked_attention": 0, "flash_attention": 0}
+stock_backward_count = {"float32": 0, "bfloat16": 0}
 
 
 def attention_reference(q, k, v, scale: float):
@@ -107,11 +123,46 @@ def attention_backward_reference(q, k, v, g, scale: float):
     return tuple(d.transpose(1, 2).to(x.dtype) for d, x in ((dq, q), (dk, k), (dv, v)))
 
 
+def attention_lse_reference(q, k, scale: float):
+    """Each query row's log-sum-exp of its scaled scores, base 2, from
+    (B, H, Tq, d), (B, H, Tk, d) -> (B, H, Tq) f32: ``log2 sum_j 2^(s_j
+    scale log2(e))``, what the bf16 kernel saves for the backward."""
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    return torch.logsumexp(scores, dim=-1) * LOG2E
+
+
+def flash_attention_backward_reference(q, k, v, o, lse, do, scale: float):
+    """The plain twin of K4's backward kernels on (B, H, Tq, d), (B, H, Tk,
+    d) x2, the output ``o``, its row log-sum-exp ``lse`` (B, H, Tq, base 2)
+    and the output gradient ``do`` -> (dq, dk, dv) in the operands' dtype.
+
+    The stock Pallas backward's arithmetic: S from the operands in f32,
+    times ``scale``; P = 2^(S log2(e) - lse) in f32; ``Di = sum_d O dO`` in
+    f32 from the output as the forward rounded it; dV = bf16(P)^T dO; dP = dO
+    V^T; dS = (dP - Di) P scale; dK = bf16(dS)^T Q; dQ = bf16(dS) K; each sum
+    in f32, each gradient rounded once to the operand type.  For f32
+    operands the roundings are exact.
+    """
+    q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+    p = torch.exp2(torch.matmul(q32, k32.transpose(-1, -2)) * (scale * LOG2E) - lse[..., None])
+    di = (o.float() * do32).sum(dim=-1, keepdim=True)
+    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), do32)
+    ds = (torch.matmul(do32, v32.transpose(-1, -2)) - di) * p * scale
+    del p
+    ds = ds.to(q.dtype).float()
+    dq = torch.matmul(ds, k32)
+    dk = torch.matmul(ds.transpose(-1, -2), q32)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+_LAUNCH_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
+                    + [ctypes.c_float, ctypes.c_void_p])
+
+
 def bind(lib: ctypes.CDLL):
     """The C entry point ``attention_launch`` of a built attention library."""
     fn = lib.attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
-                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = _LAUNCH_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -124,6 +175,23 @@ def _library() -> ctypes.CDLL:
 @functools.cache
 def _launcher():
     return bind(_library())
+
+
+@functools.cache
+def _lse_launcher():
+    fn = _library().attention_lse_launch
+    fn.argtypes = _LAUNCH_ARGTYPES + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _backward_launcher():
+    fn = _library().attention_backward_launch
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def f32_rows_per_thread(b: int, h: int, tq: int, d: int) -> int:
@@ -170,8 +238,17 @@ def launch_args(q, k, v, out, scale: float, t_dim: int, h_dim: int) -> tuple:
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def _launch(entry: str, q, k, v, scale: float, t_dim: int, h_dim: int):
-    """Launch the kernel on the current stream; the output has q's strides."""
+def _on_device(x, fn, *args) -> int:
+    """``fn(*args)`` with x's device current: the runtime launches there."""
+    if x.device.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(x.device):
+        return fn(*args)
+
+
+def _launch(entry: str, q, k, v, scale: float, t_dim: int, h_dim: int, with_lse: bool = False):
+    """Launch the kernel on the current stream; the output has q's strides.
+    With ``with_lse`` (bf16) also the rows' log-sum-exp, (B, H, Tq) f32."""
     if q.device.type != "cuda":
         raise RuntimeError(f"no attention kernel for device {q.device}")
     b, h, d = q.shape[0], q.shape[h_dim], q.shape[-1]
@@ -181,48 +258,137 @@ def _launch(entry: str, q, k, v, scale: float, t_dim: int, h_dim: int):
     if b > _MAX_GRID_YZ or h > _MAX_GRID_YZ or max(tq, tk) >= 2**31:
         raise ValueError(f"shape {tuple(q.shape)} exceeds the kernel's grid")
     out = torch.empty_like(q)  # same strides as q: the caller's layout
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device) if with_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if with_lse else out
     args = launch_args(q, k, v, out, scale, t_dim, h_dim)
-    if q.device.index == torch.cuda.current_device():
-        err = _launcher()(*args)
-    else:  # the runtime launches on its current device
-        with torch.cuda.device(q.device):
-            err = _launcher()(*args)
+    if with_lse:
+        err = _on_device(q, _lse_launcher(), *args, lse.data_ptr())
+    else:
+        err = _on_device(q, _launcher(), *args)
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
     launch_count[entry] += 1
     if q.dtype == torch.bfloat16:
         bf16_launch_count[entry] += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
-def _headpacked_forward(qh, kh, vh, scale: float):
-    if qh.device.type == "cpu":
-        return attention_reference(*(x.transpose(1, 2) for x in (qh, kh, vh)),
-                                   scale).transpose(1, 2)
-    return _launch("headpacked_attention", qh, kh, vh, scale, t_dim=1, h_dim=2)
+def _launch_backward(entry: str, q, k, v, o, lse, g, scale: float, t_dim: int, h_dim: int):
+    """K4's backward kernels on the current stream: (dq, dk, dv), each with
+    the strides of its input."""
+    if g.shape != q.shape or g.dtype != q.dtype:
+        raise ValueError(f"output gradient {g.dtype} {tuple(g.shape)} for an output "
+                         f"{q.dtype} {tuple(q.shape)}")
+    g = g.contiguous()  # autograd may pass a view, or an expanded (stride 0) gradient
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if dq.numel() == 0 or dk.numel() == 0:  # no query row: no gradient reaches k or v
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    b, h, d = q.shape[0], q.shape[h_dim], q.shape[-1]
+    tq, tk = q.shape[t_dim], k.shape[t_dim]
+    di = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    tensors = (q, k, v, o, g, dq, dk, dv)
+    strides = [x.stride(a) for x in tensors for a in (0, t_dim, h_dim)]
+    if any(s % 8 for s in strides) or any(x.data_ptr() % 16 for x in tensors):
+        raise ValueError("a bf16 launch wants 16-byte aligned rows: pointers aligned to "
+                         "16 bytes and batch, time and head strides multiples of 8")
+    ptrs = [x.data_ptr() for x in tensors]
+    err = _on_device(q, _backward_launcher(), *ptrs[:5], lse.data_ptr(), di.data_ptr(),
+                     *ptrs[5:], b, h, tq, tk, d, (ctypes.c_longlong * 24)(*strides), scale,
+                     torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"attention backward kernel launch failed: cudaError {err}")
+    backward_launch_count[entry] += 2
+    return dq, dk, dv
+
+
+def _bhtd(x, t_dim: int):
+    """The (B, H, T, d) view of a tensor whose time axis is ``t_dim``, and
+    back: the head-packed layout is its transpose."""
+    return x.transpose(1, 2) if t_dim == 1 else x
+
+
+def _forward(entry: str, q, k, v, scale: float, t_dim: int, h_dim: int,
+             with_lse: bool = False):
+    """The kernel on CUDA, the twins on the CPU (output, and with
+    ``with_lse`` the rows' log-sum-exp)."""
+    if q.device.type != "cpu":
+        return _launch(entry, q, k, v, scale, t_dim, h_dim, with_lse)
+    qt, kt, vt = (_bhtd(x, t_dim) for x in (q, k, v))
+    out = _bhtd(attention_reference(qt, kt, vt, scale), t_dim)
+    return (out, attention_lse_reference(qt, kt, scale)) if with_lse else out
+
+
+def _backward(entry: str, q, k, v, o, lse, g, scale: float, t_dim: int, h_dim: int):
+    """K4's backward kernels on CUDA, their twin on the CPU."""
+    if q.device.type != "cpu":
+        return _launch_backward(entry, q, k, v, o, lse, g, scale, t_dim, h_dim)
+    grads = flash_attention_backward_reference(*(_bhtd(x, t_dim) for x in (q, k, v, o)), lse,
+                                               _bhtd(g, t_dim), scale)
+    return tuple(_bhtd(x, t_dim) for x in grads)
 
 
 def _wants_grad(*xs) -> bool:
     return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
+def _function_forward(ctx, entry: str, q, k, v, scale: float, t_dim: int, h_dim: int):
+    """The Functions' forward: in bf16 the kernel with the rows'
+    log-sum-exp saved for K4's backward; in f32 the kernel alone."""
+    ctx.entry, ctx.scale, ctx.dims = entry, scale, (t_dim, h_dim)
+    if q.dtype == torch.bfloat16:
+        out, lse = _forward(entry, q, k, v, scale, t_dim, h_dim, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+    else:
+        out = _forward(entry, q, k, v, scale, t_dim, h_dim)
+        ctx.save_for_backward(q, k, v)
+    return out
+
+
+def _function_backward(ctx, g):
+    """The Functions' backward: K4's backward in bf16; in f32
+    ``attention_backward_reference``, which takes the head-packed layout."""
+    backward_count[ctx.entry] += 1
+    t_dim, h_dim = ctx.dims
+    saved = ctx.saved_tensors
+    if len(saved) == 5:
+        return (*_backward(ctx.entry, *saved, g, ctx.scale, t_dim, h_dim), None)
+    stock_backward_count[str(g.dtype).removeprefix("torch.")] += 1
+
+    def bthd(x):
+        return x.transpose(1, 2) if t_dim == 2 else x
+
+    grads = attention_backward_reference(*(bthd(x) for x in saved), bthd(g), ctx.scale)
+    return (*(bthd(x) for x in grads), None)
+
+
 class _HeadpackedAttention(torch.autograd.Function):
-    """The head-packed entry point under autograd: the kernel (the twin on
-    the CPU) forward, ``attention_backward_reference`` backward."""
+    """The head-packed entry point under autograd: the kernel forward (the
+    twin on the CPU); in bf16 K4's backward kernels (their twin on the CPU),
+    in f32 ``attention_backward_reference``."""
 
     @staticmethod
     def forward(ctx, qh, kh, vh, scale: float):
-        ctx.save_for_backward(qh, kh, vh)
-        ctx.scale = scale
-        return _headpacked_forward(qh, kh, vh, scale)
+        return _function_forward(ctx, "headpacked_attention", qh, kh, vh, scale, 1, 2)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        backward_count["headpacked_attention"] += 1
-        return (*attention_backward_reference(*ctx.saved_tensors, g, ctx.scale), None)
+        return _function_backward(ctx, g)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The flash entry point under autograd, as ``_HeadpackedAttention`` on
+    the (B, H, T, d) layout."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        return _function_forward(ctx, "flash_attention", q, k, v, scale, 2, 1)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return _function_backward(ctx, g)
 
 
 def headpacked_attention(qh, kh, vh, scale: float):
@@ -235,20 +401,18 @@ def headpacked_attention(qh, kh, vh, scale: float):
     _check(qh, kh, vh, t_dim=1)
     if _wants_grad(qh, kh, vh):
         return _HeadpackedAttention.apply(qh, kh, vh, scale)
-    return _headpacked_forward(qh, kh, vh, scale)
+    return _forward("headpacked_attention", qh, kh, vh, scale, t_dim=1, h_dim=2)
 
 
 def flash_attention(q, k, v, sm_scale: float):
     """K4's counterpart: (B, H, Tq, d), (B, H, Tk, d) x2 -> (B, H, Tq, d).
 
     On a CUDA tensor this launches the kernel on the current stream; on a
-    CPU tensor it runs the plain twin.  Any other device raises, and so
-    does a CUDA input that requires grad: this entry point has no backward.
+    CPU tensor it runs the plain twin.  Any other device raises.  Where an
+    input requires grad, the call goes through ``_FlashAttention``, whose
+    bf16 backward is K4's backward kernels.
     """
     _check(q, k, v, t_dim=2)
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, sm_scale)
     if _wants_grad(q, k, v):
-        raise RuntimeError("the flash entry point has no backward: run it under "
-                           "torch.no_grad() / inference_mode(), or on the CPU")
-    return _launch("flash_attention", q, k, v, sm_scale, t_dim=2, h_dim=1)
+        return _FlashAttention.apply(q, k, v, sm_scale)
+    return _forward("flash_attention", q, k, v, sm_scale, t_dim=2, h_dim=1)

@@ -47,11 +47,13 @@ def attention_route(device_type: str, dtype: torch.dtype, tq: int, tk: int, d_k:
     ``tq % 128 == 0`` and ``tk <= 2048``.  Everything else, and every device
     but CUDA, takes the plain path.  A CUDA call routed to the kernel with a
     head dim or dtype the kernel is not built for raises in the kernel's
-    wrapper; it never falls back to the plain path.  Gradients: the
-    head-packed route trains (its wrapper's autograd Function recomputes
-    the JAX package's einsum backward), so an ART model trained without
-    attention-weight dropout runs K3 in every train step; the flash route
-    has no backward and raises on an input that requires grad.
+    wrapper; it never falls back to the plain path.  Gradients: both kernel
+    routes train, through their wrapper's autograd Functions.  In bf16 their
+    backward is K4's, two hand-written kernels (the JAX package trains its
+    flash route through the stock Pallas backward); in f32 the head-packed
+    route recomputes the JAX package's einsum backward in stock ops.  So an
+    ART model trained without attention-weight dropout runs K3 in every
+    train step, and K4's backward too in bf16.
     """
     if device_type != "cuda" or has_mask or dropout_active or return_weights:
         return "plain"

@@ -53,9 +53,12 @@ forward (loss included), the backward and the optimizer (clip + AdamW)
 over 10 steps, and from ``torch.profiler`` over 5 synchronized steps the
 busy share, K1's share of the kernel time and the top operators.  Then
 ART's train step the same way (``eyegaze_tpu_torch.train_art``'s recipe:
-full width, float32, batch 16 of (32, 1024) pairs, dropout 0.1, AdamW at
-1e-4 with clip 1.0), with attention dropout 0.1 (the plain attention path)
-and 0.0 (K3 and its autograd backward), and the attention kernel's share.
+full width, batch 16 of (32, 1024) pairs, dropout 0.1, AdamW at 1e-4 with
+clip 1.0), in float32 and then in bf16 compute (``bench.py``'s bf16 ART
+steps), each with attention dropout 0.1 (the plain attention path) and 0.0
+(K3 under autograd: in f32 with its stock-op backward, in bf16 with K4's
+backward kernels), and the shares of the attention kernel's forward and of
+the backward kernels.
 Then the ViT-B/16 train step of ``eyegaze_tpu_torch.train_gaze`` (bf16,
 batch 16 of uint8 pairs, dropout 0.1, the augment on the card,
 class-weighted CE, AdamW at 1e-4 with clip 1.0), early (concat) and late
@@ -139,9 +142,10 @@ def median_cuda_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def wall_and_profile(request, kernel_share: str | None = None) -> None:
+def wall_and_profile(request, kernel_share: tuple[str, ...] = ()) -> None:
     """Median wall time of 10 requests, then the profiler over 5 (a request
-    ends in a wait on the device)."""
+    ends in a wait on the device), with the share of the kernel time of the
+    kernels whose names hold each of ``kernel_share``."""
     walls = []
     for _ in range(10):
         t0 = time.perf_counter()
@@ -157,9 +161,9 @@ def wall_and_profile(request, kernel_share: str | None = None) -> None:
     busy = sum(e.device_time for e in kernels) / 1e3
     print(f"  profiled 5 requests: wall {wall:.1f} ms, {len(kernels)} CUDA kernels, "
           f"summed kernel time {busy:.1f} ms, busy share {busy / wall:.0%}")
-    if kernel_share:
-        mine = sum(e.device_time for e in kernels if kernel_share in e.name) / 1e3
-        print(f"  {kernel_share}: {mine:.1f} ms, {mine / busy:.0%} of the kernel time")
+    for name in kernel_share:
+        mine = sum(e.device_time for e in kernels if name in e.name) / 1e3
+        print(f"  {name}: {mine:.1f} ms, {mine / busy:.0%} of the kernel time")
     print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=12,
                                     max_name_column_width=60))
 
@@ -269,7 +273,7 @@ def art(dev: torch.device, dtype: torch.dtype) -> None:
                   "median CUDA-event ms")
             for name, fn in stages.items():
                 print(f"  {name}: {median_cuda_ms(fn):.3f}")
-        wall_and_profile(lambda: den.predict(noisy[:n]), kernel_share="attention_kernel")
+        wall_and_profile(lambda: den.predict(noisy[:n]), kernel_share=("attention_kernel",))
 
 
 def gaze(dev: torch.device) -> None:
@@ -320,11 +324,11 @@ def multimodal(dev: torch.device) -> None:
             for name, fn in stages.items():
                 print(f"  {name}: {median_cuda_ms(fn):.3f}")
         wall_and_profile(lambda: pred.predict(a[:n], b[:n], e1[:n], e2[:n]),
-                         kernel_share="phase_metrics_kernel")
+                         kernel_share=("phase_metrics_kernel",))
 
 
 def train_step_profile(title: str, model, opt, loss_fn, batch,
-                       kernel_share: str | None) -> None:
+                       kernel_share: tuple[str, ...]) -> None:
     """Median CUDA-event ms of the forward (loss included), the backward
     and the optimizer over 10 steps, then ``wall_and_profile`` of the
     synchronized step."""
@@ -374,20 +378,22 @@ def train(dev: torch.device, dtype: torch.dtype) -> None:
     batch["label"] = torch.from_numpy((np.arange(TRAIN_BATCH) % 3).astype(np.int32)).to(dev)
     train_step_profile(f"flagship train step ({str(dtype)[6:]} compute, dropout 0.1), batch "
                        f"{TRAIN_BATCH}", model, make_optimizer(model, 1e-4, 0.01, grad_clip=1.0),
-                       loss_fn, batch, "phase_metrics_kernel")
+                       loss_fn, batch, ("phase_metrics_kernel",))
 
 
-def art_train(dev: torch.device, attn_dropout) -> None:
+def art_train(dev: torch.device, attn_dropout, dtype: torch.dtype) -> None:
     model = ArtifactRemovalTransformer(ArtConfig(attn_dropout=attn_dropout), device=dev,
-                                       generator=torch.Generator().manual_seed(42))
+                                       dtype=dtype, generator=torch.Generator().manual_seed(42))
     batch = {k: torch.from_numpy(v).to(dev) for k, v in
              train_art.build_dataset(ART_TRAIN_BATCH, CHANNELS, WINDOW).arrays.items()}
+    backward = "K4's backward kernels" if dtype == torch.bfloat16 else "its stock-op backward"
     recipe = ("0.1, the plain attention path" if attn_dropout is None
-              else f"{attn_dropout}, K3 and its autograd backward")
-    train_step_profile(f"ART train step (float32, dropout 0.1, attention dropout {recipe}), "
-                       f"batch {ART_TRAIN_BATCH}", model,
+              else f"{attn_dropout}, K3 and {backward}")
+    train_step_profile(f"ART train step ({str(dtype)[6:]} compute, dropout 0.1, attention "
+                       f"dropout {recipe}), batch {ART_TRAIN_BATCH}", model,
                        make_optimizer(model, 1e-4, 0.01, grad_clip=1.0),
-                       train_art.make_objective(False)[0], batch, "attention_kernel")
+                       train_art.make_objective(False)[0], batch,
+                       ("attention_kernel", "attention_bwd"))
 
 
 def gaze_train(dev: torch.device, kind: str, mode: str) -> None:
@@ -404,7 +410,7 @@ def gaze_train(dev: torch.device, kind: str, mode: str) -> None:
     batch["label"] = torch.from_numpy(labels).to(dev)
     train_step_profile(f"ViT-B/16 {kind} fusion ({mode}) train step (bf16 compute, dropout 0.1, "
                        f"augment on the card), batch {GAZE_TRAIN_BATCH}", model,
-                       make_optimizer(model, 1e-4, 0.01, grad_clip=1.0), loss_fn, batch, None)
+                       make_optimizer(model, 1e-4, 0.01, grad_clip=1.0), loss_fn, batch, ())
 
 
 def kernel_count(fn) -> int:
@@ -519,8 +525,9 @@ def main(argv=None) -> None:
     if args.train:
         for dtype in (torch.bfloat16, torch.float32):
             train(dev, dtype)
-        for attn_dropout in (None, 0.0):
-            art_train(dev, attn_dropout)
+        for dtype in (torch.float32, torch.bfloat16):
+            for attn_dropout in (None, 0.0):
+                art_train(dev, attn_dropout, dtype)
         for kind, mode in (("early", "concat"), ("late", "full")):
             gaze_train(dev, kind, mode)
         return

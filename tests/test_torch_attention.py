@@ -342,9 +342,12 @@ def test_flash_kernel_matches_twin_on_card(shape, kv_len, views):
 
 @pytest.mark.cuda
 def test_kernel_route_raises_on_grad_and_mha_launches_it():
-    """Under grad the head-packed route trains (kernel forward, one backward
-    call, the plain path's gradients); the flash route, which has no
-    backward, raises."""
+    """Under grad both kernel routes train: the head-packed route (f32: the
+    kernel forward, one stock backward call, the plain path's gradients) and
+    the flash route (bf16 d_k 128: the kernel forward with its log-sum-exp,
+    K4's two backward kernels, the plain path's gradients within 2**-5 of
+    each tensor's largest |entry|, the bf16 bound of the forward's output).
+    Without grad each launches its kernel once."""
     dev = _card()
     mha = MultiHeadAttention(128, 8, device=dev).eval()
     x = torch.randn(2, 1024, 128, device=dev)
@@ -364,8 +367,18 @@ def test_kernel_route_raises_on_grad_and_mha_launches_it():
         torch.testing.assert_close(g, p.grad, rtol=1e-4, atol=atol, msg=name)
     flash = MultiHeadAttention(1024, 8, device=dev, dtype=torch.bfloat16).eval()
     y = torch.randn(2, 1024, 1024, device=dev)
-    with pytest.raises(RuntimeError, match="no backward"):
-        flash(y, y, y)
+    before = (attention.launch_count["flash_attention"],
+              attention.backward_launch_count["flash_attention"])
+    flash(y, y, y).float().square().sum().backward()
+    assert (attention.launch_count["flash_attention"],
+            attention.backward_launch_count["flash_attention"]) == (before[0] + 1, before[1] + 2)
+    got = [p.grad.clone() for p in flash.parameters()]
+    flash.zero_grad()
+    flash(y, y, y, return_weights=True)[0].float().square().sum().backward()
+    largest = max(float(p.grad.abs().max()) for p in flash.parameters())
+    for (name, p), g in zip(flash.named_parameters(), got):
+        atol = 2.0 ** -5 * (largest if name == "k_proj.bias" else float(p.grad.abs().max()))
+        torch.testing.assert_close(g, p.grad, rtol=0, atol=atol, msg=name)
     before = attention.launch_count["headpacked_attention"]
     with torch.no_grad():
         out = mha(x, x, x)
