@@ -6,13 +6,15 @@ Run from the repository root on a machine with a CUDA card:
 
 It builds the port's CUDA kernels from ``eyegaze_tpu_torch/csrc`` with nvcc,
 one process per source, all at once, and prints each kernel's registers and
-spills, the tensor-core instructions (``HMMA``) in the SASS of each
-instance of the attention kernel and of K4's two backward kernels, and the
-arithmetic, LDS and other instructions per pair and sample in the main loop
-of each phase-metrics instance: a phase-metrics, f32 attention or backward
-instance that spills, an f32 attention instance with any ``HMMA`` (a TF32
-product in the f32 path), or a bf16 forward or backward instance with none,
-fails the run.  Then, each phase raising on any failure:
+spills, the tensor-core instructions (``HMMA``, ``HGMMA``) in the SASS of
+each instance of the attention kernel and of K4's backward kernels (the
+one-pass kernel and the dQ and dK/dV kernels), the arithmetic, LDS and
+other instructions per pair and sample in the main loop of each
+phase-metrics instance, and the instructions per score in the backward
+kernels' main loops: a phase-metrics, f32 attention or backward instance
+that spills, an f32 attention instance with any tensor-core instruction (a
+TF32 product in the f32 path), or a bf16 forward or backward instance with
+none, fails the run.  Then, each phase raising on any failure:
 
 1. K1 (phase metrics) against its plain PyTorch version on the card at the
    shapes the EEG serving run and flagship training launch it with (N =
@@ -38,13 +40,16 @@ fails the run.  Then, each phase raising on any failure:
    (device time alone).  Then K4's backward, bf16 under autograd
    (``attention_backward_phase``) at ART's training shape (16, 1024, 8,
    16) head-packed, K4's (2, 8, 1024, 128) flash layout, d = 32 and 64, and
-   ART's cross attention with Tk 1000: the forward's saved log-sum-exp
-   within 1e-4 of the twin's, dq, dk, dv within the bf16 bound of
-   ``backward_bound`` of the twin backward on the same output and
-   log-sum-exp, and within SDPA_WITNESS_RTOL of
-   ``F.scaled_dot_product_attention``'s gradients; the two kernels alone
-   one call, 20 back to back and 20 from a CUDA graph, each kernel's device
-   time (``torch.profiler``), beside the twin and the library's backward
+   ART's cross attention with Tk 1000 (the one-pass kernel at d = 16, PR
+   14's dQ and dK/dV kernels at the other head dims), and at ART's shape
+   with Tk 2048 (past the one-pass kernel's reach): the forward's saved
+   log-sum-exp within 1e-4 of the twin's, dq, dk, dv within the bf16 bound
+   of ``attention.backward_bound`` of the twin backward on the same output
+   and log-sum-exp, and within SDPA_WITNESS_RTOL of
+   ``F.scaled_dot_product_attention``'s gradients; the
+   kernels alone one call, 20 back to back and 20 from a CUDA graph, each
+   kernel's device time (``torch.profiler``, which must see the kernels of
+   the case's path), beside the twin and the library's backward
    (``aten._scaled_dot_product_flash_attention_backward``), the bound (the
    five products at the bf16 peak against the bytes) and the exponentials
    on the SFU; the Function's forward + backward beside the library's and
@@ -89,9 +94,9 @@ fails the run.  Then, each phase raising on any failure:
    counterpart of the JAX call site of the stock flash kernel, launches the
    flash entry point on every forward and matches its own plain path; then
    it trains, 3 AdamW steps through the route (a K4 launch and a call of
-   K4's two backward kernels each, no stock backward), and one backward's
-   gradients match the plain route's within 2**-5 of each tensor's largest
-   |entry|.
+   K4's dQ and dK/dV backward kernels each, no stock backward), and one
+   backward's gradients match the plain route's within 2**-5 of each
+   tensor's largest |entry|.
 11. The connectivity shootout, ``eyegaze_tpu_torch.bench_connectivity.main``
    at its defaults: K1 against its plain version, PLV by four matrix
    products plus K1 against K2 alone, six coherence passes against one; its
@@ -227,14 +232,14 @@ fails the run.  Then, each phase raising on any failure:
 29. ART's bf16 train step at full width, ``bench.py``'s two bf16 recipes
    (``ArtifactRemovalTransformer(ArtConfig(attn_dropout=...),
    dtype=bfloat16)``): one dropout-free step at batch 2 at attention dropout
-   0.0 on the card (18 K3-bf16 launches, 18 calls of K4's backward kernels,
-   no stock backward) against the CPU's plain path from the same seeded
+   0.0 on the card (18 K3-bf16 launches, 18 launches of K4's one-pass
+   backward kernel, none of the two-kernel path, no stock backward) against the CPU's plain path from the same seeded
    weights, the loss within 2**-8 relative and every gradient tensor within
    ART_BF16_GRAD_SHARE on its module's scale, the parameters and gradients
    f32; ``Trainer.train_step`` at batch 16 with dropout 0.1, 3 steps
    untimed, 20 timed to a synchronize and ``torch.profiler`` over 5, at
    attention dropout 0.1 (the plain path, no kernel) and 0.0 (per step 18
-   K3-bf16 launches and 18 backward calls of 2 kernel launches): median step
+   K3-bf16 launches and 18 backward calls of one launch each): median step
    time, peak memory, kernels per step, busy share; then one epoch at 0.0
    through ``Trainer.fit`` on 40 synthetic trials, its best_model.pt served
    by ``ArtDenoiser.from_checkpoint`` (bf16) within 2**-5 of the largest
@@ -255,10 +260,12 @@ them, its time, bound and share at each composite bucket, and the
 composite train step's time, memory and K1 launches per step; the f32 head-packed entry's are
 serving's and ART training's, with its backward calls, the ART train
 step's medians and the autograd timing; the bf16 head-packed entry's are
-bf16 serving's and bf16 ART training's, with that step's medians; the two
-backward kernels', ``flash_attention_bwd_dkv`` and
-``flash_attention_bwd_dq``, are bf16 ART training's and the flash route's,
-timed at ART's training shape, each case of the backward phase beside);
+bf16 serving's and bf16 ART training's, with that step's medians; the
+one-pass backward kernel's, ``flash_attention_bwd``, are bf16 ART
+training's, timed at ART's training shape, each case of the backward phase
+beside; the two backward kernels', ``flash_attention_bwd_dkv`` and
+``flash_attention_bwd_dq``, the flash route's train steps, timed at K4's
+shape and past the one-pass kernel's reach);
 the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -330,6 +337,9 @@ ART_BF16_TOL_SHARE = 2.0 ** -5
 ATTN_HEADS, ATTN_DK = 8, 16  # ART's attention geometry at T = 1024
 ATTN_RAGGED = (3, 200, 8, 16)
 FLASH_SHAPE = (2, 8, 1024, 128)  # (B, H, T, d)
+# A bf16 layer of d_k 64 at T = 1024 takes the head-packed route, and its
+# backward the wgmma one-pass kernel: K4's backward at d = 64.
+HEADPACKED64_SHAPE = (4, 8, 1024, 64)
 FLASH_CALLS = 3
 FLASH_TRAIN_STEPS = 3
 # f32: the kernel and the twin sum the same products in another order; an
@@ -395,25 +405,6 @@ ART_TRAIN_TRIALS = 40
 ART_GRAD_SHARE = 1e-4
 ART_TRAIN_SHAPE = (ART_TRAIN_BATCH, WINDOW, ATTN_HEADS, ATTN_DK)  # (B, T, H, d)
 
-# K4's backward (phase 3) in bf16 under autograd, (entry, (B, Tq, H, d), Tk):
-# ART's training shape, K4's flash shape, d = 32 and 64, and ART's
-# cross-attention with a ragged Tk.  The first is the shape of the kernels
-# line.
-BWD_CASES = (("headpacked_attention", ART_TRAIN_SHAPE, WINDOW),
-             ("flash_attention", (2, 1024, 8, 128), 1024),
-             ("headpacked_attention", (8, 1024, 8, 32), 1024),
-             ("headpacked_attention", (4, 1024, 8, 64), 1024),
-             ("headpacked_attention", ART_TRAIN_SHAPE, 1000))
-# bf16's unit roundoff (8 significant bits).  The kernels and their twin
-# both round P to bf16 before dV and dS before dK and dQ, each rounding
-# moving a product by at most u of it, so a gradient entry differs by at
-# most 2u T, T the sum of the |products| it adds; each rounds its result to
-# bf16 once (2u |want| together); and the f32 parts (S, dP, Di summed in
-# other orders, ex2.approx) stay under 2**-16 of F, the sums over the
-# magnitudes whose difference dS is, where dP - Di cancels
-# (``backward_bound``).
-BF16_U = 2.0 ** -8
-BWD_F32_SHARE = 2.0 ** -16
 # F.scaled_dot_product_attention's gradients, a second witness: it rounds its
 # own output, P and dS, so it is held in relative Frobenius norm, a few bf16
 # steps (u = 2**-8 each) apart at most.
@@ -1206,20 +1197,27 @@ def art_checkpoint_phase(device, tmp: Path, state, noisy, outs) -> int:
     return bf16["headpacked_attention"]
 
 
-def flash_route_phase(device) -> tuple[int, int]:
-    """A bf16 MultiHeadAttention with d_k 128 takes the flash route on every
-    forward and matches its own plain path (forced by returning weights);
-    then it trains through the route, FLASH_TRAIN_STEPS AdamW steps, each
-    one K4 launch and one backward call of K4's two backward kernels, and
-    one backward's gradients match the plain route's within 2**-5 of each
-    tensor's largest |entry| (k_proj.bias of the largest gradient; the
-    bound of tests/test_torch_attention.py).  Returns (K4 launches, backward
-    kernel launches), counted from 0 for the phase."""
+def kernel_route_phase(device, shape) -> dict:
+    """A bf16 MultiHeadAttention of ``shape`` (B, H, T, d_k) takes its kernel
+    route on every forward (flash at d_k 128, head-packed at d_k 64) and
+    matches its own plain path (forced by returning weights); then it trains
+    through the route, FLASH_TRAIN_STEPS AdamW steps, each one forward launch
+    and one backward call of K4's backward on the path the library picks for
+    the shape (``attention.backward_path``: at d_k 128 the dQ and dK/dV
+    kernels, at d_k 64 the wgmma one-pass kernel), and one backward's
+    gradients match the plain route's within 2**-5 of each tensor's largest
+    |entry| (k_proj.bias of the largest gradient; the bound of
+    tests/test_torch_attention.py).  Returns the entry, its forward
+    launches, the backward calls and the backward path and its launches,
+    counted from 0 for the phase."""
     from eyegaze_tpu_torch.kernels import attention
     from eyegaze_tpu_torch.models.transformer import MultiHeadAttention, init_weights_
     from eyegaze_tpu_torch.train.optim import make_optimizer
 
-    b, h, t, d = FLASH_SHAPE
+    b, h, t, d = shape
+    entry = "flash_attention" if d % 128 == 0 else "headpacked_attention"
+    path = attention.backward_path(t, d)
+    route = entry.split("_")[0]
     mha = MultiHeadAttention(h * d, h, device=device, dtype=torch.bfloat16)
     init_weights_(mha, torch.Generator().manual_seed(2))
     mha.eval()
@@ -1232,19 +1230,20 @@ def flash_route_phase(device) -> tuple[int, int]:
         launches, bf16 = dict(attention.launch_count), dict(attention.bf16_launch_count)
         plain = mha(x, x, x, return_weights=True)[0]
     torch.cuda.synchronize()
-    if launches != bf16 or launches != {"headpacked_attention": 0,
-                                        "flash_attention": FLASH_CALLS}:
-        raise RuntimeError(f"{FLASH_CALLS} bf16 d_k-128 forwards: {launches}, of them "
+    want_launches = {"headpacked_attention": 0, "flash_attention": 0, entry: FLASH_CALLS}
+    if launches != bf16 or launches != want_launches:
+        raise RuntimeError(f"{FLASH_CALLS} bf16 d_k-{d} forwards: {launches}, of them "
                            f"bf16 {bf16}")
     # The contexts agree to the bf16 bound of the attention phase; out_proj
-    # sums 1024 of them with weights of std 1/32 and rounds once more to bf16.
+    # sums h d of them with weights of std (h d)**-0.5 and rounds once more
+    # to bf16.
     torch.testing.assert_close(outs[0].float(), plain.float(), rtol=2.0 ** -7, atol=2.0 ** -6)
-    print(f"flash route, bf16 MultiHeadAttention (B {b}, T {t}, H {h}, d_k {d}): "
-          f"{launches['flash_attention']} launches for {FLASH_CALLS} forwards, "
+    print(f"{route} route, bf16 MultiHeadAttention (B {b}, T {t}, H {h}, d_k {d}): "
+          f"{launches[entry]} launches for {FLASH_CALLS} forwards, "
           f"max |kernel route - plain route| {float((outs[0].float() - plain.float()).abs().max()):.3e}")
 
     target = torch.randn(b, t, h * d, generator=torch.Generator().manual_seed(4)).to(device)
-    mha.train()  # no dropout in the module: the flash route under grad
+    mha.train()  # no dropout in the module: the kernel route under grad
     opt = make_optimizer(mha, 1e-4, 0.01, grad_clip=1.0)
     losses = []
     for _ in range(FLASH_TRAIN_STEPS):
@@ -1253,18 +1252,18 @@ def flash_route_phase(device) -> tuple[int, int]:
         opt.step()
         opt.zero_grad()
         losses.append(loss.item())
-    counts = (attention.launch_count["flash_attention"], attention.backward_count["flash_attention"],
-              attention.backward_launch_count["flash_attention"],
-              dict(attention.stock_backward_count))
-    want = (FLASH_CALLS + FLASH_TRAIN_STEPS, FLASH_TRAIN_STEPS, 2 * FLASH_TRAIN_STEPS,
+    counts = (attention.launch_count[entry], attention.backward_count[entry],
+              dict(attention.backward_launch_count), dict(attention.stock_backward_count))
+    want = (FLASH_CALLS + FLASH_TRAIN_STEPS, FLASH_TRAIN_STEPS,
+            {**{p: 0 for p in attention.BACKWARD_LAUNCHES},
+             path: attention.BACKWARD_LAUNCHES[path] * FLASH_TRAIN_STEPS},
             {"float32": 0, "bfloat16": 0})
     if counts != want or not np.isfinite(losses).all():
-        raise RuntimeError(f"{FLASH_TRAIN_STEPS} flash-route train steps: (K4 launches, "
-                           f"backward calls, backward kernel launches, stock) {counts}, not "
-                           f"{want}; losses {losses}")
-    launched = counts[0], counts[2]
+        raise RuntimeError(f"{FLASH_TRAIN_STEPS} {route}-route train steps: (forward "
+                           f"launches, backward calls, backward kernel launches by path, stock) "
+                           f"{counts}, not {want}; losses {losses}")
     grads = []
-    for weights in (False, True):  # the flash route, then the plain route
+    for weights in (False, True):  # the kernel route, then the plain route
         out = mha(x, x, x, return_weights=weights)
         ((out[0] if weights else out).float() - target).square().mean().backward()
         grads.append({n: p.grad.detach().clone() for n, p in mha.named_parameters()})
@@ -1273,14 +1272,15 @@ def flash_route_phase(device) -> tuple[int, int]:
     shares = sorted(((float((grads[0][n] - w).abs().max()) / (
         largest if n == "k_proj.bias" else float(w.abs().max())), n)
         for n, w in grads[1].items()), reverse=True)
-    print(f"flash route trains: {FLASH_TRAIN_STEPS} AdamW steps, losses "
+    print(f"{route} route trains: {FLASH_TRAIN_STEPS} AdamW steps, losses "
           f"{[round(v, 5) for v in losses]}, {counts[1]} backward calls of K4's backward "
-          f"({counts[2]} kernel launches), no stock backward; gradients against the plain "
+          f"(kernel launches by path {counts[2]}), no stock backward; gradients against the plain "
           f"route's, the largest |difference| as a share of the tensor's largest |entry| "
           f"(bound 2**-5): " + ", ".join(f"{n} {v:.4f}" for v, n in shares[:3]))
     if shares[0][0] > 2.0 ** -5:
-        raise RuntimeError(f"the flash route's gradient {shares[0][1]} is not the plain route's")
-    return launched
+        raise RuntimeError(f"the {route} route's gradient {shares[0][1]} is not the plain route's")
+    return {"entry": entry, "launches": counts[0], "backward_calls": counts[1], "path": path,
+            "backward_launches": counts[2][path]}
 
 
 def shootout_phase() -> tuple[dict, dict]:
@@ -1621,8 +1621,8 @@ def train_serve_phase(device, tmp: Path) -> int:
 def reset_backward_count() -> None:
     from eyegaze_tpu_torch.kernels import attention
 
-    for counts in (attention.backward_count, attention.backward_launch_count):
-        counts.update(headpacked_attention=0, flash_attention=0)
+    attention.backward_count.update(headpacked_attention=0, flash_attention=0)
+    attention.backward_launch_count.update(one_pass=0, two_kernel=0, one_pass_wgmma=0)
     attention.stock_backward_count.update(float32=0, bfloat16=0)
 
 
@@ -1645,20 +1645,24 @@ def art_train_counts() -> tuple[int, int]:
 
 
 def art_bf16_train_counts() -> tuple[int, int, int]:
-    """(bf16 head-packed launches, backward calls, backward kernel launches)
-    since the last reset; raises on any other attention launch and on any
-    call of the stock backward."""
+    """(bf16 head-packed launches, backward calls, launches of the one-pass
+    backward kernel) since the last reset; raises on any other attention
+    launch, on any launch of the two-kernel backward path (ART's Tk of 1024
+    is within one cluster's reach) and on any call of the stock backward."""
     from eyegaze_tpu_torch.kernels import attention
 
     launches = attention.bf16_launch_count["headpacked_attention"]
     if (attention.launch_count != {"headpacked_attention": launches, "flash_attention": 0}
             or attention.backward_count["flash_attention"]
+            or attention.backward_launch_count["two_kernel"]
+            or attention.backward_launch_count["one_pass_wgmma"]
             or any(attention.stock_backward_count.values())):
         raise RuntimeError(f"bf16 ART training launched {attention.launch_count}, of them bf16 "
-                           f"{attention.bf16_launch_count}; stock backward calls "
+                           f"{attention.bf16_launch_count}; backward kernels "
+                           f"{attention.backward_launch_count}; stock backward calls "
                            f"{attention.stock_backward_count}")
     return (launches, attention.backward_count["headpacked_attention"],
-            attention.backward_launch_count["headpacked_attention"])
+            attention.backward_launch_count["one_pass"])
 
 
 def art_train_model(device, attn_dropout, dtype=torch.float32):
@@ -1776,59 +1780,36 @@ def attention_train_timing(device) -> dict:
             "bwd_transit_gib": transit / 2**30, "shape": list(ART_TRAIN_SHAPE)}
 
 
-def backward_bound(q, k, v, o, lse, g, scale) -> tuple:
-    """(B, H, T, d) f32 for dq, dk, dv: T, the sums of |products| each entry
-    adds (|dS| |K|, |dS|^T |Q|, P^T |dO|), and F, the same sums over P
-    (|dO| |V|^T + sum_d |O dO|) |scale|, the magnitudes whose difference dS
-    is (none for dv)."""
-    from eyegaze_tpu_torch.kernels import attention
-
-    q, k, v, o, g = (x.float() for x in (q, k, v, o, g))
-    p = torch.exp2(q @ k.transpose(-1, -2) * (scale * attention.LOG2E) - lse[..., None])
-    tv = p.transpose(-1, -2) @ g.abs()
-    ds = ((g @ v.transpose(-1, -2)) - (o * g).sum(-1, keepdim=True)) * p * scale
-    e = p * (g.abs() @ v.abs().transpose(-1, -2) + (o * g).abs().sum(-1, keepdim=True))
-    del p
-    e *= abs(scale)
-    terms = (ds.abs() @ k.abs(), ds.abs().transpose(-1, -2) @ q.abs(), tv)
-    del ds
-    return terms, (e @ k.abs(), e.transpose(-1, -2) @ q.abs(), 0.0)
-
-
-def assert_backward_within(name: str, got, want, bound_terms) -> dict:
-    """dq, dk, dv of the kernels against the twin's within 2u T + 2u |want|
-    + 2**-16 F (``backward_bound``, BF16_U); returns each one's largest
-    |difference| and the share of its bound used."""
-    out = {}
-    for label, a, w, t, f in zip(("dq", "dk", "dv"), got, want, *bound_terms):
-        w = w.float()
-        err = (a.float() - w).abs()
-        share = float((err / (2 * BF16_U * (t + w.abs()) + BWD_F32_SHARE * f)).max())
-        out[label] = {"max_abs_err": float(err.max()), "share_of_bound": share}
-        if not share <= 1.0:
-            raise AssertionError(f"{name} {label} off by {float(err.max()):.3e}: {share:.2f}x "
-                                 "its bf16 bound")
-    return out
+# The backward's kernels by path, as torch.profiler names them.
+BWD_KERNELS = {"one_pass": ("attention_bwd_one_pass_kernel",),
+               "one_pass_wgmma": ("attention_bwd_one_pass_wgmma_kernel",),
+               "two_kernel": ("attention_bwd_dq_kernel", "attention_bwd_dkv_kernel")}
 
 
 def attention_backward_phase(device, clock_hz) -> dict:
-    """K4's backward kernels in bf16 under autograd, at BWD_CASES: dq, dk,
-    dv against the twin on the same forward output and log-sum-exp (the
-    forward's LSE against the twin's too) and against
-    ``F.scaled_dot_product_attention``'s gradients; the kernels' time alone
-    (one call, back to back, graph; each kernel's device time from
-    ``torch.profiler``) beside the twin's and the library's backward
+    """K4's backward in bf16 under autograd, at ``attention.BACKWARD_CASES``
+    and ``attention.BACKWARD_PAST_REACH``, each on the path the library
+    picks (``attention.backward_path``: the one-pass kernel at d = 16 within
+    its reach, else the dQ and dK/dV kernels): dq, dk, dv against the twin on the same forward
+    output and log-sum-exp (the forward's LSE against the twin's too) and
+    against ``F.scaled_dot_product_attention``'s gradients; the kernels'
+    time alone (one call, back to back, graph; each kernel's device time
+    from ``torch.profiler``, which must see the kernels of the case's path
+    and no other) beside the twin's and the library's backward
     (``aten._scaled_dot_product_flash_attention_backward`` on its own
     forward's outputs), the bound and the exponentials; the Function's
     forward + backward beside the library's and beside the old stock
     backward's, with each one's peak memory in transit.  Returns each
-    case's fields; the first case's are the kernels line's."""
+    case's fields; the first case's (ART's shape) are the one-pass
+    kernel's on the kernels line, the second's (K4's) the two kernels'."""
     from torch.profiler import ProfilerActivity, profile
 
     from eyegaze_tpu_torch.kernels import attention
 
     results = []
-    for seed, (entry, (b, tq, h, d), tk) in enumerate(BWD_CASES):
+    cases = attention.BACKWARD_CASES + (attention.BACKWARD_PAST_REACH,)
+    for seed, (entry, (b, tq, h, d), tk) in enumerate(cases):
+        path = attention.backward_path(tk, d)
         flash = entry == "flash_attention"
         t_dim, h_dim = (2, 1) if flash else (1, 2)
         scale = 1.0 / math.sqrt(d)
@@ -1856,8 +1837,9 @@ def attention_backward_phase(device, clock_hz) -> dict:
         if not lse_err <= 1e-4:
             raise RuntimeError(f"{shape}: the forward's log-sum-exp is off by {lse_err:.3e}")
         want = attention.flash_attention_backward_reference(qt, kt, vt, ot, lse, gt, scale)
-        errs = assert_backward_within(shape, [bhtd(a) for a in got], want,
-                                      backward_bound(qt, kt, vt, ot, lse, gt, scale))
+        errs = attention.assert_backward_within(
+            shape, [bhtd(a) for a in got], want,
+            attention.backward_bound(qt, kt, vt, ot, lse, gt, scale))
         del want
         qs, ks, vs = (bhtd(a).detach().clone().requires_grad_() for a in (q, k, v))
         sdpa = torch.autograd.grad(F.scaled_dot_product_attention(qs, ks, vs, scale=scale),
@@ -1869,7 +1851,7 @@ def attention_backward_phase(device, clock_hz) -> dict:
         if max(witness.values()) > SDPA_WITNESS_RTOL:
             raise RuntimeError(f"{shape}: the kernels' gradients are not "
                                f"F.scaled_dot_product_attention's: {witness}")
-        print(f"{shape} backward: max |kernels - twin| "
+        print(f"{shape} backward ({path} path): max |kernels - twin| "
               + ", ".join(f"{k} {e['max_abs_err']:.3e} ({e['share_of_bound']:.2f} of its bound)"
                           for k, e in errs.items())
               + f"; forward LSE within {lse_err:.2e} of the twin's; relative Frobenius distance "
@@ -1878,7 +1860,7 @@ def attention_backward_phase(device, clock_hz) -> dict:
               + f" (bound {SDPA_WITNESS_RTOL:g})")
 
         def kernels():
-            attention._launch_backward(entry, qd, kd, vd, o, lse, g, scale, t_dim, h_dim)
+            attention._launch_backward(qd, kd, vd, o, lse, g, scale, t_dim, h_dim)
 
         def twin():
             attention.flash_attention_backward_reference(qt, kt, vt, ot, lse, gt, scale)
@@ -1900,19 +1882,21 @@ def attention_backward_phase(device, clock_hz) -> dict:
             torch.cuda.synchronize()
         per_kernel = {}
         for ev in prof.events():
-            for name in ("attention_bwd_dq_kernel", "attention_bwd_dkv_kernel"):
-                if ev.device_type == torch.autograd.DeviceType.CUDA and name in ev.name:
-                    per_kernel[name] = per_kernel.get(name, 0.0) + ev.device_time / 1e3
+            if ev.device_type == torch.autograd.DeviceType.CUDA and "attention_bwd" in ev.name:
+                name = re.search(r"attention_bwd_\w+?_kernel", ev.name).group(0)
+                per_kernel[name] = per_kernel.get(name, 0.0) + ev.device_time / 1e3
         per_kernel = {k: v / BACK_TO_BACK for k, v in per_kernel.items()}
-        if len(per_kernel) != 2:
-            raise RuntimeError(f"torch.profiler saw the backward kernels {sorted(per_kernel)}")
+        if set(per_kernel) != set(BWD_KERNELS[path]):
+            raise RuntimeError(f"{shape}: torch.profiler saw the backward kernels "
+                               f"{sorted(per_kernel)} on the {path} path")
 
         # The bound: the backward's five products (S, dP, dV, dK, dQ), 2 B H
         # Tq Tk d operations each, against Q, K, V, O, dO read, dQ, dK, dV
-        # written (bf16), LSE read and Di written once (f32).  Each kernel's
-        # own: dQ recomputes S and dP and sums dQ (3 products), reads q, k,
-        # v, o, dO and LSE and writes dQ and Di; dK/dV recomputes S and dP
-        # and sums dV and dK (4), reads q, k, v, dO, LSE and Di, writes dK, dV.
+        # written (bf16), LSE read and Di written once (f32); the one-pass
+        # kernel does that work.  On the two-kernel path each kernel's own:
+        # dQ recomputes S and dP and sums dQ (3 products), reads q, k, v, o,
+        # dO and LSE and writes dQ and Di; dK/dV recomputes S and dP and sums
+        # dV and dK (4), reads q, k, v, dO, LSE and Di, writes dK, dV.
         mm = 2 * b * h * tq * tk * d
         q_bytes, k_bytes, row_bytes = 2 * b * tq * h * d, 2 * b * tk * h * d, 4 * b * h * tq
         bwd_bound, bwd_by = bound(4 * q_bytes + 4 * k_bytes + 2 * row_bytes, 5 * mm,
@@ -1921,7 +1905,9 @@ def attention_backward_phase(device, clock_hz) -> dict:
                          BF16_OPS_PER_S)
         dkv_bound = bound(2 * q_bytes + 2 * k_bytes + 2 * row_bytes + 2 * k_bytes, 4 * mm,
                           BF16_OPS_PER_S)
-        sfu_ms = 2 * b * h * tq * tk / (SFU_EX2_PER_CLOCK * SMS * clock_hz) * 1e3
+        # How often each score's exponential is taken.
+        passes = 1 if path.startswith("one_pass") else 2
+        sfu_ms = passes * b * h * tq * tk / (SFU_EX2_PER_CLOCK * SMS * clock_hz) * 1e3
 
         def function():
             torch.autograd.grad(fn(q, k, v, scale), (q, k, v), g)
@@ -1947,22 +1933,24 @@ def attention_backward_phase(device, clock_hz) -> dict:
             call()
             torch.cuda.synchronize()
             transit[label] = (torch.cuda.max_memory_allocated(device) - base) / 2**30
-        print(f"{shape} backward kernels alone: one call {ms:.4f} ms (dQ kernel "
-              f"{per_kernel['attention_bwd_dq_kernel']:.4f}, dK/dV kernel "
-              f"{per_kernel['attention_bwd_dkv_kernel']:.4f} ms of device time, torch.profiler), "
-              f"back to back {ms_b2b:.4f}, CUDA graph {ms_graph:.4f}; twin {plain_ms:.4f}; the "
-              f"library's backward (aten flash backward) one call {library_ms:.4f}, back to back "
-              f"{library_b2b:.4f}, graph {library_graph:.4f}; bound {bwd_bound:.4f} ms "
+        split = ("" if path.startswith("one_pass") else
+                 f"; dQ kernel {dq_bound[0]:.4f}, dK/dV kernel {dkv_bound[0]:.4f}")
+        print(f"{shape} backward kernels alone ({path} path): one call {ms:.4f} ms ("
+              + ", ".join(f"{k} {v:.4f}" for k, v in per_kernel.items())
+              + f" ms of device time, torch.profiler), back to back {ms_b2b:.4f}, CUDA graph "
+              f"{ms_graph:.4f} ({bwd_bound / ms_graph:.0%} of the bound); twin {plain_ms:.4f}; "
+              f"the library's backward (aten flash backward) one call {library_ms:.4f}, back to "
+              f"back {library_b2b:.4f}, graph {library_graph:.4f}; bound {bwd_bound:.4f} ms "
               f"({bwd_by}: 10 B H Tq Tk d = {5 * mm:.3g} operations at "
-              f"{BF16_OPS_PER_S / 1e12:g} TFLOP/s; dQ kernel {dq_bound[0]:.4f}, dK/dV kernel "
-              f"{dkv_bound[0]:.4f}); the two kernels' {2 * b * h * tq * tk:.3g} exponentials on "
-              f"the SFU alone {sfu_ms:.4f} ms (not a floor).  Forward + backward: Function "
+              f"{BF16_OPS_PER_S / 1e12:g} TFLOP/s{split}); the {passes * b * h * tq * tk:.3g} "
+              f"exponentials on the SFU alone {sfu_ms:.4f} ms (not a floor).  Forward + "
+              f"backward: Function "
               f"{fwd_bwd_ms:.4f} ms, F.scaled_dot_product_attention {library_fwd_bwd_ms:.4f} ms, "
               f"kernel forward + the stock-op backward {stock_ms:.4f} ms (in turns); peak "
               f"memory in transit {transit['function']:.3f} GiB (Function) against "
               f"{transit['stock']:.3f} GiB (stock backward)")
         results.append({
-            "shape": [b, h, tq, d], "tk": tk, "entry": entry, "errors": errs,
+            "shape": [b, h, tq, d], "tk": tk, "entry": entry, "path": path, "errors": errs,
             "lse_max_abs_err": lse_err, "sdpa_relative_distance": witness,
             "ms": ms, "ms_back_to_back": ms_b2b, "ms_graph": ms_graph,
             "kernel_ms": per_kernel, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -2083,9 +2071,9 @@ def module_shares(got: dict, want: dict, own: bool = False) -> list:
 
 def art_bf16_train_parity_phase(device, cpu_f32_grads: dict) -> tuple[int, int, int]:
     """One dropout-free bf16 ART step at full width (``attn_dropout=0.0``)
-    at batch 2 on the card, through K3's bf16 instance and K4's backward
-    kernels (18 launches, 18 backward calls of 2 kernel launches, no stock
-    backward), and on the CPU through the plain path, from the same seeded
+    at batch 2 on the card, through K3's bf16 instance and K4's one-pass
+    backward kernel (18 launches, 18 backward calls of one launch each, none
+    of the two-kernel path, no stock backward), and on the CPU through the plain path, from the same seeded
     weights: the loss within ART_BF16_LOSS_RTOL, every gradient tensor within
     ART_BF16_GRAD_SHARE on its module's scale (``module_shares``), beside
     the CPU's own bf16-vs-f32 distance (``cpu_f32_grads``, the f32 parity
@@ -2106,7 +2094,7 @@ def art_bf16_train_parity_phase(device, cpu_f32_grads: dict) -> tuple[int, int, 
                             ART_TRAIN_LR))
         if dev.type == "cuda":
             counts = art_bf16_train_counts()
-            if counts != (ART_ATTENTION_CALLS, ART_ATTENTION_CALLS, 2 * ART_ATTENTION_CALLS):
+            if counts != (ART_ATTENTION_CALLS,) * 3:
                 raise RuntimeError(f"one bf16 ART step: {counts} (K3 launches, backward calls, "
                                    f"backward kernel launches)")
     (loss, norm, step, _, card_s, card), (cpu_loss, cpu_norm, _, _, cpu_s, cpu) = out
@@ -2115,8 +2103,8 @@ def art_bf16_train_parity_phase(device, cpu_f32_grads: dict) -> tuple[int, int, 
         raise RuntimeError("a bf16 ART step must leave f32 parameters and f32 gradients")
     shares, level = module_shares(card, cpu), module_shares(cpu, cpu_f32_grads)
     print(f"one bf16 ART train step at batch {ART_PARITY_BATCH} without dropout (card: "
-          f"{ART_ATTENTION_CALLS} K3-bf16 launches, {ART_ATTENTION_CALLS} backward calls of 2 "
-          f"kernels, no stock backward), card vs CPU (plain path): loss {loss:.6f} / "
+          f"{ART_ATTENTION_CALLS} K3-bf16 launches, {ART_ATTENTION_CALLS} backward calls of "
+          f"the one-pass kernel, no stock backward), card vs CPU (plain path): loss {loss:.6f} / "
           f"{cpu_loss:.6f} (bound {ART_BF16_LOSS_RTOL:g} relative), grad norm {norm:.6f} / "
           f"{cpu_norm:.6f}; {len(cpu)} gradient tensors, the largest |difference| as a share of "
           f"the largest |entry| of the module's gradients of its kind (bound "
@@ -2138,7 +2126,7 @@ def art_bf16_train_timed_phase(device, attn_dropout) -> dict:
     of (32, 1024) pairs, dropout 0.1, attention dropout ``attn_dropout``
     (None: the plain path; 0.0: K3-bf16 and K4's backward kernels), through
     ``time_train_steps`` (profiled): at 0.0, per timed step 18 K3-bf16
-    launches and 18 backward calls of 2 kernel launches; none at None; no
+    launches and 18 backward calls of one launch each; none at None; no
     stock backward in either."""
     from eyegaze_tpu_torch import train_art
     from eyegaze_tpu_torch.train.optim import make_optimizer
@@ -2159,14 +2147,15 @@ def art_bf16_train_timed_phase(device, attn_dropout) -> dict:
                          read=art_bf16_train_counts)
     launches, backward, kernel_launches = t["counts"]
     want = ART_ATTENTION_CALLS * TRAIN_STEPS if attn_dropout == 0.0 else 0
-    if (launches, backward, kernel_launches) != (want, want, 2 * want):
+    if (launches, backward, kernel_launches) != (want, want, want):
         raise RuntimeError(f"bf16 ART training ({name}): {launches} K3 launches, {backward} "
-                           f"backward calls, {kernel_launches} backward kernel launches for "
-                           f"{TRAIN_STEPS} steps, not {want}, {want}, {2 * want}")
+                           f"backward calls, {kernel_launches} one-pass backward launches for "
+                           f"{TRAIN_STEPS} steps, not {want} each")
     print(f"ART train step (bf16, dropout 0.1, {name}, batch {ART_TRAIN_BATCH}): "
           f"{t['summary']}; {ART_TRAIN_BATCH * 1e3 / t['median_ms']:.1f} windows/s; per step "
           f"{launches / TRAIN_STEPS:g} K3-bf16 launches, {backward / TRAIN_STEPS:g} backward "
-          f"calls, {kernel_launches / TRAIN_STEPS:g} backward kernel launches, 0 stock backward")
+          f"calls, {kernel_launches / TRAIN_STEPS:g} one-pass backward launches, 0 stock "
+          "backward")
     return {**t, "launches": launches, "backward": backward, "kernel_launches": kernel_launches}
 
 
@@ -2211,7 +2200,7 @@ def art_bf16_epoch_phase(device, tmp: Path) -> tuple[int, int, int]:
     eval_batches = math.ceil(len(val_ds) / ART_TRAIN_BATCH)
     if (launches, backward, kernel_launches) != (ART_ATTENTION_CALLS * (steps + eval_batches),
                                                  ART_ATTENTION_CALLS * steps,
-                                                 2 * ART_ATTENTION_CALLS * steps):
+                                                 ART_ATTENTION_CALLS * steps):
         raise RuntimeError(f"{steps} bf16 ART train steps and {eval_batches} eval batch(es): "
                            f"{launches} K3 launches, {backward} backward calls, "
                            f"{kernel_launches} backward kernel launches")
@@ -3380,14 +3369,6 @@ def assert_no_spill(report: str, kernel: str) -> None:
             raise RuntimeError(f"ptxas spills in {name}: {line.strip()}")
 
 
-def dump_sass(lib) -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    cuobjdump = Path(CUDA_HOME) / "bin" / "cuobjdump"
-    return subprocess.run([str(cuobjdump), "--dump-sass", str(lib)], capture_output=True,
-                          text=True, check=True, timeout=120).stdout
-
-
 # The arithmetic of the work: FP32 instructions and LOP3, the bit OR that
 # gives the sign its sign bit (address arithmetic uses LOP3 too).
 WORK_OPCODES = {"FADD", "FMUL", "FFMA", "FSET", "FSETP", "FSEL", "FMNMX", "LOP3"}
@@ -3402,20 +3383,10 @@ def phase_loop_counts(lib) -> dict:
     branch whose range holds the most arithmetic (one chunk: its
     staging, K2's sincos pass and the unrolled arithmetic).  Static counts:
     the code of both staging paths counts once, K2's sincos loop once."""
-    code, name = {}, None
-    for line in dump_sass(lib).splitlines():
-        head = re.search(r"Function : \S*phase_metrics_kernelILb([01])E", line)
-        if head:
-            name = "K2" if head.group(1) == "1" else "K1"
-            code[name] = []
-        elif "Function : " in line:
-            name = None
-        elif name:
-            ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?\w+\s+)?([A-Z][A-Z0-9_.]*)(.*?);",
-                           line)
-            if ins:
-                code[name].append((int(ins.group(1), 16), ins.group(2).split(".")[0],
-                                   ins.group(3)))
+    from eyegaze_tpu_torch.kernels import sass
+
+    code = {("K2" if name.endswith("ILb1E") else "K1"): ins for name, ins in
+            sass.functions(sass.dump(lib), r"phase_metrics_kernelILb[01]E").items()}
     counts = {}
     for name, ins in sorted(code.items()):
         best = None
@@ -3441,34 +3412,39 @@ def phase_loop_counts(lib) -> dict:
 
 
 def tensor_core_proof(lib) -> dict:
-    """HMMA (tensor-core) instructions in the SASS of each instance of the
-    attention kernel and of K4's two backward kernels, from ``cuobjdump
-    --dump-sass`` of the built library.  Raises unless every f32 instance
-    has none (no TF32 product in the f32 path) and every bf16 forward and
-    backward instance has some."""
-    counts, name = {}, None
-    for line in dump_sass(lib).splitlines():
-        header = re.search(r"Function : \S*attention_(kernel_f32|kernel_bf16|bwd_dq_kernel|"
-                           r"bwd_dkv_kernel)ILi(\d+)E(?:Li(\d+)E)?", line)
-        if header:
-            kind, d, rows = header.groups()
-            kind = kind.replace("kernel_", "").replace("_kernel", "")
-            name = (kind, int(d), int(rows)) if kind == "f32" else (kind, int(d))
-            counts[name] = 0
-        elif "Function : " in line:
-            name = None
-        elif name and "HMMA" in line:
-            counts[name] += 1
-    printable = {(f"f32 d={k[1]} R={k[2]}" if k[0] == "f32" else f"{k[0]} d={k[1]}"): n
-                 for k, n in counts.items()}
-    print(f"HMMA instructions per attention kernel instance: {printable}")
+    """Tensor-core instructions (``HMMA``, and Hopper's ``HGMMA``) in the
+    SASS of each instance of the attention kernel and of K4's backward
+    kernels (the one-pass kernels on mma.sync and on wgmma, and the dQ and
+    dK/dV kernels), from ``cuobjdump --dump-sass`` of the built library.
+    Raises unless every f32 instance has none (no TF32 product in the f32
+    path), every bf16 forward and backward instance has some, and the
+    one-pass kernels have an instance at just the head dims at which the
+    library's ``attention_backward_path`` takes them."""
+    from eyegaze_tpu_torch.kernels import attention, sass
+
+    pattern = (r"attention_(kernel_f32|kernel_bf16|bwd_dq_kernel|bwd_dkv_kernel|"
+               r"bwd_one_pass_kernel|bwd_one_pass_wgmma_kernel)ILi(\d+)E(?:Li(\d+)E)?")
+    counts = {}
+    for function, ins in sass.functions(sass.dump(lib), pattern).items():
+        kind, d, rows = re.match(pattern, function).groups()
+        kind = kind.replace("kernel_", "").replace("_kernel", "")
+        name = (kind, int(d), int(rows)) if kind == "f32" else (kind, int(d))
+        counts[name] = {op: sum(o == op for _, o, _ in ins) for op in ("HMMA", "HGMMA")}
+    printable = {(f"f32 d={k[1]} R={k[2]}" if k[0] == "f32" else f"{k[0]} d={k[1]}"):
+                 f"HMMA {n['HMMA']}, HGMMA {n['HGMMA']}" for k, n in counts.items()}
+    print(f"tensor-core instructions per attention kernel instance: {printable}")
+    counts = {k: n["HMMA"] + n["HGMMA"] for k, n in counts.items()}
     f32 = {k[1:]: n for k, n in counts.items() if k[0] == "f32"}
     if set(f32) != F32_INSTANCES or any(f32.values()):
         raise RuntimeError(f"the f32 attention instances are not the {sorted(F32_INSTANCES)} "
                            f"without tensor-core instructions: {printable}")
-    for kind in ("bf16", "bwd_dq", "bwd_dkv"):
+    one_pass = {path: {d for d in BF16_HEAD_DIMS
+                       if attention.backward_path(1, d) == path}
+                for path in ("one_pass", "one_pass_wgmma")}
+    for kind in ("bf16", "bwd_dq", "bwd_dkv", "bwd_one_pass", "bwd_one_pass_wgmma"):
         tc = {k[1]: n for k, n in counts.items() if k[0] == kind}
-        if set(tc) != BF16_HEAD_DIMS or not all(tc.values()):
+        dims = one_pass.get(kind.removeprefix("bwd_"), BF16_HEAD_DIMS)
+        if not dims or set(tc) != dims or not all(tc.values()):
             raise RuntimeError(f"a {kind} attention instance runs no tensor-core instruction: "
                                f"{printable}")
     return printable
@@ -3510,6 +3486,12 @@ def main() -> None:
 
     from eyegaze_tpu_torch.kernels import attention
 
+    # The backward kernels' main loops (phase 3's kernels), static SASS.
+    bwd_mix = attention.backward_loop_mix(built["attention"][0])
+    for kernel, counts in bwd_mix.items():
+        print(f"main loop of the backward's {kernel}, instructions per score and thread (static "
+              "SASS): " + ", ".join(f"{k} {v:.3f}" for k, v in counts.items()))
+
     k1_timing, k1_shapes = phase_kernel_phase(device, plv=False)
     k2_timing, _ = phase_kernel_phase(device, plv=True)
     attn_timing = attention_phase(device, clock_hz)
@@ -3531,7 +3513,9 @@ def main() -> None:
         art_cpu_parity(noisy[:n], outs[n], art_state)
         art_bf16_launches, noisy, outs, art_state = art_bf16_phase(device, art_medians, outs[n])
         art_ckpt_launches = art_checkpoint_phase(device, Path(tmp), art_state, noisy, outs)
-    flash_launches, flash_bwd_launches = flash_route_phase(device)
+    flash_route = kernel_route_phase(device, FLASH_SHAPE)
+    flash_launches = flash_route["launches"]
+    headpacked64_route = kernel_route_phase(device, HEADPACKED64_SHAPE)
 
     _, shootout_launches = shootout_phase()
     legacy_raw1, legacy_raw2, legacy_logits, legacy_state = legacy_phase(device)
@@ -3630,12 +3614,12 @@ def main() -> None:
           f"{bf16_plain['peak_bytes'] / 2**30:.3f} / {bf16_k4['peak_bytes'] / 2**30:.3f}; "
           f"kernels a step {bf16_plain['kernels_per_call']:.0f} / "
           f"{bf16_k4['kernels_per_call']:.0f}; f32 at 0.0 {k3_step['median_ms']:.3f}")
-    # ART's bf16 training (the parity step, the timed steps, the epoch) and
-    # the flash route's train steps: each backward call launches both kernels.
+    # ART's bf16 training (the parity step, the timed steps, the epoch): the
+    # one-pass kernel, one launch a backward call; the flash route's train
+    # steps (d = 128): the dQ and dK/dV kernels.
     bf16_train_launches = bf16_parity[0] + bf16_k4["launches"] + bf16_epoch[0]
     bwd_calls = bf16_parity[1] + bf16_k4["backward"] + bf16_epoch[1]
-    bwd_kernel_launches = (bf16_parity[2] + bf16_k4["kernel_launches"] + bf16_epoch[2]
-                           + flash_bwd_launches)
+    one_pass_launches = bf16_parity[2] + bf16_k4["kernel_launches"] + bf16_epoch[2]
 
     phase_source = "eyegaze_tpu_torch/csrc/phase_metrics.cu"
     source = "eyegaze_tpu_torch/csrc/attention.cu"
@@ -3719,40 +3703,80 @@ def main() -> None:
                                     "attn_dropout_0.0_k3_k4bwd": bf16_k4["kernels_per_call"]},
          **attn_timing["headpacked_attention", torch.bfloat16]},
     ]
-    art_bwd = bwd_cases[0]  # ART's training shape, the main path's
+    # ART's training shape (the one-pass kernel), K4's (the two kernels) and
+    # d = 64 (the wgmma one-pass kernel).
+    art_bwd, k4_bwd = bwd_cases[0], bwd_cases[1]
+    d64_bwd = next(c for c in bwd_cases if c["path"] == "one_pass_wgmma")
+    bwd_path = ("bf16 ART training at attention dropout 0.0 (the head-packed entry: parity "
+                "step, timed steps, one epoch)")
+    # The plain version and the library call compute the whole backward, as
+    # does the one-pass kernel; each of the two kernels does a part of it.
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda", "source": source,
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
+        "replaces_also": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
+        "kernel": "attention_bwd_one_pass_kernel", "launches": one_pass_launches,
+        "path": bwd_path, "launches_per_request": bf16_k4["kernel_launches"] / TRAIN_STEPS,
+        "launches_per_train_step": bf16_k4["kernel_launches"] / TRAIN_STEPS,
+        "backward_calls": bwd_calls,
+        "max_abs_err": max(e["max_abs_err"] for e in art_bwd["errors"].values()),
+        "share_of_bf16_bound": max(e["share_of_bound"] for e in art_bwd["errors"].values()),
+        "ms": art_bwd["kernel_ms"]["attention_bwd_one_pass_kernel"],
+        "bound_ms": art_bwd["bound_ms"], "bound_by": art_bwd["bound_by"],
+        "plain_ms": art_bwd["plain_ms"], "library_ms": art_bwd["library_ms"],
+        "library_call": "torch.ops.aten._scaled_dot_product_flash_attention_backward",
+        "sass_per_score": bwd_mix, **{k: art_bwd[k] for k in (
+            "ms_back_to_back", "ms_graph", "library_ms_back_to_back", "library_ms_graph",
+            "sfu_ex2_ms", "fwd_bwd_ms", "library_fwd_bwd_ms", "stock_fwd_bwd_ms",
+            "transit_gib")},
+        "cases": [{k: c[k] for k in ("entry", "shape", "tk", "path", "errors", "ms", "ms_graph",
+                                     "kernel_ms", "bound_ms", "library_ms", "library_ms_graph",
+                                     "fwd_bwd_ms", "library_fwd_bwd_ms", "stock_fwd_bwd_ms",
+                                     "transit_gib", "sdpa_relative_distance")}
+                  for c in bwd_cases],
+        "shape": art_bwd["shape"], "dtype": "bfloat16"})
+    kernels.append({
+        "name": "flash_attention_bwd_wgmma", "route": "cuda", "source": source,
+        "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
+        "replaces_also": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
+        "kernel": "attention_bwd_one_pass_wgmma_kernel",
+        "launches": headpacked64_route["backward_launches"],
+        "path": "bf16 MultiHeadAttention, d_k 64 (the head-packed route's train steps)",
+        "launches_per_request": headpacked64_route["backward_launches"] / FLASH_TRAIN_STEPS,
+        "backward_calls": headpacked64_route["backward_calls"],
+        "max_abs_err": max(e["max_abs_err"] for e in d64_bwd["errors"].values()),
+        "share_of_bf16_bound": max(e["share_of_bound"] for e in d64_bwd["errors"].values()),
+        "ms": d64_bwd["kernel_ms"]["attention_bwd_one_pass_wgmma_kernel"],
+        "bound_ms": d64_bwd["bound_ms"], "bound_by": d64_bwd["bound_by"],
+        "plain_ms": d64_bwd["plain_ms"], "library_ms": d64_bwd["library_ms"],
+        "library_call": "torch.ops.aten._scaled_dot_product_flash_attention_backward",
+        **{k: d64_bwd[k] for k in ("ms_graph", "library_ms_graph", "fwd_bwd_ms",
+                                   "library_fwd_bwd_ms")},
+        "shape": d64_bwd["shape"], "dtype": "bfloat16"})
+    long_bwd = bwd_cases[-1]  # ART's shape with Tk past the one-pass kernel's reach
+    two_kernel_launches = flash_route["backward_launches"] // 2  # each kernel's
     for name, kernel, line, errs, kernel_bound in (
             ("flash_attention_bwd_dkv", "attention_bwd_dkv_kernel", 941, ("dk", "dv"),
-             art_bwd["dkv_bound"]),
+             k4_bwd["dkv_bound"]),
             ("flash_attention_bwd_dq", "attention_bwd_dq_kernel", 1287, ("dq",),
-             art_bwd["dq_bound"])):
+             k4_bwd["dq_bound"])):
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line}",
-            "launches": bwd_kernel_launches // 2,
-            "path": "bf16 ART training at attention dropout 0.0 (the head-packed entry: parity "
-                    "step, timed steps, one epoch) and the flash route's train steps",
-            "launches_per_request": bf16_k4["kernel_launches"] / (2 * TRAIN_STEPS),
-            "launches_per_train_step": bf16_k4["kernel_launches"] / (2 * TRAIN_STEPS),
-            "backward_calls": bwd_calls + FLASH_TRAIN_STEPS,
-            "max_abs_err": max(art_bwd["errors"][e]["max_abs_err"] for e in errs),
-            "share_of_bf16_bound": max(art_bwd["errors"][e]["share_of_bound"] for e in errs),
-            "ms": art_bwd["kernel_ms"][kernel], "bound_ms": kernel_bound[0],
-            "bound_by": kernel_bound[1],
-            # The plain version and the library call compute the whole
-            # backward, both kernels' work, as do the pair's times.
-            "plain_ms": art_bwd["plain_ms"], "library_ms": art_bwd["library_ms"],
+            "kernel": kernel, "launches": two_kernel_launches,
+            "path": "bf16 MultiHeadAttention, d_k 128 (the flash route's train steps)",
+            "launches_per_request": two_kernel_launches / FLASH_TRAIN_STEPS,
+            "backward_calls": flash_route["backward_calls"],
+            "max_abs_err": max(k4_bwd["errors"][e]["max_abs_err"] for e in errs),
+            "share_of_bf16_bound": max(k4_bwd["errors"][e]["share_of_bound"] for e in errs),
+            "ms": k4_bwd["kernel_ms"][kernel], "bound_ms": kernel_bound[0],
+            "bound_by": kernel_bound[1], "plain_ms": k4_bwd["plain_ms"],
+            "library_ms": k4_bwd["library_ms"],
             "library_call": "torch.ops.aten._scaled_dot_product_flash_attention_backward",
-            "pair": {k: art_bwd[k] for k in (
-                "ms", "ms_back_to_back", "ms_graph", "bound_ms", "bound_by", "library_ms",
-                "library_ms_back_to_back", "library_ms_graph", "sfu_ex2_ms", "fwd_bwd_ms",
-                "library_fwd_bwd_ms", "stock_fwd_bwd_ms", "transit_gib")},
-            "cases": [{k: c[k] for k in ("entry", "shape", "tk", "errors", "ms", "ms_graph",
-                                         "kernel_ms", "bound_ms", "library_ms",
-                                         "fwd_bwd_ms", "library_fwd_bwd_ms",
-                                         "stock_fwd_bwd_ms", "transit_gib",
-                                         "sdpa_relative_distance")}
-                      for c in bwd_cases],
-            "shape": art_bwd["shape"], "dtype": "bfloat16"})
+            "pair": {k: k4_bwd[k] for k in ("ms", "ms_graph", "bound_ms", "library_ms_graph")},
+            "past_reach": {k: long_bwd[k] for k in ("shape", "tk", "path", "errors", "kernel_ms",
+                                                    "ms_graph", "bound_ms", "library_ms_graph")},
+            "shape": k4_bwd["shape"], "dtype": "bfloat16"})
     for k in kernels:
         library = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
         print(f"{k['name']} ({k['path']}) at {k['shape']}: {k['ms']:.4f} ms, bound "

@@ -85,40 +85,105 @@
 // launch wants every row 16-byte aligned: pointers 16-byte aligned and all
 // strides multiples of 8 elements (the wrapper checks).
 //
-// K4's backward (attention_bwd_dq_kernel<D>, attention_bwd_dkv_kernel<D>,
-// bf16) replaces the stock Pallas _flash_attention_bwd_dq and
-// _flash_attention_bwd_dkv of jax/experimental/pallas/ops/tpu/
-// flash_attention.py (:1287, :941, reached from _flash_attention_bwd :254),
-// and computes what they compute: S from the bf16 operands in f32 times the
-// scale, P = exp(S - LSE) in f32 from the forward's row log-sum-exp (which
-// the forward writes when asked, base 2), Di = sum_d O dO in f32 from the
-// bf16 output, dV = bf16(P)^T dO, dP = dO V^T, dS = (dP - Di) P scale, dK =
-// bf16(dS)^T Q, dQ = bf16(dS) K, every sum in f32.  What bounds it: the five
-// products, 10 B H Tq Tk d operations on the tensor cores (at ART's (16, 8,
-// 1024, 16) 2.15e10, 0.022 ms at 989 TFLOP/s) against 35 MB, and again the
-// 2 B H Tq Tk exponentials on the SFU at d = 16.  The design is
-// FlashAttention-2's backward as two kernels, like JAX's, so nothing is
-// summed with atomics and every run gives the same bits: the dQ kernel owns
-// 64 query rows (Q, dO, LSE in shared memory; Di computed in its prologue and
-// written for the other kernel) and walks the keys; the dK/dV kernel owns 64
-// keys (K, V in shared memory, dK and dV summed in f32 registers) and walks
-// the queries, 32 a tile at d = 128 (64 below) so the sums and the tile's
-// scores fit in registers.  With the keys as the rows, S^T = K Q^T and dP^T =
-// V dO^T come out in the accumulator layout, which is the A layout, so P^T
-// and dS^T feed dV and dK from registers.  Both recompute S and dP: 7
-// products where the bound counts 5.  Staging, ldmatrix and the swizzle are
-// the forward's; a negative scale flips Q (dQ kernel) or K (dK/dV kernel).
-// Keys past Tk and queries past Tq get P = 0.
+// K4's backward, bf16, one C entry (attention_backward_launch) and three
+// paths, chosen by shape (backward_path; never as a fallback when a build or
+// a launch fails).  All replace the stock Pallas _flash_attention_bwd_dkv
+// and _flash_attention_bwd_dq of the installed jax/experimental/pallas/ops/
+// tpu/flash_attention.py (:941, :1287, reached from _flash_attention_bwd
+// :254), and compute what they compute: S from the bf16 operands in f32
+// times the scale, P = exp(S - LSE) in f32 from the forward's row
+// log-sum-exp (which the forward writes when asked, base 2), Di = sum_d O dO
+// in f32 from the bf16 output, dV = bf16(P)^T dO, dP = dO V^T, dS = (dP - Di)
+// P scale, dK = bf16(dS)^T Q, dQ = bf16(dS) K, every sum in f32.  Nothing is
+// summed with atomics, so every run gives the same bits, as JAX's backward
+// does: each gradient element is written once, by one thread, from sums
+// taken in a fixed order.
+//
+// What bounds it on an H100: the five products, 10 B H Tq Tk d operations on
+// the tensor cores (at ART's training shape (16, 8, 1024, 16) and at K4's
+// (2, 8, 1024, 128) 2.15e10, 0.022 ms at 989 TFLOP/s) against 35 MB; the B H
+// Tq Tk exponentials on the SFU (16 a clock per SM: 0.032 ms at ART's shape
+// for one each); and at d = 16, where a score costs 32 tensor-core
+// operations, the issue of the per-score work, about ten instructions a
+// score and thread (FFMA, ex2, the dS arithmetic, the bf16 packing, the
+// products' share).  A pass that computes each score once does that work
+// once, but must sum dQ over the key blocks; here a thread-block cluster of
+// at most 8 blocks of 128 keys owns a head (so Tk <= 1024) and sums its
+// blocks' f32 partial dQ tiles through distributed shared memory, each
+// block a C-th of the rows, in rank order: no atomics and no f32 dQ in
+// device memory.  That sum moves (C - 1) / C of a 64- or 128-query f32 tile
+// into each block per tile, and the SM-to-SM network carries about 7 bytes
+// a clock into an SM (PERF.md, Findings): about 4,000 cycles a 64-query
+// tile at d = 128, as long as the tile's products and per-score work.
+//
+// The one-pass path on mma.sync (attention_bwd_one_pass_kernel<16>): d = 16,
+// Tk <= 1024 (ART's self- and cross-attention).  Copies, the cluster's
+// arrivals and the sums run in their own warps, against mbarriers, so the 8
+// consumer warps wait on the cluster only when a block falls 4 tiles behind.
+// Its products are mma.sync m16n8k16: wgmma's 64-row tiles would cover the
+// 16 keys of a warp 4 times over, and at d = 16 the SFU and the issue of the
+// per-score work, not the tensor cores, set the pace.  A copier warp with
+// cp.async and two stages keeps up: the consumers wait about 100 cycles of
+// a 4,000-cycle tile for data.
+//
+// The one-pass path on wgmma (attention_bwd_one_pass_wgmma_kernel<64>): d =
+// 64, Tk <= 1024.  Two consumer warpgroups of 64 keys run m64nNk16 wgmma
+// from shared-memory descriptors, P^T and dS^T from registers; the query
+// tiles come by TMA, one thread's copies, where per-thread cp.async of the
+// 16-32 KB tiles held the consumers up; two buffers, as the consumers wait
+// about 250 cycles of a 3,000-cycle tile for them (and at d = 128 a third
+// would not fit); setmaxnreg hands the fourth warpgroup's registers to the
+// consumers.  At d = 128 the same
+// kernel is correct but slower than the two-kernel path (PERF.md): the
+// cluster's dQ sum sets its pace, and the 16 clusters of 8 blocks that the
+// 16 heads of K4's shape need do not all run at once.
+//
+// The two-kernel path (attention_bwd_dq_kernel<D>, attention_bwd_dkv_kernel
+// <D>): every other shape, past the cluster's reach (Tk > 1024) and at d =
+// 32 and 128, where the one-pass kernels measured slower (PERF.md,
+// Findings).  FlashAttention-2's backward as two kernels, like JAX's: the dQ
+// kernel owns 64 query rows (Q, dO, LSE in shared memory; Di computed in
+// its prologue and written for the other kernel) and walks the keys; the
+// dK/dV kernel owns 64 keys (K, V in shared memory, dK and dV summed in f32
+// registers) and walks the queries, 32 a tile at d = 128 (64 below) so the
+// sums and the tile's scores fit in registers.  With the keys as the rows,
+// S^T = K Q^T and dP^T = V dO^T come out in the accumulator layout, which is
+// the A layout, so P^T and dS^T feed dV and dK from registers.  Both
+// recompute S and dP: 7 products where the bound counts 5, and twice the
+// exponentials, but no sum crosses a block.  Staging, ldmatrix and the
+// swizzle are the forward's; a negative scale flips Q (dQ kernel) or K
+// (dK/dV kernel).  Keys past Tk and queries past Tq get P = 0.
 //
 // The entry points launch on the caller's stream, allocate nothing and
 // return cudaGetLastError() (or cudaErrorInvalidValue for a head dim or type
 // they have no instance for) so the caller can raise.
 
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <atomic>
+
+namespace cg = cooperative_groups;
+
+// Cycle stamps for python -m eyegaze_tpu_torch.trace_backward: built with
+// ATTENTION_TRACE defined, the one-pass kernels record clock64() where they
+// say TRACE(when, role, tile, point), in block (0, 0, 0) only, and
+// attention_trace_read copies the stamps out.  Otherwise TRACE is nothing.
+#ifdef ATTENTION_TRACE
+constexpr int kTraceTiles = 64, kTracePoints = 12;
+__device__ long long attention_trace[3][kTraceTiles][kTracePoints];
+#define TRACE(when, role, j, k)                                                    \
+  if ((when) && blockIdx.x + blockIdx.y + blockIdx.z == 0 && (j) < kTraceTiles) \
+  attention_trace[role][j][k] = clock64()
+extern "C" int attention_trace_read(long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, attention_trace, sizeof(attention_trace)));
+}
+#else
+#define TRACE(when, role, j, k)
+#endif
 
 namespace {
 
@@ -180,6 +245,15 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* 
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
+}
+
+// Four 8 x 8 bf16 matrices from the mma accumulator layout into shared
+// memory: lanes 8i .. 8i + 7 give the addresses of matrix i's rows.
+__device__ __forceinline__ void stmatrix_x4(void* p, const unsigned (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   smem_addr(p)),
+               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
 }
 
 // d += a b: a (16 x 16, row major) and b (16 x 8, column major) bf16, d f32.
@@ -684,6 +758,1164 @@ __global__ void __launch_bounds__(tc::kThreads) attention_bwd_dkv_kernel(const b
   bw::store_rows<D>(a.dv + b * a.sdv.b + h * a.sdv.h, a.sdv.t, key0 + warp * 16, a.tk, dv);
 }
 
+// ---- bf16 backward in one pass (K4's backward where one cluster covers Tk) ----
+
+namespace op {
+
+constexpr int kWarps = 8;                       // consumer warps, 16 keys each
+constexpr int kKeys = 16 * kWarps;              // keys per block
+constexpr int kClusterMax = 8;                  // the portable cluster size
+constexpr int kMaxKeys = kKeys * kClusterMax;   // the longest Tk one cluster covers
+constexpr int kStages = 2;                      // query tiles in flight
+constexpr int kConsumers = 32 * kWarps;
+constexpr int kCopiers = 32;                    // a warp copying the query tiles
+constexpr int kReducers = 32;                   // a warp summing the cluster's dQ
+constexpr int kThreads = kConsumers + kCopiers + kReducers;
+constexpr int kConsumerBarrier = 1;             // named barriers of the consumers and
+constexpr int kReducerBarrier = 2;              // of the reducers
+// Partial dQ tiles in flight: a block writes tile j's into buffer j %
+// kParts once every block has summed tile j - kParts from it (`freed`).
+constexpr int kParts = 4;
+constexpr int kQ = 128;  // queries per tile
+__host__ __device__ constexpr int pitch(int d) { return d + 4; }  // floats a row of a partial dQ
+
+template <int D>
+struct Smem {  // byte offsets into the block's dynamic shared memory
+  using LK = tc::Tile<D, kKeys>;  // K and V: keys x D
+  using LQ = tc::Tile<D, kQ>;     // a stage of Q or dO: queries x D
+  using LS = tc::Tile<kQ, kKeys>; // dS^T: keys x queries
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + LK::kElems * 2;
+  static constexpr int kQs = kV + LK::kElems * 2;
+  static constexpr int kDo = kQs + kStages * LQ::kElems * 2;
+  static constexpr int kLse = kDo + kStages * LQ::kElems * 2;
+  static constexpr int kDi = kLse + kStages * kQ * 4;
+  static constexpr int kDs = kDi + kStages * kQ * 4;  // the dS^T tile, bf16
+  static constexpr int kPart = kDs + LS::kElems * 2;  // kParts partial dQ tiles, f32
+  static constexpr int kBars = kPart + kParts * kQ * pitch(D) * 4;
+  // full[kStages], empty[kStages], pfull[kParts], ready[kParts], freed[kParts]
+  static constexpr int kBytes = kBars + (2 * kStages + 3 * kParts) * 8;
+};
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(tc::smem_addr(bar)), "r"(count));
+}
+// Waits until the barrier completes the phase of this parity (acquire, CTA).
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n WAIT:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra WAIT;\n}\n" ::"r"(tc::smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// The same with acquire at cluster scope: the arrivals came from the
+// cluster's blocks, and what they wrote before is read next.
+__device__ __forceinline__ void mbar_wait_cluster(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n WAIT:\n"
+      " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra WAIT;\n}\n" ::"r"(tc::smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(tc::smem_addr(bar)) : "memory");
+}
+// Arrives on the barrier at the same offset in block `rank` of the cluster,
+// releasing this thread's writes (and those it observed) at cluster scope.
+__device__ __forceinline__ void mbar_arrive_cluster(unsigned long long* bar, unsigned rank) {
+  asm volatile(
+      "{\n .reg .b32 remote;\n"
+      " mapa.shared::cluster.u32 remote, %0, %1;\n"
+      " mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n}\n" ::"r"(
+          tc::smem_addr(bar)),
+      "r"(rank)
+      : "memory");
+}
+// One arrival on the barrier once this thread's earlier cp.async copies land.
+__device__ __forceinline__ void cp_async_arrive(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   tc::smem_addr(bar))
+               : "memory");
+}
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(kConsumerBarrier), "n"(kConsumers) : "memory");
+}
+__device__ __forceinline__ void reducers_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(kReducerBarrier), "n"(kReducers) : "memory");
+}
+
+// Rows r0 .. r0 + Rows - 1 of a (rows, D) bf16 matrix with row stride `st`
+// into a tile, 16 bytes a copy, copies e = first, first + Step, ...; rows
+// past `rows` become zeros.  With Step a constant the loop unrolls and each
+// copy's offsets, the same for every tile, are computed once.
+template <int D, int Rows, int Step>
+__device__ __forceinline__ void stage(__nv_bfloat16* dst, const __nv_bfloat16* src, long long st,
+                                      int r0, int rows, int first) {
+  using L = tc::Tile<D, Rows>;
+#pragma unroll
+  for (int i = 0; i < (Rows * L::kChunks + Step - 1) / Step; ++i) {
+    const int e = first + i * Step;
+    const int r = e / L::kChunks;
+    const int c = e % L::kChunks;
+    const bool valid = r0 + r < rows;
+    if (e < Rows * L::kChunks) {
+      tc::cp_async16(dst + L::at(r, c), src + (valid ? r0 + r : 0) * st + c * 8, valid);
+    }
+  }
+}
+
+// Rows rank, rank + C, ... of query tile t's dQ: the C partial tiles at
+// `parts` (tile t's buffer in each block of the cluster, mapped into this
+// block's view of distributed shared memory) summed in rank order, 4 dims
+// a thread (threads `first`, `first` + `step`, ...), every block's load
+// issued before the sum; rows past Tq are not written.
+template <int D, int Q>
+__device__ __forceinline__ void sum_partials(const float* const (&parts)[kClusterMax], int t,
+                                             int rank, int csize, const bw::Args& a, int b, int h,
+                                             int first, int step) {
+  const int rows = (Q - rank + csize - 1) / csize;
+  for (int it = first; it < rows * (D / 4); it += step) {
+    const int i = rank + csize * (it / (D / 4));
+    const int c = 4 * (it % (D / 4));
+    const int off = i * pitch(D) + c;
+    float4 v[kClusterMax];
+#pragma unroll
+    for (int r = 0; r < kClusterMax; ++r) {
+      if (r < csize) v[r] = *reinterpret_cast<const float4*>(parts[r] + off);
+    }
+    float4 sum = v[0];
+#pragma unroll
+    for (int r = 1; r < kClusterMax; ++r) {
+      if (r < csize) {
+        sum.x += v[r].x;
+        sum.y += v[r].y;
+        sum.z += v[r].z;
+        sum.w += v[r].w;
+      }
+    }
+    if (t * Q + i < a.tq) {
+      __nv_bfloat16* dst = a.dq + b * a.sdq.b + (long long)(t * Q + i) * a.sdq.t + h * a.sdq.h + c;
+      *reinterpret_cast<uint2*>(dst) =
+          make_uint2(tc::pack_bf16(sum.x, sum.y), tc::pack_bf16(sum.z, sum.w));
+    }
+  }
+}
+
+}  // namespace op
+
+// dQ, dK and dV in one pass over the scores.  A cluster of C = ceil(Tk /
+// 128) blocks owns one (b, h); block r of it owns keys 128 r .. 128 r + 127:
+// K and V in shared memory, their A fragments and the f32 dK and dV sums in
+// registers, 16 keys to each of 8 consumer warps.  A copier warp streams the
+// head's 128-query tiles (Q, dO and their LSE and Di) through a ring of
+// kStages stages, with cp.async copies that arrive on the stage's `full`
+// mbarrier as they land; the consumers release a stage on its `empty`
+// mbarrier.  Per tile and 16 queries, keys as the rows: S^T = K Q^T and dP^T
+// = V dO^T, P^T = 2^(S^T scale log2(e) - LSE), dS^T = (dP^T - Di) P^T scale,
+// once per score; dV += bf16(P^T) dO and dK += bf16(dS^T) Q from registers
+// (the accumulator layout is the A layout); bf16(dS^T) goes to shared
+// memory (stmatrix).  After a barrier of the consumer warps, the block's
+// partial dQ tile = dS K (dS read back transposed with ldmatrix.trans)
+// goes, in f32, to one of kParts buffers; after another, the consumers
+// arrive on its `pfull` mbarrier and go on to the next tile.  The copier,
+// kStages tiles behind its copies, turns `pfull` into an arrival on the
+// `ready` mbarrier of every block of the cluster (a release at cluster
+// scope, too slow for a consumer to wait on).  Once all have arrived, the
+// reducer warp of block r sums rows i = r, r + C, ... of the C partial
+// tiles through distributed shared memory, always in rank order, writes
+// them as bf16 dQ, and arrives on every block's `freed` mbarrier of that
+// buffer, which a block waits for before it writes the buffer again.  Di =
+// sum_d O dO comes first: each block computes its C-th of the head's rows
+// into `di`, and a cluster barrier publishes them before the copiers read
+// any.
+template <int D>
+__global__ void __launch_bounds__(op::kThreads, 2)
+attention_bwd_one_pass_kernel(const bw::Args a) {
+  using S = op::Smem<D>;
+  using LK = typename S::LK;
+  using LQ = typename S::LQ;
+  using LS = typename S::LS;
+  constexpr int kQ = op::kQ;
+  constexpr int kSteps = D / 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem + S::kK);
+  __nv_bfloat16* v_s = reinterpret_cast<__nv_bfloat16*>(smem + S::kV);
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem + S::kQs);
+  __nv_bfloat16* do_s = reinterpret_cast<__nv_bfloat16*>(smem + S::kDo);
+  float* lse_s = reinterpret_cast<float*>(smem + S::kLse);
+  float* di_s = reinterpret_cast<float*>(smem + S::kDi);
+  __nv_bfloat16* ds_s = reinterpret_cast<__nv_bfloat16*>(smem + S::kDs);
+  float* part = reinterpret_cast<float*>(smem + S::kPart);
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(smem + S::kBars);
+  unsigned long long* empty = full + op::kStages;
+  unsigned long long* pfull = empty + op::kStages;  // this block's partial tile is whole
+  unsigned long long* ready = pfull + op::kParts;   // every block's is
+  unsigned long long* freed = ready + op::kParts;   // every block has summed it
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = blockIdx.x;  // the cluster spans the grid's x axis
+  const int csize = gridDim.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int key0 = rank * op::kKeys;
+  const long long vec0 = ((long long)b * gridDim.y + h) * a.tq;  // this (b, h)'s LSE and Di
+  const int tiles = (a.tq + kQ - 1) / kQ;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < op::kStages; ++s) {
+      op::mbar_init(&full[s], op::kCopiers);     // a cp.async arrival a copying thread
+      op::mbar_init(&empty[s], op::kConsumers);  // every consumer thread
+    }
+    for (int t = 0; t < op::kParts; ++t) {
+      op::mbar_init(&pfull[t], op::kConsumers);
+      op::mbar_init(&ready[t], csize);  // one arrival a block of the cluster
+      op::mbar_init(&freed[t], csize);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  op::stage<D, op::kKeys, op::kThreads>(k_s, a.k + b * a.sk.b + h * a.sk.h, a.sk.t, key0,
+                                          a.tk, threadIdx.x);
+  op::stage<D, op::kKeys, op::kThreads>(v_s, a.v + b * a.sv.b + h * a.sv.h, a.sv.t, key0,
+                                          a.tk, threadIdx.x);
+  tc::cp_async_commit();
+  {  // Di for this block's C-th of the rows, two threads a row
+    const int per = (a.tq + csize - 1) / csize;
+    const int half = threadIdx.x % 2;
+    for (int base = 0; base < per; base += op::kThreads / 2) {
+      const int r = base + threadIdx.x / 2;
+      const int i = rank * per + r;
+      const bool live = r < per && i < a.tq;
+      float sum = 0.f;
+      if (live) {
+        const __nv_bfloat16* orow =
+            a.o + b * a.so.b + (long long)i * a.so.t + h * a.so.h + half * (D / 2);
+        const __nv_bfloat16* grow =
+            a.dout + b * a.sdo.b + (long long)i * a.sdo.t + h * a.sdo.h + half * (D / 2);
+#pragma unroll
+        for (int c = 0; c < D / 16; ++c) {
+          const uint4 ov = *reinterpret_cast<const uint4*>(orow + 8 * c);
+          const uint4 gv = *reinterpret_cast<const uint4*>(grow + 8 * c);
+          const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+          const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 of = __bfloat1622float2(o2[e]);
+            const float2 gf = __bfloat1622float2(g2[e]);
+            sum = fmaf(of.x, gf.x, sum);
+            sum = fmaf(of.y, gf.y, sum);
+          }
+        }
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      if (live && half == 0) a.di[vec0 + i] = sum;
+    }
+  }
+  tc::cp_async_wait<0>();
+  cluster.sync();  // barriers initialised, K and V staged, every Di of the head written
+
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  if (warp >= op::kWarps) {
+    const int pt = threadIdx.x - op::kConsumers;
+    if (pt < op::kCopiers) {
+      // The copiers: query tile j into stage j % kStages, once the consumers
+      // have released the tile kStages before it.
+      constexpr int kCopiers = op::kCopiers;
+      const __nv_bfloat16* qb = a.q + b * a.sq.b + h * a.sq.h;
+      const __nv_bfloat16* gb = a.dout + b * a.sdo.b + h * a.sdo.h;
+      int s = 0;
+      unsigned phase = 1;  // the first pass over the ring waits for nothing
+      for (int j = 0; j < tiles + op::kStages; ++j) {
+        // Partial dQ tile t is whole in this block: tell every block.  A
+        // release at cluster scope waits until the writes it covers reach
+        // the cluster, so this warp, which has time to spare, gives it and
+        // not a consumer, which the next barrier would make the others wait
+        // for.
+        const int t = j - op::kStages;
+        if (t >= 0) {
+          op::mbar_wait(&pfull[t % op::kParts], (t / op::kParts) & 1);
+          if (pt < csize) op::mbar_arrive_cluster(&ready[t % op::kParts], pt);
+        }
+        if (j >= tiles) continue;
+        TRACE(pt == 0, 1, j, 0);
+        op::mbar_wait(&empty[s], phase);
+        TRACE(pt == 0, 1, j, 1);
+        const int q0 = j * kQ;
+        op::stage<D, kQ, kCopiers>(q_s + s * LQ::kElems, qb, a.sq.t, q0, a.tq, pt);
+        op::stage<D, kQ, kCopiers>(do_s + s * LQ::kElems, gb, a.sdo.t, q0, a.tq, pt);
+#pragma unroll
+        for (int e0 = 0; e0 < kQ; e0 += kCopiers) {
+          const int e = e0 + pt;
+          const int i = q0 + e;
+          const bool valid = i < a.tq;
+          if (e < kQ) {
+            tc::cp_async4(lse_s + s * kQ + e, a.lse + vec0 + (valid ? i : 0), valid);
+            tc::cp_async4(di_s + s * kQ + e, a.di + vec0 + (valid ? i : 0), valid);
+          }
+        }
+        op::cp_async_arrive(&full[s]);
+        TRACE(pt == 0, 1, j, 2);
+        if (++s == op::kStages) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    } else {
+      // The reducers: the cluster's sum of partial dQ tile t once every
+      // block has written its own.
+      const int rt = pt - op::kCopiers;
+      const float* parts[op::kClusterMax];  // every block's partial tiles
+#pragma unroll
+      for (int r = 0; r < op::kClusterMax; ++r) {
+        parts[r] = cluster.map_shared_rank(part, r < csize ? r : 0);
+      }
+      for (int t = 0; t < tiles; ++t) {
+        const int u = t % op::kParts;
+        const unsigned parity = (t / op::kParts) & 1;
+        TRACE(rt == 0, 2, t, 0);
+        op::mbar_wait_cluster(&ready[u], parity);  // every block's partial tile t is whole
+        TRACE(rt == 0, 2, t, 1);
+        const float* bufs[op::kClusterMax];
+#pragma unroll
+        for (int r = 0; r < op::kClusterMax; ++r) bufs[r] = parts[r] + u * kQ * op::pitch(D);
+        op::sum_partials<D, kQ>(bufs, t, rank, csize, a, b, h, rt, op::kReducers);
+        TRACE(rt == 0, 2, t, 2);
+        op::reducers_sync();  // every reducer's reads of buffer u are done
+        if (rt < csize) op::mbar_arrive_cluster(&freed[u], rt);
+      }
+    }
+    cluster.sync();  // no block leaves while another may read its partial tiles
+  } else {
+    // K as the A operand of S^T: a negative scale flips its sign.
+    const float sc = fabsf(a.scale_log2);
+    const unsigned k_sign = a.scale_log2 < 0.f ? 0x80008000u : 0u;
+    const int row0 = warp * 16;  // this warp's keys in the block
+    unsigned kf[kSteps][4], vf[kSteps][4];  // the warp's keys as A fragments, held
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      const int r = row0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+      tc::ldmatrix_x4(kf[kk], k_s + LK::at(r, 2 * kk + (lane >> 4)));
+      tc::ldmatrix_x4(vf[kk], v_s + LK::at(r, 2 * kk + (lane >> 4)));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) kf[kk][i] ^= k_sign;
+    }
+    float dk[D / 8][4], dv[D / 8][4];  // keys g and g + 8 of the warp
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+    const int g = lane / 4;
+    const int c0 = 2 * (lane & 3);
+    // Keys past Tk (zero rows of K and V) get P = 0.  Queries past Tq need no
+    // test: their Q, dO, LSE and Di are staged as zeros, so P = 1 and dS = 0
+    // exactly, adding nothing to dK and dV, and their dQ rows are not written.
+    const bool drop0 = key0 + row0 + g >= a.tk, drop1 = key0 + row0 + g + 8 >= a.tk;
+
+    // The partial dQ product: warp w sums query rows 16 (w % kQg) .. + 15
+    // and dims kDw (w / kQg) .. + kDw - 1 over the block's keys.
+    constexpr int kQg = kQ / 16;
+    constexpr int kDw = D / (op::kWarps / kQg);
+    static_assert(kDw % 16 == 0, "whole 16-wide column pairs of dQ per warp");
+    const int qg = warp % kQg;
+    const int dw0 = (warp / kQg) * kDw;
+    int s = 0;            // the ring's stage of tile j
+    unsigned phase = 0;   // the parity of its full barrier's phase
+    for (int j = 0; j < tiles; ++j) {
+      TRACE(threadIdx.x == 0, 0, j, 0);
+      op::mbar_wait(&full[s], phase);
+      TRACE(threadIdx.x == 0, 0, j, 1);
+      const __nv_bfloat16* qs = q_s + s * LQ::kElems;
+      const __nv_bfloat16* gs = do_s + s * LQ::kElems;
+      const float* ls = lse_s + s * kQ;
+      const float* ds = di_s + s * kQ;
+
+#pragma unroll
+      for (int qc = 0; qc < kQ / 16; ++qc) {  // 16 queries: two 8-wide tiles
+        float st[2][4] = {}, dpt[2][4] = {};  // S^T and dP^T: keys g, g + 8
+#pragma unroll
+        for (int kk = 0; kk < kSteps; ++kk) {
+          unsigned bf[4];
+          tc::ldmatrix_x4(bf, qs + LQ::at(16 * qc + (lane & 7) + (lane >> 4) * 8,
+                                          2 * kk + ((lane >> 3) & 1)));
+          tc::mma_bf16(st[0], kf[kk], bf[0], bf[1]);
+          tc::mma_bf16(st[1], kf[kk], bf[2], bf[3]);
+          tc::ldmatrix_x4(bf, gs + LQ::at(16 * qc + (lane & 7) + (lane >> 4) * 8,
+                                          2 * kk + ((lane >> 3) & 1)));
+          tc::mma_bf16(dpt[0], vf[kk], bf[0], bf[1]);
+          tc::mma_bf16(dpt[1], vf[kk], bf[2], bf[3]);
+        }
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int qi = 16 * qc + 8 * n + c0;  // queries qi, qi + 1 of the tile
+          const float2 l2 = *reinterpret_cast<const float2*>(ls + qi);
+          const float2 d2 = *reinterpret_cast<const float2*>(ds + qi);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = tc::ex2(fmaf(st[n][e], sc, -(e & 1 ? l2.y : l2.x)));
+            if (e < 2 ? drop0 : drop1) p = 0.f;
+            st[n][e] = p;
+            dpt[n][e] = (dpt[n][e] - (e & 1 ? d2.y : d2.x)) * p * a.scale;  // dS^T
+          }
+        }
+        const unsigned pa[4] = {
+            tc::pack_bf16(st[0][0], st[0][1]), tc::pack_bf16(st[0][2], st[0][3]),
+            tc::pack_bf16(st[1][0], st[1][1]), tc::pack_bf16(st[1][2], st[1][3])};
+        const unsigned sa[4] = {
+            tc::pack_bf16(dpt[0][0], dpt[0][1]), tc::pack_bf16(dpt[0][2], dpt[0][3]),
+            tc::pack_bf16(dpt[1][0], dpt[1][1]), tc::pack_bf16(dpt[1][2], dpt[1][3])};
+#pragma unroll
+        for (int nd = 0; nd < kSteps; ++nd) {  // dV += P^T dO, dK += dS^T Q: 16 dims a step
+          unsigned bf[4];
+          const int r = 16 * qc + (lane & 7) + ((lane >> 3) & 1) * 8;
+          tc::ldmatrix_x4_trans(bf, gs + LQ::at(r, 2 * nd + (lane >> 4)));
+          tc::mma_bf16(dv[2 * nd], pa, bf[0], bf[1]);
+          tc::mma_bf16(dv[2 * nd + 1], pa, bf[2], bf[3]);
+          tc::ldmatrix_x4_trans(bf, qs + LQ::at(r, 2 * nd + (lane >> 4)));
+          tc::mma_bf16(dk[2 * nd], sa, bf[0], bf[1]);
+          tc::mma_bf16(dk[2 * nd + 1], sa, bf[2], bf[3]);
+        }
+        tc::stmatrix_x4(ds_s + LS::at(row0 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                       2 * qc + (lane >> 4)),
+                        sa);
+      }
+      TRACE(threadIdx.x == 0, 0, j, 2);
+      op::mbar_arrive(&empty[s]);  // Q, dO, LSE and Di of this stage are read
+      if (++s == op::kStages) {
+        s = 0;
+        phase ^= 1;
+      }
+      op::consumers_sync();  // dS^T of every warp is in ds_s
+      TRACE(threadIdx.x == 0, 0, j, 3);
+      const int u = j % op::kParts;
+      if (j >= op::kParts) {  // every block has summed tile j - kParts from buffer u
+        op::mbar_wait_cluster(&freed[u], (j / op::kParts - 1) & 1);
+      }
+      TRACE(threadIdx.x == 0, 0, j, 4);
+
+      // This block's partial dQ tile = dS K over its keys, f32.
+      float acc[kDw / 8][4];
+#pragma unroll
+      for (int n = 0; n < kDw / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < op::kKeys / 16; ++ks) {
+        unsigned af[4];
+        tc::ldmatrix_x4_trans(af, ds_s + LS::at(16 * ks + (lane & 7) + (lane >> 4) * 8,
+                                                 2 * qg + ((lane >> 3) & 1)));
+        const int r = 16 * ks + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+        for (int n2 = 0; n2 < kDw / 16; ++n2) {
+          unsigned bf[4];
+          tc::ldmatrix_x4_trans(bf, k_s + LK::at(r, dw0 / 8 + 2 * n2 + (lane >> 4)));
+          tc::mma_bf16(acc[2 * n2], af, bf[0], bf[1]);
+          tc::mma_bf16(acc[2 * n2 + 1], af, bf[2], bf[3]);
+        }
+      }
+      {
+        float* prow = part + u * kQ * op::pitch(D) +
+                      (16 * qg + g) * op::pitch(D) + dw0 + c0;
+#pragma unroll
+        for (int n = 0; n < kDw / 8; ++n) {
+          *reinterpret_cast<float2*>(prow + 8 * n) = make_float2(acc[n][0], acc[n][1]);
+          *reinterpret_cast<float2*>(prow + 8 * op::pitch(D) + 8 * n) =
+              make_float2(acc[n][2], acc[n][3]);
+        }
+      }
+      TRACE(threadIdx.x == 0, 0, j, 5);
+      op::consumers_sync();        // every warp is done with ds_s
+      TRACE(threadIdx.x == 0, 0, j, 6);
+      op::mbar_arrive(&pfull[u]);  // cheap: a release at the block's scope only
+    }
+    bw::store_rows<D>(a.dk + b * a.sdk.b + h * a.sdk.h, a.sdk.t, key0 + row0, a.tk, dk);
+    bw::store_rows<D>(a.dv + b * a.sdv.b + h * a.sdv.h, a.sdv.t, key0 + row0, a.tk, dv);
+    cluster.sync();  // no block leaves while another may read its partial tiles
+  }
+}
+
+// ---- bf16 backward in one pass on wgmma (K4's backward at d = 32 .. 128) ----
+
+namespace wg {
+
+// wgmma's operands in shared memory, here without swizzle: 8 x 8 bf16 core
+// matrices of 128 contiguous bytes, a row of 8 elements every 16 bytes.  A
+// (Rows, Cols) tile keeps them row of core matrices by row: element (r, c)
+// at at<Cols>(r, c), so the core matrix right of another sits 128 bytes on
+// and the one below it 16 Cols bytes on.  The same tile serves as a K-major
+// operand where K runs along its columns and as an MN-major (transposed) one
+// where K runs along its rows; the descriptor gives the byte steps between
+// core matrices along K (the leading offset) and along M or N (the stride
+// offset).
+template <int Cols>
+__device__ __forceinline__ int at(int r, int c) {
+  return (((r >> 3) * (Cols / 8) + (c >> 3)) << 6) + ((r & 7) << 3) + (c & 7);
+}
+
+__device__ __forceinline__ unsigned long long desc(const void* p, unsigned k_step,
+                                                   unsigned mn_step) {
+  return (unsigned long long)((tc::smem_addr(p) & 0x3FFFF) >> 4) |
+         (unsigned long long)(k_step >> 4) << 16 | (unsigned long long)(mn_step >> 4) << 32;
+}
+// The operand at (r0, c0) of a (Rows, Cols) tile, K along its columns.
+template <int Cols>
+__device__ __forceinline__ unsigned long long k_major(const __nv_bfloat16* tile, int r0, int c0) {
+  return desc(tile + at<Cols>(r0, c0), 128, 16 * Cols);
+}
+// The operand at (r0, c0) of a (Rows, Cols) tile, K along its rows.
+template <int Cols>
+__device__ __forceinline__ unsigned long long mn_major(const __nv_bfloat16* tile, int r0, int c0) {
+  return desc(tile + at<Cols>(r0, c0), 16 * Cols, 128);
+}
+
+// A (Rows, D) bf16 tile as TMA writes it with the 128-byte swizzle: D / 64
+// boxes one after another, each Rows rows of 128 bytes (64 elements) whose
+// 16-byte chunks the hardware permutes by row % 8, in 1024-byte atoms of 8
+// rows.  K-major (K along the rows of 64): the operand of k-step kk starts
+// kk % 4 chunk pairs into box kk / 4, 1024 bytes an 8-row group.
+template <int Rows>
+__device__ __forceinline__ unsigned long long sw128_k(const __nv_bfloat16* tile, int kk) {
+  return desc(tile + (kk / 4) * Rows * 64 + (kk % 4) * 16, 16, 1024) | 1ull << 62;
+}
+// MN-major (K along the tile's rows): k-step kk starts at row 16 kk, 1024
+// bytes an 8-row group along K (the stride offset, here), the next box of 64
+// along M or N (the leading offset).
+template <int Rows>
+__device__ __forceinline__ unsigned long long sw128_mn(const __nv_bfloat16* tile, int kk) {
+  return desc(tile + kk * 16 * 64, Rows * 128, 1024) | 1ull << 62;
+}
+
+// One arrival on the barrier that also expects `bytes` more of TMA copies.
+__device__ __forceinline__ void expect_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   tc::smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// The box at coordinates (c0, c1, c2, c3) of a 4-d tensor map into `dst`,
+// completing `bytes` of the barrier's transactions as it lands.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                         int c3, unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(tc::smem_addr(dst)),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(tc::smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from touching accumulators while a wgmma may write them:
+// after wait(), every later use reads them through this.
+template <int N>
+__device__ __forceinline__ void hold(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// Orders this thread's shared-memory writes before later wgmma reads of them.
+__device__ __forceinline__ void proxy_fence() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (64 x N, f32) += a b (mma_ss0: d = a b), a and b from descriptors, TA /
+// TB 1 where the operand is MN-major: wgmma.mma_async m64nNk16, bf16 in, for
+// this warpgroup; accumulator register i of warp w holds row 16 w + lane / 4 + 8
+// ((i / 2) % 2), column 8 (i / 4) + 2 (lane % 4) + i % 2, as mma.sync's.
+// mma_rs: a from registers, the m16n8k16 A fragment of each warp's 16 rows.
+// The shapes the one-pass kernel uses at d = 64 and 128.
+template <int TA, int TB>
+__device__ __forceinline__ void mma_ss(float (&d)[16], unsigned long long a,
+                                       unsigned long long b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void mma_ss0(float (&d)[16], unsigned long long a,
+                                        unsigned long long b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),
+        "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
+      : "l"(a), "l"(b), "r"(0), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void mma_ss(float (&d)[32], unsigned long long a,
+                                       unsigned long long b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void mma_ss0(float (&d)[32], unsigned long long a,
+                                        unsigned long long b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),
+        "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]),
+        "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+        "=f"(d[30]), "=f"(d[31])
+      : "l"(a), "l"(b), "r"(0), "n"(TA), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void mma_rs(float (&d)[32], const unsigned (&a)[4],
+                                       unsigned long long b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void mma_rs(float (&d)[64], const unsigned (&a)[4],
+                                       unsigned long long b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
+}
+
+
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+}  // namespace wg
+
+namespace og {
+
+constexpr int kGroups = 2;                          // consumer warpgroups, 64 keys each
+constexpr int kKeys = 64 * kGroups;                 // keys per block
+constexpr int kMaxKeys = kKeys * op::kClusterMax;   // the longest Tk one cluster covers
+constexpr int kQ = 64;                              // queries per tile
+constexpr int kConsumers = 128 * kGroups;
+// The fourth warpgroup: a warp relaying finished partial dQ tiles to the
+// cluster (and loading the query tiles), and three warps summing the
+// cluster's.
+constexpr int kRelays = 32;
+constexpr int kReducers = 96;
+constexpr int kThreads = kConsumers + kRelays + kReducers;
+// Registers a thread: the launch gives each 168 (one block an SM), and
+// setmaxnreg moves them, within the block, to the consumers.
+constexpr int kLaunchRegs = 65536 / kThreads / 8 * 8;
+constexpr int kProducerRegs = 56;
+constexpr int kConsumerRegs = 224;
+static_assert(kConsumers * kConsumerRegs + (kThreads - kConsumers) * kProducerRegs <=
+                  kLaunchRegs * kThreads,
+              "the consumers take only what the producers give back");
+constexpr int kConsumerBarrier = 1;
+constexpr int kReducerBarrier = 2;
+// Partial dQ tiles in flight (two at d = 128, for shared memory).
+__host__ __device__ constexpr int parts(int d) { return d == 128 ? 2 : 4; }
+// Floats a row of a partial dQ tile: the eight rows a half warp stores
+// 8-byte pairs into fall in different banks.
+__host__ __device__ constexpr int pitch(int d) { return d + 8; }
+
+template <int D>
+struct Smem {  // byte offsets into the block's dynamic shared memory
+  static constexpr int kK = 0;                        // K, keys x D (wg::at)
+  static constexpr int kV = kK + kKeys * D * 2;       // V
+  static constexpr int kQs = kV + kKeys * D * 2;      // two tiles of Q, kQ x D
+  static constexpr int kDo = kQs + 2 * kQ * D * 2;    // and of dO
+  static constexpr int kLse = kDo + 2 * kQ * D * 2;   // their LSE
+  static constexpr int kDi = kLse + 2 * kQ * 4;       // and Di
+  static constexpr int kDs = kDi + 2 * kQ * 4;        // dS^T, keys x kQ, bf16
+  static constexpr int kPart = kDs + kKeys * kQ * 2;  // partial dQ tiles, f32
+  static constexpr int kBars = kPart + parts(D) * kQ * pitch(D) * 4;
+  // full[2], pfull[parts], ready[parts], freed[parts]
+  static constexpr int kBytes = kBars + (2 + 3 * parts(D)) * 8;
+  static_assert(kQs % 1024 == 0 && kDo % 1024 == 0,
+                "TMA's 128-byte swizzle wants 1024-byte atoms");
+};
+
+// Where the time, head and batch axes of Q and dO sit in their tensor maps
+// (1, 2 or 3; the head dim is 0): the host orders them by stride.
+struct MapAxes {
+  int t, h, b;
+};
+
+template <int Id, int Count>
+__device__ __forceinline__ void bar_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(Id), "n"(Count) : "memory");
+}
+
+// Rows r0 .. r0 + Rows - 1 of a (rows, D) bf16 matrix with row stride `st`
+// into a (Rows, D) tile of core matrices (wg::at), 16 bytes a copy, copies e
+// = first, first + Step, ...: copy e fills bytes 16 e .. 16 e + 15 of the
+// tile, so eight neighbouring copies fill one core matrix; rows past `rows`
+// become zeros.  For K and V, once; not unrolled, so no thread keeps the
+// addresses.
+template <int D, int Rows, int Step>
+__device__ __forceinline__ void stage(__nv_bfloat16* dst, const __nv_bfloat16* src, long long st,
+                                      int r0, int rows, int first) {
+  constexpr int kChunks = D / 8;
+#pragma unroll 1
+  for (int e = first; e < Rows * kChunks; e += Step) {
+    const int r = (e & 7) + 8 * (e / (8 * kChunks));
+    const int c = (e >> 3) % kChunks;
+    const bool valid = r0 + r < rows;
+    tc::cp_async16(dst + 8 * e, src + (valid ? r0 + r : 0) * st + c * 8, valid);
+  }
+}
+
+__device__ __forceinline__ unsigned cluster_addr(const void* p, int rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(tc::smem_addr(p)), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ float4 ld_cluster(unsigned addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// Rows rank, rank + C, ... of query tile t's dQ: the C partial tiles at
+// `parts` (tile t's buffer in each block of the cluster, shared::cluster
+// addresses) summed in rank order, 4 dims a thread (threads `first`, `first`
+// + `step`, ...), four blocks' loads in flight (the registers of the fourth
+// warpgroup allow no more); rows past Tq are not written.
+template <int D>
+__device__ __forceinline__ void sum_partials(const unsigned (&parts)[op::kClusterMax], int t,
+                                             int rank, int csize, const bw::Args& a, int b, int h,
+                                             int first, int step) {
+  const int rows = (kQ - rank + csize - 1) / csize;
+  for (int it = first; it < rows * (D / 4); it += step) {
+    const int i = rank + csize * (it / (D / 4));
+    const int c = 4 * (it % (D / 4));
+    const unsigned off = (i * pitch(D) + c) * 4;
+    float4 sum = ld_cluster(parts[0] + off);
+#pragma unroll
+    for (int r0 = 1; r0 < op::kClusterMax; r0 += 4) {
+      float4 v[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (r0 + r < csize) v[r] = ld_cluster(parts[r0 + r] + off);
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (r0 + r < csize) {
+          sum.x += v[r].x;
+          sum.y += v[r].y;
+          sum.z += v[r].z;
+          sum.w += v[r].w;
+        }
+      }
+    }
+    if (t * kQ + i < a.tq) {
+      __nv_bfloat16* dst =
+          a.dq + b * a.sdq.b + (long long)(t * kQ + i) * a.sdq.t + h * a.sdq.h + c;
+      *reinterpret_cast<uint2*>(dst) =
+          make_uint2(tc::pack_bf16(sum.x, sum.y), tc::pack_bf16(sum.z, sum.w));
+    }
+  }
+}
+
+// Query tile t's rows of a (B, T, H, D) tensor into `dst` by TMA, in boxes
+// of 64 dims, counting on `bar`.
+template <int D>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const CUtensorMap* map, MapAxes ax,
+                                          int t, int b, int h, unsigned long long* bar) {
+  int c[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int i = 1; i < 4; ++i) c[i] = ax.t == i ? t * kQ : ax.h == i ? h : b;
+#pragma unroll
+  for (int box = 0; box < D / 64; ++box) {
+    wg::tma_load(dst + box * kQ * 64, map, 64 * box, c[1], c[2], c[3], bar);
+  }
+}
+
+// Q and dO of query tile t into buffer t % 2 by TMA, `full[t % 2]`
+// counting their bytes (one thread issues it).
+template <int D>
+__device__ __forceinline__ void load_tile(int t, const CUtensorMap* q_map, MapAxes q_ax,
+                                          const CUtensorMap* g_map, MapAxes g_ax, int b, int h,
+                                          __nv_bfloat16* q_s, __nv_bfloat16* do_s,
+                                          unsigned long long* full) {
+  const int s = t & 1;
+  wg::expect_tx(&full[s], 2 * kQ * D * 2);
+  load_rows<D>(q_s + s * kQ * D, q_map, q_ax, t, b, h, &full[s]);
+  load_rows<D>(do_s + s * kQ * D, g_map, g_ax, t, b, h, &full[s]);
+}
+
+// The LSE and Di of query tile t into buffer t % 2 by cp.async of consumer
+// threads 0 .. 2 kQ - 1, one float each (the caller waits for them).
+__device__ __forceinline__ void load_vectors(int t, const bw::Args& a, long long vec0,
+                                             float* lse_s, float* di_s) {
+  const int q0 = t * kQ, s = t & 1;
+  const int e = threadIdx.x % kQ;
+  const bool valid = q0 + e < a.tq;
+  if (threadIdx.x < kQ) {
+    tc::cp_async4(lse_s + s * kQ + e, a.lse + vec0 + (valid ? q0 + e : 0), valid);
+  } else if (threadIdx.x < 2 * kQ) {
+    tc::cp_async4(di_s + s * kQ + e, a.di + vec0 + (valid ? q0 + e : 0), valid);
+  }
+  tc::cp_async_commit();
+}
+
+}  // namespace og
+
+// dQ, dK and dV in one pass over the scores on wgmma (built at d = 64; d =
+// 128 works too).  The one-pass kernel's plan (above) with warpgroups: a
+// cluster of C = ceil(Tk / 128) blocks owns one (b, h), block r keys 128 r
+// .. 128 r + 127, K and V in shared memory (core matrices, no swizzle); two
+// consumer warpgroups of 64 keys each keep their dK and dV sums in
+// registers (64 + 64 a thread at d = 128, so setmaxnreg gives them 224 and
+// the fourth warpgroup 56).  The 64-query tiles of Q and dO come by TMA
+// (128-byte swizzle) into two buffers, their LSE and Di by the consumers'
+// cp.async, tile j + 1 while tile j computes.  Per tile, keys as the rows:
+// S^T = K Q^T and dP^T = V dO^T (m64n64, both operands from shared memory),
+// P^T and dS^T once per score, dV += bf16(P^T) dO and dK += bf16(dS^T) Q
+// (m64nD, A from registers: the accumulator layout is the A layout);
+// bf16(dS^T) goes to shared memory (stmatrix) and, after a barrier of the
+// consumers, warpgroup g's half of the block's partial dQ tile = dS K
+// (m64n(D/2), both operands MN-major) goes, in f32, to one of parts(D)
+// buffers; after another, which also sees tile j + 1's LSE and Di in, the
+// consumers arrive on its `pfull` mbarrier.  The fourth warpgroup: a relay
+// warp turns `pfull` into an arrival on every block's `ready` (a release at
+// cluster scope, too slow for a consumer) and loads tile t + 2 into tile
+// t's buffer; three reducer warps sum rows r, r + C, ... of the cluster's
+// partial tiles in rank order through distributed shared memory, write
+// them as bf16 dQ and arrive on every block's `freed`.
+template <int D>
+__global__ void __launch_bounds__(og::kThreads, 1)
+attention_bwd_one_pass_wgmma_kernel(const bw::Args a, const __grid_constant__ CUtensorMap q_map,
+                                    const __grid_constant__ CUtensorMap g_map, og::MapAxes q_ax,
+                                    og::MapAxes g_ax) {
+  using S = og::Smem<D>;
+  constexpr int kQ = og::kQ;
+  constexpr int kParts = og::parts(D);
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem + S::kK);
+  __nv_bfloat16* v_s = reinterpret_cast<__nv_bfloat16*>(smem + S::kV);
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem + S::kQs);
+  __nv_bfloat16* do_s = reinterpret_cast<__nv_bfloat16*>(smem + S::kDo);
+  float* lse_s = reinterpret_cast<float*>(smem + S::kLse);
+  float* di_s = reinterpret_cast<float*>(smem + S::kDi);
+  __nv_bfloat16* ds_s = reinterpret_cast<__nv_bfloat16*>(smem + S::kDs);
+  float* part = reinterpret_cast<float*>(smem + S::kPart);
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(smem + S::kBars);
+  unsigned long long* pfull = full + 2;        // this block's partial tile is whole
+  unsigned long long* ready = pfull + kParts;  // every block's partial tile is whole
+  unsigned long long* freed = ready + kParts;  // every block has summed it
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = blockIdx.x;  // the cluster spans the grid's x axis
+  const int csize = gridDim.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int key0 = rank * og::kKeys;
+  const long long vec0 = ((long long)b * gridDim.y + h) * a.tq;  // this (b, h)'s LSE and Di
+  const int tiles = (a.tq + kQ - 1) / kQ;
+
+  if (threadIdx.x == 0) {
+    op::mbar_init(&full[0], 1);  // thread 0's arrival with the TMA bytes
+    op::mbar_init(&full[1], 1);
+    for (int t = 0; t < kParts; ++t) {
+      op::mbar_init(&pfull[t], og::kConsumers);
+      op::mbar_init(&ready[t], csize);  // one arrival a block of the cluster
+      op::mbar_init(&freed[t], csize);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  og::stage<D, og::kKeys, og::kThreads>(k_s, a.k + b * a.sk.b + h * a.sk.h, a.sk.t, key0, a.tk,
+                                        threadIdx.x);
+  og::stage<D, og::kKeys, og::kThreads>(v_s, a.v + b * a.sv.b + h * a.sv.h, a.sv.t, key0, a.tk,
+                                        threadIdx.x);
+  tc::cp_async_commit();
+  {  // Di for this block's C-th of the rows, two threads a row
+    const int per = (a.tq + csize - 1) / csize;
+    const int half = threadIdx.x % 2;
+    for (int base = 0; base < per; base += og::kThreads / 2) {
+      const int r = base + threadIdx.x / 2;
+      const int i = rank * per + r;
+      const bool live = r < per && i < a.tq;
+      float sum = 0.f;
+      if (live) {
+        const __nv_bfloat16* orow =
+            a.o + b * a.so.b + (long long)i * a.so.t + h * a.so.h + half * (D / 2);
+        const __nv_bfloat16* grow =
+            a.dout + b * a.sdo.b + (long long)i * a.sdo.t + h * a.sdo.h + half * (D / 2);
+#pragma unroll
+        for (int c = 0; c < D / 16; ++c) {
+          const uint4 ov = *reinterpret_cast<const uint4*>(orow + 8 * c);
+          const uint4 gv = *reinterpret_cast<const uint4*>(grow + 8 * c);
+          const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+          const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 of = __bfloat1622float2(o2[e]);
+            const float2 gf = __bfloat1622float2(g2[e]);
+            sum = fmaf(of.x, gf.x, sum);
+            sum = fmaf(of.y, gf.y, sum);
+          }
+        }
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      if (live && half == 0) a.di[vec0 + i] = sum;
+    }
+  }
+  tc::cp_async_wait<0>();
+  wg::proxy_fence();  // K and V, staged by this thread, are read by wgmma
+  cluster.sync();     // barriers initialised, K and V staged, every Di of the head written
+
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  if (warp >= og::kConsumers / 32) {
+    wg::regs_dec<og::kProducerRegs>();
+    const int pt = threadIdx.x - og::kConsumers;
+    if (pt < og::kRelays) {
+      // The relay: partial dQ tile t is whole in this block, so tell every
+      // block (a release at cluster scope, which a consumer would wait for);
+      // the consumers are done with tile t's Q and dO, so load tile t + 2's
+      // in their place.
+      if (pt == 0) {
+        og::load_tile<D>(0, &q_map, q_ax, &g_map, g_ax, b, h, q_s, do_s, full);
+        if (tiles > 1) og::load_tile<D>(1, &q_map, q_ax, &g_map, g_ax, b, h, q_s, do_s, full);
+      }
+      for (int t = 0; t < tiles; ++t) {
+        TRACE(pt == 0, 1, t, 0);
+        op::mbar_wait(&pfull[t % kParts], (t / kParts) & 1);
+        TRACE(pt == 0, 1, t, 1);
+        if (pt < csize) op::mbar_arrive_cluster(&ready[t % kParts], pt);
+        if (pt == 0 && t + 2 < tiles) {
+          og::load_tile<D>(t + 2, &q_map, q_ax, &g_map, g_ax, b, h, q_s, do_s, full);
+        }
+      }
+    } else {
+      // The reducers: the cluster's sum of partial dQ tile t once every
+      // block has written its own.
+      const int rt = pt - og::kRelays;
+      unsigned parts[op::kClusterMax];  // every block's partial tiles
+#pragma unroll
+      for (int r = 0; r < op::kClusterMax; ++r) {
+        parts[r] = og::cluster_addr(part, r < csize ? r : 0);
+      }
+      for (int t = 0; t < tiles; ++t) {
+        const int u = t % kParts;
+        TRACE(rt == 0, 2, t, 0);
+        op::mbar_wait_cluster(&ready[u], (t / kParts) & 1);
+        TRACE(rt == 0, 2, t, 1);
+        unsigned bufs[op::kClusterMax];
+#pragma unroll
+        for (int r = 0; r < op::kClusterMax; ++r) bufs[r] = parts[r] + u * kQ * og::pitch(D) * 4;
+        og::sum_partials<D>(bufs, t, rank, csize, a, b, h, rt, og::kReducers);
+        TRACE(rt == 0, 2, t, 2);
+        og::bar_sync<og::kReducerBarrier, og::kReducers>();  // every read of buffer u is done
+        if (rt < csize) op::mbar_arrive_cluster(&freed[u], rt);
+      }
+    }
+    cluster.sync();  // no block leaves while another may read its partial tiles
+  } else {
+    wg::regs_inc<og::kConsumerRegs>();
+    const int grp = warp / 4;          // this warpgroup: keys 64 grp .. 64 grp + 63 of the block
+    const int row0 = 16 * (warp % 4);  // this warp's rows of the warpgroup's 64
+    const int g = lane / 4;
+    const int c0 = 2 * (lane & 3);
+    // Keys past Tk (zero rows of K and V) get P = 0.  Queries past Tq need no
+    // test: their Q, dO, LSE and Di are staged as zeros, so P = 1 and dS = 0
+    // exactly, adding nothing to dK and dV, and their dQ rows are not written.
+    const int krow = 64 * grp + row0 + g;
+    const bool drop0 = key0 + krow >= a.tk, drop1 = key0 + krow + 8 >= a.tk;
+    float dk[D / 8][4], dv[D / 8][4];  // keys krow and krow + 8 by 8-wide column tiles
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+    auto& dk_ = reinterpret_cast<float(&)[D / 2]>(dk);
+    auto& dv_ = reinterpret_cast<float(&)[D / 2]>(dv);
+
+    og::load_vectors(0, a, vec0, lse_s, di_s);
+    tc::cp_async_wait<0>();
+    og::bar_sync<og::kConsumerBarrier, og::kConsumers>();  // tile 0's LSE and Di are in
+    for (int j = 0; j < tiles; ++j) {
+      // Buffer (j + 1) % 2 was last read by tile j - 1, whose products are done.
+      TRACE(threadIdx.x == 0, 0, j, 0);
+      if (j + 1 < tiles) og::load_vectors(j + 1, a, vec0, lse_s, di_s);
+      op::mbar_wait(&full[j & 1], (j >> 1) & 1);  // tile j's Q and dO
+      TRACE(threadIdx.x == 0, 0, j, 1);
+      const __nv_bfloat16* qs = q_s + (j & 1) * kQ * D;
+      const __nv_bfloat16* gs = do_s + (j & 1) * kQ * D;
+      const float* ls = lse_s + (j & 1) * kQ;
+      const float* ds = di_s + (j & 1) * kQ;
+
+      float st[kQ / 2], dpt[kQ / 2];  // S^T and dP^T: keys krow, krow + 8 by the tile's queries
+      wg::fence();
+      wg::mma_ss0<0, 0>(st, wg::k_major<D>(k_s, 64 * grp, 0), wg::sw128_k<kQ>(qs, 0));
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk) {
+        wg::mma_ss<0, 0>(st, wg::k_major<D>(k_s, 64 * grp, 16 * kk), wg::sw128_k<kQ>(qs, kk));
+      }
+      wg::mma_ss0<0, 0>(dpt, wg::k_major<D>(v_s, 64 * grp, 0), wg::sw128_k<kQ>(gs, 0));
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk) {
+        wg::mma_ss<0, 0>(dpt, wg::k_major<D>(v_s, 64 * grp, 16 * kk), wg::sw128_k<kQ>(gs, kk));
+      }
+      wg::commit();
+      wg::wait<0>();
+      wg::hold(st);
+      wg::hold(dpt);
+      TRACE(threadIdx.x == 0, 0, j, 2);
+
+      unsigned pa[kQ / 16][4], sa[kQ / 16][4];  // bf16 P^T and dS^T, A fragments of 16 queries
+#pragma unroll
+      for (int n = 0; n < kQ / 8; ++n) {
+        const int qi = 8 * n + c0;  // queries qi, qi + 1 of the tile
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + qi);
+        const float2 d2 = *reinterpret_cast<const float2*>(ds + qi);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = tc::ex2(fmaf(st[4 * n + e], a.scale_log2, -(e & 1 ? l2.y : l2.x)));
+          if (e < 2 ? drop0 : drop1) p = 0.f;
+          st[4 * n + e] = p;
+          dpt[4 * n + e] = (dpt[4 * n + e] - (e & 1 ? d2.y : d2.x)) * p * a.scale;  // dS^T
+        }
+        pa[n / 2][2 * (n % 2)] = tc::pack_bf16(st[4 * n], st[4 * n + 1]);
+        pa[n / 2][2 * (n % 2) + 1] = tc::pack_bf16(st[4 * n + 2], st[4 * n + 3]);
+        sa[n / 2][2 * (n % 2)] = tc::pack_bf16(dpt[4 * n], dpt[4 * n + 1]);
+        sa[n / 2][2 * (n % 2) + 1] = tc::pack_bf16(dpt[4 * n + 2], dpt[4 * n + 3]);
+      }
+
+      TRACE(threadIdx.x == 0, 0, j, 3);
+      // dV += P^T dO and dK += dS^T Q, 16 queries a step.
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < kQ / 16; ++kk) {
+        wg::mma_rs<1>(dv_, pa[kk], wg::sw128_mn<kQ>(gs, kk));
+      }
+#pragma unroll
+      for (int kk = 0; kk < kQ / 16; ++kk) {
+        wg::mma_rs<1>(dk_, sa[kk], wg::sw128_mn<kQ>(qs, kk));
+      }
+      wg::commit();
+      // bf16(dS^T) for the partial dQ product: four 8 x 8 matrices a step.
+#pragma unroll
+      for (int kk = 0; kk < kQ / 16; ++kk) {
+        tc::stmatrix_x4(ds_s + wg::at<kQ>(64 * grp + row0 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                          16 * kk + 8 * (lane >> 4)),
+                        sa[kk]);
+      }
+      wg::proxy_fence();
+      og::bar_sync<og::kConsumerBarrier, og::kConsumers>();  // dS^T of both warpgroups is in ds_s
+      TRACE(threadIdx.x == 0, 0, j, 4);
+      const int u = j % kParts;
+      if (j >= kParts) {  // every block has summed tile j - kParts from buffer u
+        op::mbar_wait_cluster(&freed[u], (j / kParts - 1) & 1);
+      }
+      TRACE(threadIdx.x == 0, 0, j, 5);
+      wg::wait<0>();  // dV and dK
+      wg::hold(dk_);
+      wg::hold(dv_);
+      TRACE(threadIdx.x == 0, 0, j, 6);
+
+      // This warpgroup's half of the block's partial dQ tile = dS K over its
+      // keys, f32.
+      float dq[D / 4];
+      wg::fence();
+      wg::mma_ss0<1, 1>(dq, wg::mn_major<kQ>(ds_s, 0, 0), wg::mn_major<D>(k_s, 0, grp * (D / 2)));
+#pragma unroll
+      for (int kk = 1; kk < og::kKeys / 16; ++kk) {
+        wg::mma_ss<1, 1>(dq, wg::mn_major<kQ>(ds_s, 16 * kk, 0),
+                         wg::mn_major<D>(k_s, 16 * kk, grp * (D / 2)));
+      }
+      wg::commit();
+      wg::wait<0>();
+      wg::hold(dq);
+      TRACE(threadIdx.x == 0, 0, j, 7);
+      {
+        float* prow = part + (u * kQ + row0 + g) * og::pitch(D) + grp * (D / 2) + c0;
+#pragma unroll
+        for (int n = 0; n < D / 16; ++n) {
+          *reinterpret_cast<float2*>(prow + 8 * n) = make_float2(dq[4 * n], dq[4 * n + 1]);
+          *reinterpret_cast<float2*>(prow + 8 * og::pitch(D) + 8 * n) =
+              make_float2(dq[4 * n + 2], dq[4 * n + 3]);
+        }
+      }
+      TRACE(threadIdx.x == 0, 0, j, 8);
+      tc::cp_async_wait<0>();  // this thread's share of tile j + 1's LSE and Di
+      // ds_s is read, the partial tile is whole, tile j + 1's LSE and Di are in.
+      og::bar_sync<og::kConsumerBarrier, og::kConsumers>();
+      TRACE(threadIdx.x == 0, 0, j, 9);
+      op::mbar_arrive(&pfull[u]);  // cheap: a release at the block's scope only
+    }
+    bw::store_rows<D>(a.dk + b * a.sdk.b + h * a.sdk.h, a.sdk.t, key0 + 64 * grp + row0, a.tk, dk);
+    bw::store_rows<D>(a.dv + b * a.sdv.b + h * a.sdv.h, a.sdv.t, key0 + 64 * grp + row0, a.tk, dv);
+    cluster.sync();  // no block leaves while another may read its partial tiles
+  }
+}
+
 // ---- f32 on the CUDA cores ----
 
 namespace cc {
@@ -1040,6 +2272,157 @@ cudaError_t launch_backward(const bw::Args& a, int b, int h, cudaStream_t stream
   return cudaGetLastError();
 }
 
+// The one-pass kernel: a cluster of ceil(Tk / 128) blocks for each (b, h).
+template <int D>
+cudaError_t launch_one_pass(const bw::Args& a, int b, int h, cudaStream_t stream) {
+  constexpr int kSmem = op::Smem<D>::kBytes;
+  static std::atomic<unsigned long long> opted_in{0};
+  cudaError_t err = allow_smem(attention_bwd_one_pass_kernel<D>, kSmem, opted_in);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = (a.tk + op::kKeys - 1) / op::kKeys;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, h, b);
+  cfg.blockDim = dim3(op::kThreads);
+  cfg.dynamicSmemBytes = kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = blocks;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, attention_bwd_one_pass_kernel<D>, a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The wgmma one-pass kernel: a cluster of ceil(Tk / 128) blocks for each
+// (b, h).  setmaxnreg deals out the registers the launch gave the block, so
+// a build that gave the kernel fewer than og::kLaunchRegs would hang at it:
+// such a build is refused here.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, looked up once (no link to libcuda).
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess) {
+      return static_cast<EncodeTiled>(nullptr);
+    }
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A tensor map of a (B, T, H, D) bf16 tensor with element strides `st`, in
+// boxes of 64 dims by og::kQ rows with the 128-byte swizzle; its axes after
+// the head dim in order of stride (`ax` says where each went).
+template <int D>
+cudaError_t rows_map(CUtensorMap* map, og::MapAxes* ax, const void* base, Strides st, int t,
+                     int h, int b) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  long long stride[3] = {st.t, st.h, st.b};
+  int size[3] = {t, h, b}, order[3] = {0, 1, 2};
+  for (int i = 1; i < 3; ++i)  // by stride, a stable insertion sort
+    for (int j = i; j > 0 && stride[order[j]] < stride[order[j - 1]]; --j) {
+      const int k = order[j];
+      order[j] = order[j - 1];
+      order[j - 1] = k;
+    }
+  cuuint64_t dims[4] = {D, 0, 0, 0}, strides[3];
+  int* where[3] = {&ax->t, &ax->h, &ax->b};
+  for (int i = 0; i < 3; ++i) {
+    dims[i + 1] = size[order[i]];
+    strides[i] = 2 * stride[order[i]];
+    *where[order[i]] = i + 1;
+  }
+  cuuint32_t box[4] = {64, 1, 1, 1};
+  box[ax->t] = og::kQ;
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The wgmma one-pass kernel: a cluster of ceil(Tk / 128) blocks for each
+// (b, h).  setmaxnreg deals out the registers the launch gave the block, so
+// a build that gave the kernel fewer than og::kLaunchRegs would hang at it:
+// such a build is refused here.
+template <int D>
+cudaError_t launch_one_pass_wgmma(const bw::Args& a, int b, int h, cudaStream_t stream) {
+  constexpr int kSmem = og::Smem<D>::kBytes;
+  static std::atomic<unsigned long long> opted_in{0};
+  static std::atomic<int> regs{0};
+  cudaError_t err = allow_smem(attention_bwd_one_pass_wgmma_kernel<D>, kSmem, opted_in);
+  if (err != cudaSuccess) return err;
+  if (regs.load() == 0) {
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, attention_bwd_one_pass_wgmma_kernel<D>);
+    if (err != cudaSuccess) return err;
+    regs.store(attr.numRegs);
+  }
+  if (regs.load() < og::kLaunchRegs) return cudaErrorInvalidKernelImage;
+  CUtensorMap q_map, g_map;
+  og::MapAxes q_ax, g_ax;
+  err = rows_map<D>(&q_map, &q_ax, a.q, a.sq, a.tq, h, b);
+  if (err != cudaSuccess) return err;
+  err = rows_map<D>(&g_map, &g_ax, a.dout, a.sdo, a.tq, h, b);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = (a.tk + og::kKeys - 1) / og::kKeys;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, h, b);
+  cfg.blockDim = dim3(og::kThreads);
+  cfg.dynamicSmemBytes = kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = blocks;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, attention_bwd_one_pass_wgmma_kernel<D>, a, q_map, g_map, q_ax,
+                           g_ax);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The backward's path for Tk keys at head dim d, where one cluster covers
+// the keys: 1, the one-pass kernel on mma.sync (d = 16), 3, the one-pass
+// kernel on wgmma (d = 64); else 2, the dQ and dK/dV kernels.  The one-pass
+// kernels are instantiated at these head dims only.  At d = 128 the wgmma
+// kernel measured slower than the two kernels (PERF.md): a copy of this
+// source with `d == 64 || d == 128` in wgmma_dim times it.
+constexpr bool one_pass_dim(int d) { return d == 16; }
+constexpr bool wgmma_dim(int d) { return d == 64; }
+int backward_path(int tk, int d) {
+  if (one_pass_dim(d) && tk <= op::kMaxKeys) return 1;
+  if (wgmma_dim(d) && tk <= og::kMaxKeys) return 3;
+  return 2;
+}
+
+template <int D>
+cudaError_t launch_backward_path(const bw::Args& a, int b, int h, cudaStream_t stream) {
+  const int path = backward_path(a.tk, D);
+  if constexpr (one_pass_dim(D)) {
+    if (path == 1) return launch_one_pass<D>(a, b, h, stream);
+  }
+  if constexpr (wgmma_dim(D)) {
+    if (path == 3) return launch_one_pass_wgmma<D>(a, b, h, stream);
+  }
+  return launch_backward<D>(a, b, h, stream);
+}
+
 float log2e_times(float scale) { return (float)((double)scale * 1.4426950408889634); }
 
 }  // namespace
@@ -1105,13 +2488,34 @@ extern "C" int attention_backward_launch(const void* q, const void* k, const voi
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (d) {
-    case 16: err = launch_backward<16>(a, b, h, s); break;
-    case 32: err = launch_backward<32>(a, b, h, s); break;
-    case 64: err = launch_backward<64>(a, b, h, s); break;
-    case 128: err = launch_backward<128>(a, b, h, s); break;
+    case 16: err = launch_backward_path<16>(a, b, h, s); break;
+    case 32: err = launch_backward_path<32>(a, b, h, s); break;
+    case 64: err = launch_backward_path<64>(a, b, h, s); break;
+    case 128: err = launch_backward_path<128>(a, b, h, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// The path attention_backward_launch takes for Tk keys at head dim d: 1 the
+// one-pass kernel on mma.sync (one launch), 2 the dQ and dK/dV kernels (two
+// launches), 3 the one-pass kernel on wgmma (one launch).
+extern "C" int attention_backward_path(int tk, int d) { return backward_path(tk, d); }
+
+// Scores one warp handles in a trip of a backward kernel's main loop at head
+// dim d, from its tiles: kernel 0 the dQ kernel (16 query rows by a key
+// tile), 1 the dK/dV kernel (16 keys by a query tile), 2 the one-pass kernel
+// and 3 its wgmma form (16 keys by a query tile); -1 where there is no such
+// instance.
+extern "C" int attention_backward_loop_scores(int kernel, int d) {
+  if (d != 16 && d != 32 && d != 64 && d != 128) return -1;
+  switch (kernel) {
+    case 0: return 16 * bw::kKeys;
+    case 1: return 16 * bw::q_tile(d);
+    case 2: return one_pass_dim(d) ? 16 * op::kQ : -1;
+    case 3: return wgmma_dim(d) ? 16 * og::kQ : -1;
+    default: return -1;
+  }
 }
 
 // Query rows per thread that attention_launch gives a float32 call of this

@@ -42,12 +42,18 @@ Gradients: both entry points train.  Where an input requires grad the call
 runs inside an autograd Function, ``_HeadpackedAttention`` or
 ``_FlashAttention``.  In bf16 both take K4's backward, written by hand for
 Hopper in the same source (``attention_backward_launch``): the forward
-launches the kernel with its row log-sum-exp saved, and the backward is two
-kernels, dQ (which also writes ``Di = sum_d O dO``) and then dK/dV,
-FlashAttention-2's backward with P recomputed from the log-sum-exp, as the
-stock Pallas ``_flash_attention_bwd_dq`` and ``_flash_attention_bwd_dkv``
-compute it: P in f32, rounded to bf16 before dV, and dS rounded to bf16
-before dK and dQ.  ``flash_attention_backward_reference`` is its plain twin.
+launches the kernel with its row log-sum-exp saved, and the backward, with P
+recomputed from the log-sum-exp as the stock Pallas
+``_flash_attention_bwd_dq`` and ``_flash_attention_bwd_dkv`` compute it (P
+in f32, rounded to bf16 before dV, and dS rounded to bf16 before dK and
+dQ), takes one of three paths by shape (``backward_path``): with up to 1024
+keys, at d = 16 (ART's attention) and at d = 64, one kernel in one pass
+over the scores, whose thread-block cluster sums dQ in a fixed order
+(``mma.sync`` at d = 16, ``wgmma`` at d = 64); else two kernels, dQ (which
+also writes ``Di = sum_d O dO``) and then dK/dV, FlashAttention-2's
+backward.  ``flash_attention_backward_reference`` is their plain twin, and
+``backward_bound`` / ``assert_backward_within`` the bf16 bound both are held
+to against it.
 The bf16 head-packed route takes that backward too: in the JAX package bf16
 ART at attention dropout 0.0 trains its fused attention through the stock
 flash kernel (``bench.py:477-499``), whose backward is the Pallas pair; the
@@ -59,20 +65,21 @@ stock ops, ``attention_backward_reference``, which at ART's training shape
 each, for the length of the call (PERF.md gives the peak measured on the
 card).  On the CPU the Functions run the twins.  ``backward_count`` counts
 the Functions' backward calls by entry point, ``backward_launch_count`` the
-backward kernels' launches (two a call), and ``stock_backward_count`` the
-calls that took ``attention_backward_reference``, by dtype: its bf16 count
-stays 0.
+backward kernels' launches by path (one a call on the one-pass path, two on
+the other), and ``stock_backward_count`` the calls that took
+``attention_backward_reference``, by dtype: its bf16 count stays 0.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import re
 
 import torch
 from torch.autograd.function import once_differentiable
 
-from eyegaze_tpu_torch.kernels import build
+from eyegaze_tpu_torch.kernels import build, sass
 
 HEAD_DIMS = (16, 32, 64, 128)  # the head dims the kernel is instantiated for
 LOG2E = 1.4426950408889634
@@ -85,11 +92,39 @@ _MAX_GRID_YZ = 65535  # heads and batch run on the grid's y and z axes
 launch_count = {"headpacked_attention": 0, "flash_attention": 0}
 bf16_launch_count = {"headpacked_attention": 0, "flash_attention": 0}
 # Calls of each entry point's backward, on any device; launches of the
-# backward kernels (two a call, on CUDA); calls that took the stock
-# backward ``attention_backward_reference``, by dtype.
+# backward kernels on CUDA by path (``backward_path``: up to 1024 keys a
+# one-pass kernel, one launch a call, at d = 16 and, on wgmma, at d = 64;
+# else the dQ and dK/dV kernels, two); calls that took the stock backward
+# ``attention_backward_reference``, by dtype.
 backward_count = {"headpacked_attention": 0, "flash_attention": 0}
-backward_launch_count = {"headpacked_attention": 0, "flash_attention": 0}
+backward_launch_count = {"one_pass": 0, "two_kernel": 0, "one_pass_wgmma": 0}
+# Kernel launches a call, by path.
+BACKWARD_LAUNCHES = {"one_pass": 1, "two_kernel": 2, "one_pass_wgmma": 1}
 stock_backward_count = {"float32": 0, "bfloat16": 0}
+
+# K4's backward at the shapes the port trains it at, (entry, (B, Tq, H, d),
+# Tk): ART's training shape (batch 16 of 1024-sample windows, 8 heads of
+# d_k 16), K4's flash shape, d = 32 and 64 at the same work, and ART's cross
+# attention with a ragged Tk.  ``chip_smoke.py`` phase 3 and
+# ``compare_attention --backward`` run these.
+BACKWARD_CASES = (("headpacked_attention", (16, 1024, 8, 16), 1024),
+                  ("flash_attention", (2, 1024, 8, 128), 1024),
+                  ("headpacked_attention", (8, 1024, 8, 32), 1024),
+                  ("headpacked_attention", (4, 1024, 8, 64), 1024),
+                  ("headpacked_attention", (16, 1024, 8, 16), 1000))
+# ART's training shape with a Tk past the one-pass kernel's reach (1024
+# keys), where the backward takes the two-kernel path.
+BACKWARD_PAST_REACH = ("headpacked_attention", (16, 1024, 8, 16), 2048)
+# bf16's unit roundoff (8 significant bits).  The kernels and their twin
+# both round P to bf16 before dV and dS before dK and dQ, each rounding
+# moving a product by at most u of it, so a gradient entry differs by at
+# most 2u T, T the sum of the |products| it adds; each rounds its result to
+# bf16 once (2u |want| together); and the f32 parts (S, dP, Di summed in
+# other orders, ex2.approx) stay under 2**-16 of F, the sums over the
+# magnitudes whose difference dS is, where dP - Di cancels
+# (``backward_bound``).
+BF16_U = 2.0 ** -8
+BWD_F32_SHARE = 2.0 ** -16
 
 
 def attention_reference(q, k, v, scale: float):
@@ -155,6 +190,39 @@ def flash_attention_backward_reference(q, k, v, o, lse, do, scale: float):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def backward_bound(q, k, v, o, lse, g, scale) -> tuple:
+    """(B, H, T, d) f32 for dq, dk, dv: T, the sums of |products| each entry
+    adds (|dS| |K|, |dS|^T |Q|, P^T |dO|), and F, the same sums over P
+    (|dO| |V|^T + sum_d |O dO|) |scale|, the magnitudes whose difference dS
+    is (none for dv)."""
+    q, k, v, o, g = (x.float() for x in (q, k, v, o, g))
+    p = torch.exp2(q @ k.transpose(-1, -2) * (scale * LOG2E) - lse[..., None])
+    tv = p.transpose(-1, -2) @ g.abs()
+    ds = ((g @ v.transpose(-1, -2)) - (o * g).sum(-1, keepdim=True)) * p * scale
+    e = p * (g.abs() @ v.abs().transpose(-1, -2) + (o * g).abs().sum(-1, keepdim=True))
+    del p
+    e *= abs(scale)
+    terms = (ds.abs() @ k.abs(), ds.abs().transpose(-1, -2) @ q.abs(), tv)
+    del ds
+    return terms, (e @ k.abs(), e.transpose(-1, -2) @ q.abs(), 0.0)
+
+
+def assert_backward_within(name: str, got, want, bound_terms) -> dict:
+    """dq, dk, dv of the kernels against the twin's within 2u T + 2u |want|
+    + 2**-16 F (``backward_bound``, BF16_U); returns each one's largest
+    |difference| and the share of its bound used."""
+    out = {}
+    for label, a, w, t, f in zip(("dq", "dk", "dv"), got, want, *bound_terms):
+        w = w.float()
+        err = (a.float() - w).abs()
+        share = float((err / (2 * BF16_U * (t + w.abs()) + BWD_F32_SHARE * f)).max())
+        out[label] = {"max_abs_err": float(err.max()), "share_of_bound": share}
+        if not share <= 1.0:
+            raise AssertionError(f"{name} {label} off by {float(err.max()):.3e}: {share:.2f}x "
+                                 "its bf16 bound")
+    return out
+
+
 _LAUNCH_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
                     + [ctypes.c_float, ctypes.c_void_p])
 
@@ -185,13 +253,64 @@ def _lse_launcher():
     return fn
 
 
-@functools.cache
-def _backward_launcher():
-    fn = _library().attention_backward_launch
+def bind_backward(lib: ctypes.CDLL):
+    """The C entry point ``attention_backward_launch`` of a built attention
+    library (K4's backward, whichever path the library picks)."""
+    fn = lib.attention_backward_launch
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _backward_launcher():
+    return bind_backward(_library())
+
+
+# The backward kernels, ``attention_bwd_<kind>_kernel<D>``, in the order of
+# the codes the library's ``attention_backward_loop_scores`` takes.
+BACKWARD_KERNELS = ("dq", "dkv", "one_pass", "one_pass_wgmma")
+# ``attention_backward_path``'s codes.
+_PATHS = {1: "one_pass", 2: "two_kernel", 3: "one_pass_wgmma"}
+
+
+def _loop_scores(lib: ctypes.CDLL, kind: str, d: int) -> int:
+    """Scores one warp handles in a trip of a backward kernel's main loop at
+    head dim d, from the tiles the library was built with."""
+    scores = lib.attention_backward_loop_scores(BACKWARD_KERNELS.index(kind), d)
+    if scores <= 0:
+        raise ValueError(f"no {kind} backward kernel at d = {d}")
+    return scores
+
+
+def backward_loop_mix(lib) -> dict:
+    """Instructions per score and thread in the main loop of each backward
+    kernel instance of a built library (``sass.CLASSES``, static SASS
+    counts), by ``"<kind> d=<d>"``: the instructions of one trip over the
+    scores each thread handles in it (a warp's scores over 32).  Empty for a
+    library without ``attention_backward_loop_scores`` (an older source)."""
+    loaded = ctypes.CDLL(str(lib))
+    if not hasattr(loaded, "attention_backward_loop_scores"):
+        return {}
+    out = {}
+    for name, ins in sass.functions(sass.dump(lib),
+                                    r"attention_bwd_(\w+?)_kernelILi(\d+)E").items():
+        kind, d = re.match(r"attention_bwd_(\w+?)_kernelILi(\d+)E", name).groups()
+        out[f"{kind} d={d}"] = sass.mix(sass.main_loop(ins),
+                                        _loop_scores(loaded, kind, int(d)) / 32)
+    return dict(sorted(out.items()))
+
+
+def backward_path(tk: int, d: int) -> str:
+    """The path ``attention_backward_launch`` takes on the card for Tk keys
+    at head dim d (the library's own choice, read from it): where one
+    thread-block cluster covers the keys, ``"one_pass"`` (mma.sync, d = 16)
+    or ``"one_pass_wgmma"``; else ``"two_kernel"``."""
+    path = _PATHS.get(_library().attention_backward_path(tk, d))
+    if path is None:
+        raise ValueError(f"no backward path for Tk {tk}, d {d}")
+    return path
 
 
 def f32_rows_per_thread(b: int, h: int, tq: int, d: int) -> int:
@@ -274,16 +393,11 @@ def _launch(entry: str, q, k, v, scale: float, t_dim: int, h_dim: int, with_lse:
     return (out, lse) if with_lse else out
 
 
-def _launch_backward(entry: str, q, k, v, o, lse, g, scale: float, t_dim: int, h_dim: int):
-    """K4's backward kernels on the current stream: (dq, dk, dv), each with
-    the strides of its input."""
-    if g.shape != q.shape or g.dtype != q.dtype:
-        raise ValueError(f"output gradient {g.dtype} {tuple(g.shape)} for an output "
-                         f"{q.dtype} {tuple(q.shape)}")
-    g = g.contiguous()  # autograd may pass a view, or an expanded (stride 0) gradient
-    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    if dq.numel() == 0 or dk.numel() == 0:  # no query row: no gradient reaches k or v
-        return dq.zero_(), dk.zero_(), dv.zero_()
+def backward_args(q, k, v, o, lse, g, dq, dk, dv, scale: float, t_dim: int,
+                  h_dim: int) -> tuple:
+    """``attention_backward_launch``'s arguments for a call on the current
+    stream with each tensor's own strides (its f32 Di scratch allocated
+    here); raises for rows that are not 16-byte aligned."""
     b, h, d = q.shape[0], q.shape[h_dim], q.shape[-1]
     tq, tk = q.shape[t_dim], k.shape[t_dim]
     di = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
@@ -293,12 +407,27 @@ def _launch_backward(entry: str, q, k, v, o, lse, g, scale: float, t_dim: int, h
         raise ValueError("a bf16 launch wants 16-byte aligned rows: pointers aligned to "
                          "16 bytes and batch, time and head strides multiples of 8")
     ptrs = [x.data_ptr() for x in tensors]
-    err = _on_device(q, _backward_launcher(), *ptrs[:5], lse.data_ptr(), di.data_ptr(),
-                     *ptrs[5:], b, h, tq, tk, d, (ctypes.c_longlong * 24)(*strides), scale,
-                     torch.cuda.current_stream(q.device).cuda_stream)
+    return (*ptrs[:5], lse.data_ptr(), di.data_ptr(), *ptrs[5:], b, h, tq, tk, d,
+            (ctypes.c_longlong * 24)(*strides), scale,
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _launch_backward(q, k, v, o, lse, g, scale: float, t_dim: int, h_dim: int):
+    """K4's backward on the current stream: (dq, dk, dv), each with the
+    strides of its input; counts the launches of the path it took."""
+    if g.shape != q.shape or g.dtype != q.dtype:
+        raise ValueError(f"output gradient {g.dtype} {tuple(g.shape)} for an output "
+                         f"{q.dtype} {tuple(q.shape)}")
+    g = g.contiguous()  # autograd may pass a view, or an expanded (stride 0) gradient
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if dq.numel() == 0 or dk.numel() == 0:  # no query row: no gradient reaches k or v
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    path = backward_path(k.shape[t_dim], q.shape[-1])
+    err = _on_device(q, _backward_launcher(),
+                     *backward_args(q, k, v, o, lse, g, dq, dk, dv, scale, t_dim, h_dim))
     if err != 0:
         raise RuntimeError(f"attention backward kernel launch failed: cudaError {err}")
-    backward_launch_count[entry] += 2
+    backward_launch_count[path] += BACKWARD_LAUNCHES[path]
     return dq, dk, dv
 
 
@@ -319,10 +448,10 @@ def _forward(entry: str, q, k, v, scale: float, t_dim: int, h_dim: int,
     return (out, attention_lse_reference(qt, kt, scale)) if with_lse else out
 
 
-def _backward(entry: str, q, k, v, o, lse, g, scale: float, t_dim: int, h_dim: int):
+def _backward(q, k, v, o, lse, g, scale: float, t_dim: int, h_dim: int):
     """K4's backward kernels on CUDA, their twin on the CPU."""
     if q.device.type != "cpu":
-        return _launch_backward(entry, q, k, v, o, lse, g, scale, t_dim, h_dim)
+        return _launch_backward(q, k, v, o, lse, g, scale, t_dim, h_dim)
     grads = flash_attention_backward_reference(*(_bhtd(x, t_dim) for x in (q, k, v, o)), lse,
                                                _bhtd(g, t_dim), scale)
     return tuple(_bhtd(x, t_dim) for x in grads)
@@ -352,7 +481,7 @@ def _function_backward(ctx, g):
     t_dim, h_dim = ctx.dims
     saved = ctx.saved_tensors
     if len(saved) == 5:
-        return (*_backward(ctx.entry, *saved, g, ctx.scale, t_dim, h_dim), None)
+        return (*_backward(*saved, g, ctx.scale, t_dim, h_dim), None)
     stock_backward_count[str(g.dtype).removeprefix("torch.")] += 1
 
     def bthd(x):

@@ -49,8 +49,8 @@ def attention_route(device_type: str, dtype: torch.dtype, tq: int, tk: int, d_k:
     head dim or dtype the kernel is not built for raises in the kernel's
     wrapper; it never falls back to the plain path.  Gradients: both kernel
     routes train, through their wrapper's autograd Functions.  In bf16 their
-    backward is K4's, two hand-written kernels (the JAX package trains its
-    flash route through the stock Pallas backward); in f32 the head-packed
+    backward is K4's, written by hand (one kernel or two by shape; the JAX
+    package trains its flash route through the stock Pallas backward); in f32 the head-packed
     route recomputes the JAX package's einsum backward in stock ops.  So an
     ART model trained without attention-weight dropout runs K3 in every
     train step, and K4's backward too in bf16.

@@ -345,7 +345,7 @@ def test_kernel_route_raises_on_grad_and_mha_launches_it():
     """Under grad both kernel routes train: the head-packed route (f32: the
     kernel forward, one stock backward call, the plain path's gradients) and
     the flash route (bf16 d_k 128: the kernel forward with its log-sum-exp,
-    K4's two backward kernels, the plain path's gradients within 2**-5 of
+    K4's dQ and dK/dV backward kernels, the plain path's gradients within 2**-5 of
     each tensor's largest |entry|, the bf16 bound of the forward's output).
     Without grad each launches its kernel once."""
     dev = _card()
@@ -368,10 +368,10 @@ def test_kernel_route_raises_on_grad_and_mha_launches_it():
     flash = MultiHeadAttention(1024, 8, device=dev, dtype=torch.bfloat16).eval()
     y = torch.randn(2, 1024, 1024, device=dev)
     before = (attention.launch_count["flash_attention"],
-              attention.backward_launch_count["flash_attention"])
+              attention.backward_launch_count["two_kernel"])
     flash(y, y, y).float().square().sum().backward()
     assert (attention.launch_count["flash_attention"],
-            attention.backward_launch_count["flash_attention"]) == (before[0] + 1, before[1] + 2)
+            attention.backward_launch_count["two_kernel"]) == (before[0] + 1, before[1] + 2)
     got = [p.grad.clone() for p in flash.parameters()]
     flash.zero_grad()
     flash(y, y, y, return_weights=True)[0].float().square().sum().backward()

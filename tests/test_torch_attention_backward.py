@@ -1,5 +1,5 @@
 """K4's backward in the PyTorch port: the plain twin against the JAX
-package's references, the autograd Functions on the CPU, and the two CUDA
+package's references, the autograd Functions on the CPU, and the CUDA
 kernels against the twin on the card.
 
 - ``flash_attention_backward_reference`` (the twin) against the installed
@@ -26,9 +26,13 @@ kernels against the twin on the card.
   ``attention_backward_reference``.
 - On the card (``cuda`` marker; jax is imported only inside the CPU tests):
   the kernels' dq, dk, dv and the forward's log-sum-exp against the twin,
-  both layouts, every head dim, ragged Tq and Tk, a negative scale, the flash
-  route's transposed views and an expanded output gradient; both sides
-  round P and dS, so 2u T + 2u |want|.
+  both layouts, every head dim, ragged Tq and Tk, negative scales, the flash
+  route's transposed views and an expanded output gradient, on every path
+  (up to ONE_PASS_MAX_KEYS keys the one-pass kernel on mma.sync at d = 16
+  and on wgmma at d = 64; the dQ and dK/dV kernels past it and at d = 32
+  and 128); both sides round P and dS, so 2u T + 2u |want|.  Two backward
+  passes give the same bits, at ART's, K4's and a d = 64 shape too.
+- The source sums no gradient with atomics (a CPU check of the text).
 
     python -m pytest tests/test_torch_attention_backward.py -m cuda --noconftest
 """
@@ -232,6 +236,17 @@ def _card():
     return torch.device("cuda", 0)
 
 
+# The one-pass kernels cover Tk up to a cluster of 8 blocks of 128 keys, at
+# the head dims where they are faster than the two kernels (16 on mma.sync,
+# 64 on wgmma); every other call takes the dQ and dK/dV kernels.
+ONE_PASS_MAX_KEYS = 1024
+ONE_PASS_PATHS = {16: "one_pass", 64: "one_pass_wgmma"}
+
+
+def _path(tk: int, d: int) -> str:
+    return ONE_PASS_PATHS.get(d, "two_kernel") if tk <= ONE_PASS_MAX_KEYS else "two_kernel"
+
+
 # (entry, (B, Tq, H, d), Tk, scale, how the output gradient arrives).
 KERNEL_CASES = {
     "art": ("headpacked_attention", (16, 1024, 8, 16), 1024, 0.25, "contiguous"),
@@ -247,6 +262,21 @@ KERNEL_CASES = {
     "d128_tq33_tk1000_negative_scale": ("flash_attention", (1, 33, 2, 128), 1000, -0.1,
                                         "views"),
     "d64_expanded": ("flash_attention", (2, 256, 4, 64), 256, 0.125, "expanded"),
+    "d16_tk_at_limit": ("headpacked_attention", (2, 300, 4, 16), ONE_PASS_MAX_KEYS, 0.25,
+                        "contiguous"),
+    "d16_tk_past_limit": ("headpacked_attention", (2, 300, 4, 16), ONE_PASS_MAX_KEYS + 1,
+                          0.25, "contiguous"),
+    "d128_tk_past_limit": ("flash_attention", (1, 200, 2, 128), ONE_PASS_MAX_KEYS + 1,
+                           128 ** -0.5, "contiguous"),
+    "d16_tk1000_ragged": ("headpacked_attention", (4, 1024, 8, 16), 1000, 0.25, "contiguous"),
+    "d128_tk1000_ragged": ("flash_attention", (2, 1024, 4, 128), 1000, 128 ** -0.5,
+                           "contiguous"),
+    "d64_negative_scale": ("headpacked_attention", (2, 512, 4, 64), 768, -0.125, "contiguous"),
+    "d64_tk_at_limit": ("flash_attention", (2, 300, 4, 64), ONE_PASS_MAX_KEYS, 0.125, "views"),
+    "d64_tk_past_limit": ("headpacked_attention", (2, 300, 4, 64), ONE_PASS_MAX_KEYS + 1,
+                          0.125, "contiguous"),
+    "d64_tq100_tk70": ("headpacked_attention", (3, 100, 2, 64), 70, 0.125, "expanded"),
+    "d64_tq1_tk129": ("flash_attention", (1, 1, 2, 64), 129, -0.125, "contiguous"),
 }
 
 
@@ -255,8 +285,9 @@ KERNEL_CASES = {
 def test_backward_kernels_match_twin_on_card(case):
     """The Function's forward log-sum-exp within 1e-4 (base 2) of the twin's
     and its dq, dk, dv within 2u T + 2u |want| of the twin backward on the
-    same forward output; one forward launch, one backward call, two
-    backward launches.  The flash cases pass (B, T, H, d) tensors seen
+    same forward output; one forward launch, one backward call, and the
+    launches of the path it takes (one for a one-pass kernel, two for the
+    dQ and dK/dV kernels), none of another.  The flash cases pass (B, T, H, d) tensors seen
     through ``transpose(1, 2)`` where the case says views; an expanded output
     gradient is the gradient of ``out.sum()`` times a vector, stride 0."""
     dev = _card()
@@ -283,7 +314,11 @@ def test_backward_kernels_match_twin_on_card(case):
     torch.cuda.synchronize()
     assert attention.launch_count[entry] == before[0][entry] + 1
     assert attention.backward_count[entry] == before[1][entry] + 1
-    assert attention.backward_launch_count[entry] == before[2][entry] + 2
+    path = _path(tk, d)
+    assert attention.backward_path(tk, d) == path
+    launches = {"one_pass": 1, "two_kernel": 2, "one_pass_wgmma": 1}
+    assert attention.backward_launch_count == {
+        p: before[2][p] + (launches[p] if p == path else 0) for p in launches}
     assert attention.stock_backward_count == before[3]
 
     def bhtd(a):
@@ -300,13 +335,44 @@ def test_backward_kernels_match_twin_on_card(case):
         assert a.shape == w.shape and a.dtype == torch.bfloat16
 
 
+# (entry, shape in the entry's layout): a small head-packed shape and ART's
+# training shape (the one-pass kernel), K4's flash shape (d = 128: the dQ
+# and dK/dV kernels) and d = 64 at the same work (the wgmma one-pass kernel).
+DETERMINISM_CASES = {
+    "small": ("headpacked_attention", (4, 512, 8, 16)),
+    "art": ("headpacked_attention", (16, 1024, 8, 16)),
+    "k4": ("flash_attention", (2, 8, 1024, 128)),
+    "d64": ("headpacked_attention", (4, 1024, 8, 64)),
+}
+
+
 @pytest.mark.cuda
-def test_backward_kernels_are_deterministic_on_card():
-    """No atomics: two backward passes give the same bits."""
+@pytest.mark.parametrize("case", list(DETERMINISM_CASES))
+def test_backward_kernels_are_deterministic_on_card(case):
+    """No atomics: two backward passes give the same bits (the one-pass
+    kernels sum the cluster's partial dQ tiles in rank order)."""
     dev = _card()
-    x = [torch.randn(4, 512, 8, 16, device=dev, dtype=torch.bfloat16).requires_grad_()
+    entry, shape = DETERMINISM_CASES[case]
+    fn = getattr(attention, entry)
+    x = [torch.randn(*shape, device=dev, dtype=torch.bfloat16).requires_grad_()
          for _ in range(3)]
-    g = torch.randn(4, 512, 8, 16, device=dev, dtype=torch.bfloat16)
-    first = torch.autograd.grad(attention.headpacked_attention(*x, 0.25), x, g)
-    second = torch.autograd.grad(attention.headpacked_attention(*x, 0.25), x, g)
+    g = torch.randn(*shape, device=dev, dtype=torch.bfloat16)
+    path = _path(shape[2 if entry == "flash_attention" else 1], shape[-1])
+    before = dict(attention.backward_launch_count)
+    first = torch.autograd.grad(fn(*x, shape[-1] ** -0.5), x, g)
+    second = torch.autograd.grad(fn(*x, shape[-1] ** -0.5), x, g)
+    assert attention.backward_launch_count[path] == before[path] + 2 * attention.BACKWARD_LAUNCHES[path]
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_backward_source_sums_no_gradient_with_atomics():
+    """Every gradient is written once, by one thread: the source holds no
+    atomic add or reduction (``atomicAdd``, ``atom.``, ``red.``)."""
+    import re
+
+    from eyegaze_tpu_torch.kernels import build
+
+    text = (build.CSRC / "attention.cu").read_text()
+    code = "\n".join(line.split("//")[0] for line in text.splitlines())
+    assert "atomicAdd" not in code
+    assert not re.search(r"(?<![A-Za-z_])(atom|red)\.", code)  # PTX atom.* and red.*
