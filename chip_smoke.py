@@ -244,6 +244,30 @@ none, fails the run.  Then, each phase raising on any failure:
    through ``Trainer.fit`` on 40 synthetic trials, its best_model.pt served
    by ``ArtDenoiser.from_checkpoint`` (bf16) within 2**-5 of the largest
    output of the trained model's bf16 forward.
+30. ``python -m eyegaze_tpu_torch.import_torch_checkpoint`` on seeded
+   full-width reference-named state_dicts of the five kinds (the flagship
+   also at a non-default geometry), each under ``model_state_dict`` with the
+   ``module.`` prefix and the reference's buffers; each import served by
+   ``from_checkpoint`` (bf16) on the card equal to the bit to the same
+   weights served from the bare state_dict with their meta; the imported
+   flagship and composite requests launch K1 once, the imported ART request
+   K3-bf16 18 times.
+31. ``analyze_eeg`` (metrics, frequency, ibs, attention, Grad-CAM) at full
+   width on the imported flagship, ``--trials 24 --batch-size 16``, float32,
+   on the card and on the CPU: K1 launches equal the forwards
+   ``planned_forwards`` predicts (none on the CPU); the IBS means and the
+   attention maps within 2e-3, the Grad-CAM CSVs within 5e-3 of each map's
+   largest entry (+ the CSV's 1e-6) and the maps themselves within 5e-2
+   of each map's largest entry (a map jumps when a conv2 output within
+   rounding of 0 flips its ReLU; printed beside: the card's maps with K1's
+   plain twin and with cuDNN off, the CPU's under a 1e-7 input change),
+   the masked-band accuracies equal (or apart by at most the windows inside
+   the margin); each stage's wall time.
+32. Gaze introspection on ViT-B/16 early fusion (224 px, f32) at batch 2,
+   card against CPU: saliency within 2e-3 of each map's largest entry, the
+   CLS features within 2e-3, the ViT Grad-CAM equal (zero on both: only
+   the CLS token of the last block's output reaches the logits); no kernel
+   of the port.
 
 Every phase runs in float32 (TF32 off) unless it says bf16.  There is no
 CPU fallback: without a CUDA device the script exits non-zero and prints no
@@ -254,13 +278,17 @@ and its launches per request; for attention also the time its
 exponentials take on the SFU alone (``sfu_ex2_ms``, not a floor).  The
 second-to-last line of stdout is a JSON object with each kernel entry
 point's launches, error, times and bound (K1's launches are serving's,
-training's, the composite's and multimodal training's, with its timing at
+training's, the composite's, multimodal training's, the imported
+checkpoints' and the analysis's, with its timing at
 the train shape and the train step's median times and peak memory beside
-them, its time, bound and share at each composite bucket, and the
-composite train step's time, memory and K1 launches per step; the f32 head-packed entry's are
+them, its time, bound and share at each composite bucket, the
+composite train step's time, memory and K1 launches per step, and the
+analysis's predicted forwards, stage times and timing at its shapes; the
+f32 head-packed entry's are
 serving's and ART training's, with its backward calls, the ART train
 step's medians and the autograd timing; the bf16 head-packed entry's are
-bf16 serving's and bf16 ART training's, with that step's medians; the
+bf16 serving's, bf16 ART training's and the imported ART's, with that
+step's medians; the
 one-pass backward kernel's, ``flash_attention_bwd``, are bf16 ART
 training's, timed at ART's training shape, each case of the backward phase
 beside; the two backward kernels', ``flash_attention_bwd_dkv`` and
@@ -529,6 +557,44 @@ HEATMAPS, HEATMAP_SHAPE = 16, (1583, 3000)  # the native gaze heatmap, (H, W, 3)
 
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # HBM bytes per second and dense operations per second by type.
+# Importing a reference checkpoint (phase 30): the flagship at one
+# non-default geometry besides GEOMETRY; at T = 1024 its stride-2 frontend
+# gives 256 tokens, 313 in all.
+IMPORT_ALT_GEOMETRY = dict(in_channels=CHANNELS, num_classes=3, d_model=128, num_layers=4,
+                           num_heads=4, d_ff=512, max_len=320, conv_kernel_size=15,
+                           conv_stride=2, conv_layers=2, sampling_rate=SAMPLING_RATE,
+                           ibs_feature_type="phase", ibs_instance_norm=False)
+IMPORT_ALT_FLAGS = ["--num-heads", "4", "--conv-stride", "2"]
+IMPORT_WINDOWS = 10  # windows per imported EEG / ART request: bucket 32, one forward
+IMPORT_PAIRS = 2  # gaze and composite pairs per request: bucket 8, one forward
+# analyze_eeg at full width on the imported flagship (phase 31): the JAX
+# script's defaults, its numeric stages; the embedding stage needs
+# scikit-learn, which the card's host lacks.
+ANALYSIS_FLAGS = ["--trials", "24", "--batch-size", "16", "--channels", str(CHANNELS),
+                  "--window", str(WINDOW), "--fs", str(SAMPLING_RATE)]
+ANALYSIS_STAGES = "metrics,frequency,ibs,attention,gradcam"
+ANALYSIS_TOL = 2e-3  # card (K1) vs CPU (its plain version), f32 both: the cross-device bound
+# A Grad-CAM map is a gradient through the whole network times the
+# activation: each CSV map is held at this share of its largest entry, plus
+# the CSV's resolution (1e-6), as tests/test_torch_analyze_eeg_maps.py holds
+# it.  The maps themselves, card against CPU, at ANALYSIS_CAM_MAP_SHARE of
+# each map's largest entry: at full width a map is a discontinuous function
+# of float32 rounding.  A conv2 output within rounding of 0 flips its ReLU's
+# mask, which moves that channel's weight, the gradient's spatial mean, by a
+# finite step, so two float32 runs that round differently (cuFFT against the
+# CPU's FFT) can put a map a few percent apart.  Phase 31 prints the
+# evidence beside the check: the CPU's maps moved by an input change of
+# ANALYSIS_NUDGE (relative, float32 rounding's size), and the card's maps
+# with K1's plain twin and with cuDNN off.
+ANALYSIS_CAM_SHARE = 5e-3
+ANALYSIS_CAM_MAP_SHARE = 5e-2
+ANALYSIS_NUDGE = 1e-7
+ANALYSIS_NUDGE_DRAWS = 4
+# Gaze introspection on ViT-B/16 early fusion (phase 32): card vs CPU, f32
+# both; saliency is a gradient through 12 blocks, held at this share of
+# each map's largest entry; the CLS features at the cross-device bound.
+GAZE_INTROSPECT_PAIRS = 2
+GAZE_MAP_SHARE = 2e-3
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12     # float32 on the CUDA cores
 BF16_OPS_PER_S = 989e12   # bf16 on the tensor cores
@@ -620,6 +686,17 @@ def composite_kernel_shapes() -> tuple:
                      (6 * max(MM_TRAIN_TRIALS // 5, 1), CHANNELS, WINDOW))
 
 
+def analysis_kernel_shapes() -> tuple:
+    """The (N, C, T) at which phase 31's analysis launches K1: N = 6 bands x
+    the windows of each batch of the analysed validation split, one launch
+    per forward; and N = 96, a full batch of 16."""
+    from eyegaze_tpu_torch import analyze_eeg
+
+    args = analyze_eeg.parse_args(ANALYSIS_FLAGS + ["--device", "cpu"])
+    sizes = {len(b["label"]) for b in analyze_eeg.make_batches(args)()} | {16}
+    return tuple((6 * n, CHANNELS, WINDOW) for n in sorted(sizes))
+
+
 def cuda_ms(fn, reps: int, calls: int = 1) -> list[float]:
     """Per-call device times of ``fn`` in ms, from CUDA events around
     ``calls`` calls in a row."""
@@ -653,8 +730,9 @@ def phase_kernel_phase(device, plv: bool) -> tuple[dict, dict]:
     Phase_Diff 0 (and mean cos 1): padded samples add nothing.
 
     Timed shapes: K1 the serving run's (``path_kernel_shapes``), the
-    training run's (``train_kernel_shapes``) and the composite's
-    (``composite_kernel_shapes``), K2 PLV_SHAPES.  Kernel and
+    training run's (``train_kernel_shapes``), the composite's
+    (``composite_kernel_shapes``) and the analysis's
+    (``analysis_kernel_shapes``), K2 PLV_SHAPES.  Kernel and
     plain version are timed in turns, one call between CUDA events, and the
     kernel again as 20 calls replayed from a CUDA graph (device time alone).
     Returns the JSON fields at the largest timed shape, and those of every
@@ -667,7 +745,8 @@ def phase_kernel_phase(device, plv: bool) -> tuple[dict, dict]:
     plain = (phase_metrics.pairwise_phase_plv_metrics_reference if plv
              else phase_metrics.pairwise_phase_metrics_reference)
     timed = PLV_SHAPES if plv else tuple(dict.fromkeys(
-        path_kernel_shapes() + train_kernel_shapes() + composite_kernel_shapes()))
+        path_kernel_shapes() + train_kernel_shapes() + composite_kernel_shapes()
+        + analysis_kernel_shapes()))
     max_err = 0.0
     for seed, shape in enumerate(timed + (RAGGED_SHAPE, UNALIGNED_SHAPE)):
         x = phase_inputs(shape, device, seed)
@@ -3357,6 +3436,328 @@ F32_INSTANCES = {(16, 4), (16, 1), (32, 2), (32, 1), (64, 1), (128, 1)}  # (d, r
 BF16_HEAD_DIMS = {16, 32, 64, 128}
 
 
+def import_cases(cpu) -> list:
+    """Phase 30's models, seeded at full width on the CPU: (name, importer
+    kind, model, importer flags, the reference's buffers, the meta a bare
+    state_dict is served with, predictor class, request)."""
+    from eyegaze_tpu_torch import serving
+    from eyegaze_tpu_torch.models.art import ArtConfig, ArtifactRemovalTransformer
+    from eyegaze_tpu_torch.models.dual_eeg import DualEEGTransformer
+    from eyegaze_tpu_torch.models.multimodal import MultimodalFusionModel
+    from eyegaze_tpu_torch.models.vit import EarlyFusionViT, LateFusionViT
+    from eyegaze_tpu_torch.ops.spectral import hann_window
+
+    def seeded():
+        return dict(device=cpu, generator=torch.Generator().manual_seed(17))
+
+    r = np.random.default_rng(30)
+    eeg = [r.normal(size=(IMPORT_WINDOWS, CHANNELS, WINDOW)).astype(np.float32)
+           for _ in range(2)]
+    window = {"spectrogram_generator.window": hann_window(128, cpu)}
+    alt = IMPORT_ALT_GEOMETRY
+    alt_meta = {"config": {
+        "model": {"in_channels": CHANNELS, "num_labels": 3, "d_model": alt["d_model"],
+                  "num_layers": alt["num_layers"], "num_heads": alt["num_heads"],
+                  "d_ff": alt["d_ff"], "conv_kernel_size": alt["conv_kernel_size"],
+                  "conv_stride": alt["conv_stride"], "conv_layers": alt["conv_layers"]},
+        "ablation": {"use_spectrogram": True, "use_ibs": True, "ibs_mode": "robust",
+                     "use_cross_attention": True, "ibs_instance_norm": False,
+                     "ibs_feature_type": "phase"},
+        "data": {"sampling_rate": SAMPLING_RATE}}}
+    art = ArtConfig()
+    pe = torch.zeros(1, art.max_len, art.embedding_size)
+    gaze_meta = {"img_size": GAZE_GEOMETRY["img_size"], "num_labels": 3,
+                 "vit_num_heads": GAZE_GEOMETRY["num_heads"]}
+    return [
+        ("flagship", "dual_eeg", DualEEGTransformer(**GEOMETRY, **seeded()), [], window,
+         FLAGSHIP_META, serving.Predictor, eeg),
+        ("flagship, non-default geometry", "dual_eeg",
+         DualEEGTransformer(**alt, **seeded()), IMPORT_ALT_FLAGS, window, alt_meta,
+         serving.Predictor, eeg),
+        ("ART", "art", ArtifactRemovalTransformer(art, **seeded()), [],
+         {"src_embed.1.pe": pe, "tgt_embed.1.pe": pe},
+         {"config": {"model": dataclasses.asdict(art)}}, serving.ArtDenoiser, eeg[:1]),
+        ("gaze early (ViT-B/16)", "gaze_early",
+         EarlyFusionViT(fusion_mode="concat", **GAZE_GEOMETRY, **seeded()), [], {},
+         {"config": {"model": {"kind": "early", "fusion_mode": "concat", **gaze_meta}}},
+         serving.GazePredictor, gaze_pairs(IMPORT_PAIRS, 31)),
+        ("gaze late (ViT-B/16)", "gaze_late",
+         LateFusionViT(fusion_mode="full", **GAZE_GEOMETRY, **seeded()), [], {},
+         {"config": {"model": {"kind": "late", "fusion_mode": "full", **gaze_meta}}},
+         serving.GazePredictor, gaze_pairs(IMPORT_PAIRS, 32)),
+        ("multimodal composite", "multimodal", MultimodalFusionModel(**MM_GEOMETRY, **seeded()),
+         [], {"fusion.c_reliable": torch.tensor(0.0),
+              "eeg_encoder.spectrogram_generator.window": hann_window(128, cpu)},
+         {"config": {"model": {"multimodal": MM_GEOMETRY, "num_labels": 3}}},
+         serving.MultimodalPredictor, multimodal_inputs(IMPORT_PAIRS, 33)),
+    ]
+
+
+def import_phase(device, tmp: Path) -> dict:
+    """Phase 30: ``import_torch_checkpoint`` on each of ``import_cases``'s
+    reference-named state_dicts, under ``model_state_dict`` with the
+    ``module.`` prefix and the reference's buffers; the import served by
+    ``from_checkpoint`` (bf16) on the card equal to the bit to the same
+    weights served from the bare state_dict with their meta.  The imported
+    flagship and composite requests launch K1 once each, the imported ART
+    request K3-bf16 18 times.  Returns the launches and the imported
+    flagship's path."""
+    from eyegaze_tpu_torch import import_torch_checkpoint as importer
+    from eyegaze_tpu_torch.kernels import attention, phase_metrics
+
+    cpu = torch.device("cpu")
+    k1 = k3 = 0
+    flagship = None
+    for name, kind, model, flags, buffers, meta, cls, request in import_cases(cpu):
+        t0 = time.perf_counter()
+        state = model.state_dict()
+        wrapped = {f"module.{k}": v for k, v in {**state, **buffers}.items()}
+        src = tmp / f"reference_{kind}_{len(flags)}.pt"
+        torch.save({"model_state_dict": wrapped, "epoch": 7}, src)
+        out = tmp / f"imported_{kind}_{len(flags)}"
+        if importer.main([str(src), "--out", str(out)] + flags) != 0:
+            raise RuntimeError(f"{name}: the import failed")
+        t_import = time.perf_counter() - t0
+        bare = save_checkpoint(state, meta, tmp / f"bare_{kind}_{len(flags)}.pt")
+        imported = cls.from_checkpoint(out / "best_model.pt", device=device)
+        served = cls.from_checkpoint(bare, device=device)
+        reset_attention_counts()
+        reset_k1_count()
+        t0 = time.perf_counter()
+        got = imported.predict(*request)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {"K1": phase_metrics.launch_count["phase_metric_sums"],
+                    "K3-bf16": attention.bf16_launch_count["headpacked_attention"],
+                    "K3/K4 all": sum(attention.launch_count.values())}
+        want = served.predict(*request)
+        for k, v in want.items():
+            if not np.array_equal(np.asarray(got[k]), np.asarray(v)):
+                raise RuntimeError(f"{name}: the import's {k} differs from the bare "
+                                   "state_dict's")
+        expect = {"dual_eeg": {"K1": 1, "K3-bf16": 0, "K3/K4 all": 0},
+                  "multimodal": {"K1": 1, "K3-bf16": 0, "K3/K4 all": 0},
+                  "art": {"K1": 0, "K3-bf16": ART_ATTENTION_CALLS,
+                          "K3/K4 all": ART_ATTENTION_CALLS}}.get(
+            kind, {"K1": 0, "K3-bf16": 0, "K3/K4 all": 0})
+        if launches != expect:
+            raise RuntimeError(f"{name}: the imported request launched {launches}, not {expect}")
+        k1, k3 = k1 + launches["K1"], k3 + launches["K3-bf16"]
+        params = sum(v.numel() for v in state.values())
+        print(f"import {name}: {params:,} parameters, {len(buffers)} buffer(s) dropped, "
+              f"imported in {t_import:.2f} s; from_checkpoint on the card equal to the bit to "
+              f"the bare state_dict's ({', '.join(want)}); first request {ms:.1f} ms; launches "
+              f"{launches}")
+        if kind == "dual_eeg" and not flags:
+            flagship = out / "best_model.pt"
+        del imported, served, model
+    torch.cuda.empty_cache()
+    return {"k1": k1, "k3_bf16": k3, "flagship": flagship}
+
+
+def analysis_margins(args, band: int) -> np.ndarray:
+    """Top-two logit margins of the analysed windows on the CPU, with
+    ``band`` masked."""
+    from eyegaze_tpu_torch import analyze_eeg
+    from eyegaze_tpu_torch.analysis import run_inference
+
+    model, _ = analyze_eeg.load_model(args, torch.device("cpu"))
+    top2 = np.sort(run_inference(model.with_mask_band(band),
+                                 analyze_eeg.make_batches(args)())["logits"], axis=-1)
+    return top2[:, -1] - top2[:, -2]
+
+
+def analysis_cams(args, where, *, plain_k1: bool = False, cudnn: bool = True,
+                  nudge: float = 0.0, seed: int = 0) -> np.ndarray:
+    """``gradcam_spectrogram`` on ``analyze_eeg``'s model and batches on
+    ``where``: with ``plain_k1`` K1's plain twin in place of the kernel (on
+    any device), with ``cudnn`` False no cuDNN, with ``nudge`` the EEG times
+    (1 + nudge * N(0, 1)) drawn from ``seed``."""
+    from eyegaze_tpu_torch import analyze_eeg
+    from eyegaze_tpu_torch.analysis import gradcam_spectrogram
+    from eyegaze_tpu_torch.kernels import phase_metrics
+
+    model, _ = analyze_eeg.load_model(args, where)
+    batches = list(analyze_eeg.make_batches(args)())
+    if nudge:
+        r = np.random.default_rng(seed)
+        batches = [{**b, **{k: (b[k] * (1 + nudge * r.standard_normal(b[k].shape)))
+                            .astype(np.float32) for k in ("eeg1", "eeg2")}} for b in batches]
+    sums, enabled = phase_metrics._sums, torch.backends.cudnn.enabled
+    if plain_k1:
+        phase_metrics._sums = lambda wrapper, reference, tensors: reference(*tensors)
+    torch.backends.cudnn.enabled = cudnn
+    try:
+        return gradcam_spectrogram(model, iter(batches), out_size=64)
+    finally:
+        phase_metrics._sums, torch.backends.cudnn.enabled = sums, enabled
+
+
+def analyze_phase(device, tmp: Path, checkpoint: Path) -> dict:
+    """Phase 31: ``analyze_eeg`` (``ANALYSIS_STAGES``) at full width on the
+    imported flagship, on the card and on the CPU (K1's plain version).  K1
+    launches once per analysed forward, as ``planned_forwards`` predicts
+    from the batches and stages.  The IBS class means and difference, the
+    attention maps, the Grad-CAM maps (the CSVs; and the maps themselves
+    from ``gradcam_spectrogram`` beside the CLI: their launches are not
+    counted) and the band accuracies, card against CPU."""
+    from eyegaze_tpu_torch import analyze_eeg
+    from eyegaze_tpu_torch.analysis import BAND_NAMES
+
+    runs = []
+    for where, name in ((device.type, "card"), ("cpu", "cpu")):
+        args = analyze_eeg.parse_args(ANALYSIS_FLAGS + [
+            "--checkpoint", str(checkpoint), "--analyses", ANALYSIS_STAGES,
+            "--output-dir", str(tmp / f"analysis_{name}"), "--device", where])
+        reset_k1_count()
+        t0 = time.perf_counter()
+        summary = analyze_eeg.run(args)
+        summary["wall_s"] = time.perf_counter() - t0
+        summary["k1"] = k1_count()
+        runs.append(summary)
+    card, cpu = runs
+    predicted = sum(card["planned"].values())
+    if card["k1"] != predicted or cpu["k1"] != 0:
+        raise RuntimeError(f"analyze_eeg launched K1 {card['k1']} times on the card (predicted "
+                           f"{predicted}: {card['planned']}) and {cpu['k1']} on the CPU")
+    print(f"analyze_eeg at full width, {card['batches']} batch(es): K1 launches {card['k1']} = "
+          f"the forwards predicted {card['planned']}; wall s card {card['wall_s']:.3f}, CPU "
+          f"{cpu['wall_s']:.3f}")
+    print("analyze_eeg stage wall s, card / CPU: " + ", ".join(
+        f"{k} {v['seconds']:.3f} / {cpu['stages'][k]['seconds']:.3f}"
+        for k, v in card["stages"].items()))
+
+    a, b = tmp / "analysis_card", tmp / "analysis_cpu"
+    gaps = {"ibs": 0.0, "ibs_file": "", "attention": 0.0, "gradcam_share": 0.0}
+    for p in sorted(b.rglob("*.csv")):
+        rel = p.relative_to(b)
+        if not (a / rel).exists():
+            raise RuntimeError(f"the card's analysis lacks {rel}")
+        group = rel.parts[0]
+        if group not in ("ibs_connectivity", "attention_weights", "gradcam") or \
+                rel.name in ("channel_names.csv", "gradcam_metadata.csv",
+                             "attention_summary.csv"):
+            continue
+        got, want = (np.loadtxt(x / rel, delimiter=",", ndmin=2) for x in (a, b))
+        gap = float(np.abs(got - want).max())
+        if group == "gradcam":
+            scale = float(np.abs(want).max())
+            if not gap <= ANALYSIS_CAM_SHARE * scale + 1e-6:
+                raise RuntimeError(f"{rel}: card vs CPU {gap:.3e}, map max {scale:.3e}")
+            gaps["gradcam_share"] = max(gaps["gradcam_share"], gap / max(scale, 1e-12))
+        else:
+            if not gap <= ANALYSIS_TOL:
+                raise RuntimeError(f"{rel}: card vs CPU {gap:.3e} over {ANALYSIS_TOL}")
+            key = "ibs" if group == "ibs_connectivity" else "attention"
+            if key == "ibs" and gap >= gaps["ibs"]:
+                gaps["ibs_file"] = str(rel)
+            gaps[key] = max(gaps[key], gap)
+    name = Path("frequency_sensitivity") / "band_sensitivity.csv"
+    rows = [line.split(",") for line in (a / name).read_text().splitlines()[1:]]
+    want_rows = [line.split(",") for line in (b / name).read_text().splitlines()[1:]]
+    accuracy = {}
+    for band, (r_card, r_cpu) in enumerate(zip(rows, want_rows)):
+        acc, acc_cpu = float(r_card[1]), float(r_cpu[1])
+        accuracy[BAND_NAMES[band]] = acc
+        if r_card != r_cpu:
+            margins = analysis_margins(args, band)
+            unclear = int((margins <= 2 * ANALYSIS_TOL).sum())
+            if not abs(acc - acc_cpu) <= unclear / len(margins):
+                raise RuntimeError(f"band {BAND_NAMES[band]}: card {r_card}, CPU {r_cpu}, "
+                                   f"{unclear} window(s) inside the margin")
+            print(f"band {BAND_NAMES[band]}: card {r_card} vs CPU {r_cpu}: {unclear} window(s) "
+                  "inside the margin")
+    # The CSV's six decimals leave a Grad-CAM map of this model one or two
+    # digits, so the maps themselves are held too (ANALYSIS_CAM_MAP_SHARE),
+    # with the variants that say where a gap comes from (not counted).
+    host = torch.device("cpu")
+    cams = {name: analysis_cams(args, where, **kw) for name, where, kw in (
+        ("card", device, {}), ("CPU", host, {}),
+        ("card, K1's plain twin", device, {"plain_k1": True}),
+        ("card, cuDNN off", device, {"cudnn": False}))}
+    want = cams["CPU"]
+    scales = np.abs(want).max(axis=(1, 2))
+    shares = {name: (np.abs(cam - want).max(axis=(1, 2)) / scales).tolist()
+              for name, cam in cams.items() if name != "CPU"}
+    nudged = [np.abs(analysis_cams(args, host, nudge=ANALYSIS_NUDGE, seed=seed) - want).max(
+        axis=(1, 2)) / scales for seed in range(ANALYSIS_NUDGE_DRAWS)]
+    shares[f"CPU, input x (1 + {ANALYSIS_NUDGE:g} N(0, 1)), largest of "
+           f"{ANALYSIS_NUDGE_DRAWS} draws"] = np.max(nudged, axis=0).tolist()
+    if not (scales.min() > 0 and max(shares["card"]) <= ANALYSIS_CAM_MAP_SHARE):
+        raise RuntimeError(f"Grad-CAM card vs CPU, share of each map's max {shares['card']}, "
+                           f"maps' max {scales.tolist()}")
+    gaps["gradcam_map_share"] = shares
+    print(f"analysis card vs CPU: IBS means max |diff| {gaps['ibs']:.3e} ({gaps['ibs_file']}), "
+          f"attention maps {gaps['attention']:.3e} (bound {ANALYSIS_TOL}); Grad-CAM maps per "
+          "class, largest |difference| from the CPU's as a share of the map's max (bound "
+          f"{ANALYSIS_CAM_MAP_SHARE} for the card): " + "; ".join(
+              f"{name} " + ", ".join(f"{x:.3e}" for x in v) for name, v in shares.items())
+          + f" (maps' max {', '.join(f'{x:.3e}' for x in scales)}); the CSVs' "
+          f"{gaps['gradcam_share']:.3e}, at their 1e-6 resolution; masked-band accuracies "
+          f"{accuracy}")
+    return {"k1": card["k1"], "planned": card["planned"], "batches": card["batches"],
+            "stage_s": {k: v["seconds"] for k, v in card["stages"].items()},
+            "cpu_stage_s": {k: v["seconds"] for k, v in cpu["stages"].items()},
+            "wall_s": card["wall_s"], "cpu_wall_s": cpu["wall_s"], "gaps": gaps}
+
+
+def gaze_introspect_phase(device) -> dict:
+    """Phase 32: ``input_saliency``, ``vit_gradcam`` (upsampled to 224) and
+    ``extract_cls_features`` on ViT-B/16 early fusion ('concat', 224 px,
+    seeded f32 weights) at batch 2, card against CPU.  No kernel of the port
+    runs (the ViT's attention is the plain one)."""
+    from eyegaze_tpu_torch.analysis import extract_cls_features, input_saliency, vit_gradcam
+    from eyegaze_tpu_torch.data.image_fusion import imagenet_normalize, to_unit_float
+    from eyegaze_tpu_torch.models.vit import EarlyFusionViT
+
+    cpu = torch.device("cpu")
+    model = EarlyFusionViT(fusion_mode="concat", **GAZE_GEOMETRY, device=cpu,
+                           generator=torch.Generator().manual_seed(32)).eval()
+    i1, i2 = (imagenet_normalize(to_unit_float(torch.from_numpy(x))).numpy()
+              for x in gaze_pairs(GAZE_INTROSPECT_PAIRS, 34))
+    batch = [{"img1": i1, "img2": i2, "label": np.arange(GAZE_INTROSPECT_PAIRS) % 3}]
+    reset_attention_counts()
+    reset_k1_count()
+    results, times = [], []
+    for where in (device, cpu):
+        m = model.to(where)
+        out, ms = {}, {}
+        for name, fn in (("saliency", lambda: input_saliency(m, i1, i2)),
+                         ("gradcam", lambda: vit_gradcam(m, i1, i2, upsample_to=224)),
+                         ("cls", lambda: extract_cls_features(m, iter(batch)))):
+            fn()  # warm
+            t0 = time.perf_counter()
+            out[name] = fn()  # numpy: the device work has ended
+            ms[name] = (time.perf_counter() - t0) * 1e3
+        results.append(out)
+        times.append(ms)
+    assert_no_port_kernel("gaze introspection")
+    card, host = results
+    share = 0.0
+    for g, w in zip(card["saliency"], host["saliency"]):
+        for gm, wm in zip(g, w):
+            scale = float(np.abs(wm).max())
+            gap = float(np.abs(gm - wm).max())
+            if not (scale > 0 and gap <= GAZE_MAP_SHARE * scale):
+                raise RuntimeError(f"saliency card vs CPU {gap:.3e}, map max {scale:.3e}")
+            share = max(share, gap / scale)
+    if card["gradcam"].shape != (GAZE_INTROSPECT_PAIRS, 224, 224) or \
+            not np.array_equal(card["gradcam"], host["gradcam"]):
+        raise RuntimeError("ViT Grad-CAM card vs CPU differs")
+    cls_gap = float(np.abs(card["cls"]["features"] - host["cls"]["features"]).max())
+    if card["cls"]["features"].shape != (GAZE_INTROSPECT_PAIRS, GAZE_GEOMETRY["embed_dim"]) or \
+            not cls_gap <= ANALYSIS_TOL:
+        raise RuntimeError(f"CLS features card vs CPU {cls_gap:.3e}")
+    print(f"gaze introspection, ViT-B/16 early fusion, batch {GAZE_INTROSPECT_PAIRS}: card ms "
+          + ", ".join(f"{k} {v:.2f}" for k, v in times[0].items()) + "; CPU ms "
+          + ", ".join(f"{k} {v:.2f}" for k, v in times[1].items())
+          + f"; saliency card vs CPU {share:.3e} of each map's max (bound {GAZE_MAP_SHARE}), "
+          f"CLS features {cls_gap:.3e}; Grad-CAM at the last block's output zero on both "
+          f"(max {float(np.abs(card['gradcam']).max()):g}: only the CLS token reaches the logits)")
+    return {"card_ms": times[0], "cpu_ms": times[1], "saliency_share": share,
+            "cls_gap": cls_gap}
+
+
 def assert_no_spill(report: str, kernel: str) -> None:
     """Raises if nvcc's ptxas report shows a spill in an instance of a
     kernel whose name holds ``kernel`` (an empty report, from a library
@@ -3578,6 +3979,10 @@ def main() -> None:
     art_bf16_train = {ad: art_bf16_train_timed_phase(device, ad) for ad in (None, 0.0)}
     with tempfile.TemporaryDirectory() as tmp:
         bf16_epoch = art_bf16_epoch_phase(device, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        imported = import_phase(device, Path(tmp))
+        analysis = analyze_phase(device, Path(tmp), imported["flagship"])
+    gaze_introspection = gaze_introspect_phase(device)
     print("offline EEG features at (32, 3250), trials/s end to end: "
           + ", ".join(f"chunk {c} {o['trials_per_s']:.2f} ({o['kernels_per_chunk']:.0f} kernels "
                       f"a chunk, busy {o['busy_share']:.1%}, {o['device_ms_per_chunk']:.3f} ms "
@@ -3631,12 +4036,22 @@ def main() -> None:
     kernels = [
         {"name": "pairwise_phase_metrics", "route": "cuda", "source": phase_source,
          "replaces": "eyegaze_tpu/ops/pallas_kernels.py:74",
-         "launches": k1_serving + k1_train + k1_mm_launches + k1_mm_train,
+         "launches": (k1_serving + k1_train + k1_mm_launches + k1_mm_train + imported["k1"]
+                      + analysis["k1"]),
          "path": "EEG serving, f32 and bf16 from a checkpoint; flagship training, bf16 and "
                  "f32 steps and one epoch of train_dual_eeg; the multimodal composite served "
                  "bf16 from a checkpoint, and over HTTP; multimodal training (the f32 parity "
                  "step, bf16 timed and frozen steps, one epoch of train_multimodal and its "
-                 "served checkpoint)",
+                 "served checkpoint); imported reference checkpoints served (two flagships, "
+                 "the composite); analyze_eeg at full width on the imported flagship",
+         "launches_import": imported["k1"], "launches_analysis": analysis["k1"],
+         "analysis": {"forwards_predicted": analysis["planned"], "batches": analysis["batches"],
+                      "stage_s": analysis["stage_s"], "cpu_stage_s": analysis["cpu_stage_s"],
+                      "wall_s": analysis["wall_s"], "cpu_wall_s": analysis["cpu_wall_s"],
+                      "card_vs_cpu": analysis["gaps"],
+                      "shape_timing": {f"N={shape[0]}": k1_shapes[shape]
+                                       for shape in analysis_kernel_shapes()}},
+         "gaze_introspection": gaze_introspection,
          "launches_per_request": k1_serving / (2 * len(REQUESTS) * REPEATS),
          "launches_serving": k1_serving, "launches_training": k1_train,
          "launches_composite": k1_mm_launches,
@@ -3689,9 +4104,11 @@ def main() -> None:
          **attn_timing["flash_attention", torch.bfloat16]},
         {"name": "headpacked_attention", "route": "cuda", "source": source,
          "replaces": "eyegaze_tpu/ops/attn_kernels.py:78",
-         "launches": art_bf16_all + bf16_train_launches,
+         "launches": art_bf16_all + bf16_train_launches + imported["k3_bf16"],
          "path": "ART serving, bf16, and from a checkpoint; bf16 ART training at attention "
-                 "dropout 0.0 (parity step, timed steps, one epoch), its forward",
+                 "dropout 0.0 (parity step, timed steps, one epoch), its forward; an imported "
+                 "reference ART checkpoint served",
+         "launches_import": imported["k3_bf16"],
          "launches_per_request": art_bf16_all / (art_forwards + 1),
          "launches_serving": art_bf16_all, "launches_training": bf16_train_launches,
          "launches_per_train_step": bf16_k4["launches"] / TRAIN_STEPS,

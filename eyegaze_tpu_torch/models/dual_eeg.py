@@ -23,6 +23,8 @@ every output is float32.
 
 from __future__ import annotations
 
+import copy
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -111,11 +113,22 @@ class SpectrogramTokenGenerator(nn.Module):
             nn.Dropout(dropout), Dense(d_model * 2, d_model, device=device, dtype=dtype),
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, capture: dict | None = None,
+                stream: str = "spec") -> torch.Tensor:
+        """``capture``, where given, gets ``{stream}_conv2_act``: conv2's
+        output before its ReLU, (B*C, F', T', 64) as the JAX package sows it,
+        a view on the forward's path, so a gradient can be taken at it
+        (Grad-CAM).  The module is shared by both streams (Siamese), hence
+        the name per stream."""
         b, c, t = x.shape
         mag = stft_log_magnitude(x.reshape(b * c, t).to(torch.float32), self.n_fft,
                                  self.hop_length, self.freq_bins, window=self.window)
-        h = adaptive_avg_pool_2d(self.spec_conv(mag[:, None]), 4, 4)
+        h = self.spec_conv[:4](mag[:, None])  # up to conv2, before its ReLU
+        if capture is not None:
+            act = h.permute(0, 2, 3, 1)
+            capture[f"{stream}_conv2_act"] = act
+            h = act.permute(0, 3, 1, 2)
+        h = adaptive_avg_pool_2d(self.spec_conv[4:](h), 4, 4)
         return self.proj(h.reshape(b * c, -1)).reshape(b, c, -1)
 
 
@@ -201,9 +214,17 @@ class CrossBrainAttention(nn.Module):
         self.norm = LayerNorm(d_model, eps=1e-5, device=device)
         self.dropout = nn.Dropout(dropout)
 
-    def forward(self, z1: torch.Tensor, z2: torch.Tensor):
-        z1_cross = self.cross_attn(z1, z2, z2)
-        z2_cross = self.cross_attn(z2, z1, z1)
+    def forward(self, z1: torch.Tensor, z2: torch.Tensor, capture: dict | None = None):
+        """``capture``, where given, gets the two (B, H, T, T) softmax
+        weights, ``attn_weights_1to2`` and ``attn_weights_2to1``."""
+        if capture is None:
+            z1_cross = self.cross_attn(z1, z2, z2)
+            z2_cross = self.cross_attn(z2, z1, z1)
+        else:
+            z1_cross, capture["attn_weights_1to2"] = self.cross_attn(z1, z2, z2,
+                                                                     return_weights=True)
+            z2_cross, capture["attn_weights_2to1"] = self.cross_attn(z2, z1, z1,
+                                                                     return_weights=True)
         return (self.norm(z1 + self.dropout(z1_cross)),
                 self.norm(z2 + self.dropout(z2_cross)))
 
@@ -219,6 +240,11 @@ class DualEEGTransformer(nn.Module):
     frequency-sensitivity analysis); it has no effect on the legacy token.
     ``dtype`` (float32 or bfloat16) is the compute type (module docstring);
     the parameters are float32 in either, so one state_dict loads into both.
+
+    ``forward(..., capture=True)`` adds ``intermediates``, what the JAX
+    model sows for the analysis: ``ibs_matrices`` (after ``mask_band``),
+    ``attn_weights_1to2`` / ``attn_weights_2to1`` and ``spec1_conv2_act`` /
+    ``spec2_conv2_act``, each where its module exists.
     """
 
     def __init__(
@@ -299,8 +325,18 @@ class DualEEGTransformer(nn.Module):
         if self.ibs_tokenizer is not None:
             normal_(self.ibs_tokenizer.type_embedding, 0.02, generator)
 
-    def forward(self, eeg1: torch.Tensor, eeg2: torch.Tensor) -> dict:
+    def with_mask_band(self, band: int) -> "DualEEGTransformer":
+        """This model with ``mask_band`` = ``band``: a shallow copy sharing
+        every parameter and submodule, so nothing is re-initialised."""
+        if band >= len(BAND_DEFS_6):
+            raise ValueError(f"mask_band {band} is not a band index below {len(BAND_DEFS_6)}")
+        masked = copy.copy(self)
+        masked.mask_band = band
+        return masked
+
+    def forward(self, eeg1: torch.Tensor, eeg2: torch.Tensor, capture: bool = False) -> dict:
         b = eeg1.shape[0]
+        inter = {} if capture else None
         h1 = self.temporal_conv(eeg1)  # (B, T', d), shared (Siamese) weights
         h2 = self.temporal_conv(eeg2)
         cls = self.cls_token.expand(b, -1, -1).to(self.dtype)
@@ -311,6 +347,8 @@ class DualEEGTransformer(nn.Module):
                                              feature_type=self.ibs_feature_type)
             if self.mask_band >= 0:
                 matrices[:, self.mask_band] = 0.0
+            if capture:
+                inter["ibs_matrices"] = matrices
             ibs_tokens = self.ibs_tokenizer(matrices)
         elif self.ibs_generator is not None:
             ibs_tokens = self.ibs_generator(eeg1, eeg2)[:, None, :]
@@ -318,15 +356,18 @@ class DualEEGTransformer(nn.Module):
             seq1.append(ibs_tokens)
             seq2.append(ibs_tokens)
         if self.spectrogram_generator is not None:
-            seq1.append(self.spectrogram_generator(eeg1))
-            seq2.append(self.spectrogram_generator(eeg2))
+            seq1.append(self.spectrogram_generator(eeg1, inter, "spec1"))
+            seq2.append(self.spectrogram_generator(eeg2, inter, "spec2"))
         seq1.append(h1)
         seq2.append(h2)
         z1 = self.encoder(self.pos_embed(torch.cat(seq1, dim=1)))
         z2 = self.encoder(self.pos_embed(torch.cat(seq2, dim=1)))
         if self.cross_attn is not None:
-            z1, z2 = self.cross_attn(z1, z2)
-        return self.heads(z1, z2)
+            z1, z2 = self.cross_attn(z1, z2, inter)
+        out = self.heads(z1, z2)
+        if capture:
+            out["intermediates"] = inter
+        return out
 
     def heads(self, z1: torch.Tensor, z2: torch.Tensor) -> dict:
         """The outputs from the two streams' final token sequences (B, T, d):

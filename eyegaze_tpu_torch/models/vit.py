@@ -193,7 +193,12 @@ class VisionTransformer(nn.Module):
         init_weights_(self, generator)
         normal_(self.pos_embed, 0.02, generator)
 
-    def forward(self, x: torch.Tensor, return_features: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, return_features: bool = False,
+                return_tokens: bool = False):
+        """With ``return_tokens``, (output, tokens): the (B, 1 + P^2, E)
+        tokens after the last block and before the final LayerNorm, the
+        Grad-CAM target the JAX model sows (``last_block_tokens``), on the
+        forward's path, so a gradient can be taken at them."""
         b = x.shape[0]
         h = self.patch_embed(x)  # (B, N, E)
         cls = self.cls_token.to(self.dtype).expand(b, -1, -1)
@@ -202,8 +207,10 @@ class VisionTransformer(nn.Module):
             h = block(h)
         cls_feat = self.norm(h[:, 0])  # the norm is per token: the CLS token's alone
         if return_features or self.num_classes == 0:
-            return cls_feat.float()
-        return self.head(cls_feat).float()
+            out = cls_feat.float()
+        else:
+            out = self.head(cls_feat).float()
+        return (out, h) if return_tokens else out
 
 
 def fuse_images(img_a: torch.Tensor, img_b: torch.Tensor, mode: str) -> torch.Tensor:
@@ -244,9 +251,12 @@ class EarlyFusionViT(nn.Module):
             embed_dim=embed_dim, depth=depth, num_heads=num_heads, num_classes=num_classes,
             dropout=dropout, device=device, generator=generator, dtype=dtype)
 
-    def forward(self, img_a: torch.Tensor, img_b: torch.Tensor,
-                return_features: bool = False) -> torch.Tensor:
-        return self.backbone(fuse_images(img_a, img_b, self.fusion_mode), return_features)
+    def forward(self, img_a: torch.Tensor, img_b: torch.Tensor, return_features: bool = False,
+                return_tokens: bool = False):
+        """``return_tokens``: (output, the backbone's last-block tokens), as
+        ``VisionTransformer.forward``."""
+        return self.backbone(fuse_images(img_a, img_b, self.fusion_mode), return_features,
+                             return_tokens)
 
 
 class LateFusionViT(nn.Module):

@@ -100,6 +100,73 @@ def load_checkpoint(state_path, meta_path=None) -> tuple[dict, dict]:
     return state, read_meta(state_path, meta_path)
 
 
+def dual_eeg_config(meta: dict, state, **fallback) -> dict:
+    """``DualEEGTransformer``'s fields for a checkpoint: the geometry and
+    ablation from the meta's ``model``, ``ablation`` and ``data`` sections
+    with the JAX ``Predictor.from_checkpoint``'s keys and defaults,
+    ``max_len`` from the rows of the state_dict's positional table.
+    ``fallback`` replaces the default of ``in_channels``, ``num_classes``,
+    ``d_model``, ``num_layers``, ``num_heads``, ``d_ff`` or
+    ``sampling_rate`` where the meta lacks it (``analyze_eeg``'s flags)."""
+    config = meta.get("config", {})
+    mc, abl, dc = (config.get(k, {}) for k in ("model", "ablation", "data"))
+    d = {"in_channels": 32, "num_classes": 3, "d_model": 256, "num_layers": 6, "num_heads": 8,
+         "d_ff": 1024, "sampling_rate": 256.0, **fallback}
+    return dict(
+        in_channels=mc.get("in_channels", d["in_channels"]),
+        num_classes=mc.get("num_labels", d["num_classes"]),
+        d_model=mc.get("d_model", d["d_model"]),
+        num_layers=mc.get("num_layers", d["num_layers"]),
+        num_heads=mc.get("num_heads", d["num_heads"]),
+        d_ff=mc.get("d_ff", d["d_ff"]),
+        max_len=int(state["pos_embed.pos_embed.weight"].shape[0]),
+        # The frontend and spectrogram geometry change no parameter shape: a
+        # mismatch would load cleanly and predict garbage.
+        conv_kernel_size=mc.get("conv_kernel_size", 25),
+        conv_stride=mc.get("conv_stride", 4),
+        conv_layers=mc.get("conv_layers", 2),
+        spec_n_fft=mc.get("spec_n_fft", 128),
+        spec_hop_length=mc.get("spec_hop_length", 64),
+        spec_freq_bins=mc.get("spec_freq_bins", 64),
+        sampling_rate=float(dc.get("sampling_rate", d["sampling_rate"])),
+        use_spectrogram=abl.get("use_spectrogram", True),
+        use_ibs=abl.get("use_ibs", True),
+        use_robust_ibs=abl.get("ibs_mode", "robust") == "robust",
+        use_cross_attention=abl.get("use_cross_attention", True),
+        ibs_instance_norm=abl.get("ibs_instance_norm", True),
+        ibs_feature_type=abl.get("ibs_feature_type", "all"),
+    )
+
+
+def gaze_model(state, meta: dict, dtype: torch.dtype) -> tuple[torch.nn.Module, str]:
+    """(model, kind) of a gaze checkpoint, as ``GazePredictor.from_checkpoint``
+    reads it (its docstring), weights drawn from seed 0 and not loaded."""
+    mc = meta.get("config", {}).get("model", {})
+    kind = mc.get("kind") or ("late" if "encoder.cls_token" in state
+                              else "early" if "backbone.cls_token" in state else "datafusion")
+    if kind not in ("early", "late", "datafusion"):
+        raise ValueError(f"unsupported gaze model kind {kind!r} "
+                         "(expected early, late or datafusion)")
+    prefix = {"early": "backbone.", "late": "encoder.", "datafusion": ""}[kind]
+    if f"{prefix}cls_token" not in state:
+        raise ValueError(f"the state_dict does not match the meta's kind {kind!r}: no "
+                         f"{prefix}cls_token")
+    embed_dim = int(state[f"{prefix}cls_token"].shape[-1])
+    depth = sum(1 for k in state if k.startswith(f"{prefix}blocks.")
+                and k.endswith(".norm1.weight"))
+    if depth == 0:
+        raise ValueError(f"no ViT blocks under {prefix or 'the root'} in the state_dict")
+    common = dict(num_classes=mc.get("num_labels", 3), img_size=mc.get("img_size", 224),
+                  embed_dim=embed_dim, depth=depth,
+                  num_heads=int(mc.get("vit_num_heads") or max(embed_dim // 64, 4)),
+                  device=torch.device("cpu"), generator=torch.Generator().manual_seed(0),
+                  dtype=dtype)
+    if kind == "datafusion":
+        return VisionTransformer(**common), kind
+    cls_ = EarlyFusionViT if kind == "early" else LateFusionViT
+    return cls_(fusion_mode=mc.get("fusion_mode", "concat"), **common), kind
+
+
 class Predictor:
     """Bucketed predictor for the DualEEGTransformer family on one device."""
 
@@ -120,37 +187,13 @@ class Predictor:
         defaults to the meta's ``data.enable_preprocessing`` (False when
         absent).  ``load_checkpoint`` says what the paths hold."""
         state, meta = load_checkpoint(state_path, meta_path)
-        config = meta.get("config", {})
-        mc, abl, dc = (config.get(k, {}) for k in ("model", "ablation", "data"))
-        model = DualEEGTransformer(
-            in_channels=mc.get("in_channels", 32),
-            num_classes=mc.get("num_labels", 3),
-            d_model=mc.get("d_model", 256),
-            num_layers=mc.get("num_layers", 6),
-            num_heads=mc.get("num_heads", 8),
-            d_ff=mc.get("d_ff", 1024),
-            max_len=int(state["pos_embed.pos_embed.weight"].shape[0]),
-            # The frontend and spectrogram geometry change no parameter
-            # shape: a mismatch would load cleanly and predict garbage.
-            conv_kernel_size=mc.get("conv_kernel_size", 25),
-            conv_stride=mc.get("conv_stride", 4),
-            conv_layers=mc.get("conv_layers", 2),
-            spec_n_fft=mc.get("spec_n_fft", 128),
-            spec_hop_length=mc.get("spec_hop_length", 64),
-            spec_freq_bins=mc.get("spec_freq_bins", 64),
-            sampling_rate=float(dc.get("sampling_rate", 256.0)),
-            use_spectrogram=abl.get("use_spectrogram", True),
-            use_ibs=abl.get("use_ibs", True),
-            use_robust_ibs=abl.get("ibs_mode", "robust") == "robust",
-            use_cross_attention=abl.get("use_cross_attention", True),
-            ibs_instance_norm=abl.get("ibs_instance_norm", True),
-            ibs_feature_type=abl.get("ibs_feature_type", "all"),
-            device=torch.device("cpu"), generator=torch.Generator().manual_seed(0),
-            dtype=torch.bfloat16,
-        )
+        model = DualEEGTransformer(**dual_eeg_config(meta, state), device=torch.device("cpu"),
+                                   generator=torch.Generator().manual_seed(0),
+                                   dtype=torch.bfloat16)
         model.load_state_dict(state, strict=True)
         # Serving must preprocess as training did.
-        kwargs.setdefault("preprocess", bool(dc.get("enable_preprocessing", False)))
+        data = meta.get("config", {}).get("data", {})
+        kwargs.setdefault("preprocess", bool(data.get("enable_preprocessing", False)))
         return cls(model, device=device, **kwargs)
 
     @torch.inference_mode()
@@ -221,36 +264,13 @@ class GazePredictor:
         'horizontal' and 'imagenet').  bf16 compute, the state_dict loaded
         with ``strict=True``.  ``load_checkpoint`` says what the paths hold."""
         state, meta = load_checkpoint(state_path, meta_path)
-        mc = meta.get("config", {}).get("model", {})
-        kind = mc.get("kind") or ("late" if "encoder.cls_token" in state
-                                  else "early" if "backbone.cls_token" in state
-                                  else "datafusion")
-        if kind not in ("early", "late", "datafusion"):
-            raise ValueError(f"unsupported gaze model kind {kind!r} "
-                             "(expected early, late or datafusion)")
-        prefix = {"early": "backbone.", "late": "encoder.", "datafusion": ""}[kind]
-        if f"{prefix}cls_token" not in state:
-            raise ValueError(f"the state_dict does not match the meta's kind {kind!r}: no "
-                             f"{prefix}cls_token")
-        embed_dim = int(state[f"{prefix}cls_token"].shape[-1])
-        depth = sum(1 for k in state if k.startswith(f"{prefix}blocks.")
-                    and k.endswith(".norm1.weight"))
-        if depth == 0:
-            raise ValueError(f"no ViT blocks under {prefix or 'the root'} in the state_dict")
-        common = dict(num_classes=mc.get("num_labels", 3), img_size=mc.get("img_size", 224),
-                      embed_dim=embed_dim, depth=depth,
-                      num_heads=int(mc.get("vit_num_heads") or max(embed_dim // 64, 4)),
-                      device=torch.device("cpu"), generator=torch.Generator().manual_seed(0),
-                      dtype=torch.bfloat16)
+        model, kind = gaze_model(state, meta, torch.bfloat16)
         if kind == "datafusion":
-            model = VisionTransformer(**common)
             # The fused pair's preprocessing is part of the model: replay the
             # trainer's (docs/PARITY.md, "datafusion normalization").
+            mc = meta.get("config", {}).get("model", {})
             kwargs.setdefault("data_fusion_mode", mc.get("data_fusion_mode", "horizontal"))
             kwargs.setdefault("image_norm", mc.get("image_norm", "imagenet"))
-        else:
-            cls_ = EarlyFusionViT if kind == "early" else LateFusionViT
-            model = cls_(fusion_mode=mc.get("fusion_mode", "concat"), **common)
         model.load_state_dict(state, strict=True)
         return cls(model, device=device, **kwargs)
 

@@ -35,21 +35,26 @@ def per_class_metrics(cm: np.ndarray, eps: float = 1e-12) -> Dict[str, np.ndarra
 
 def classification_metrics(labels: np.ndarray, preds: np.ndarray,
                            num_classes: int = 3) -> Dict[str, np.ndarray]:
-    """accuracy + macro/weighted P/R/F1 + confusion matrix + per-class P/R/F1."""
+    """accuracy + macro/weighted P/R/F1 + confusion matrix + per-class P/R/F1.
+
+    Float32 throughout, rounded as XLA rounds the JAX version's: the macro
+    means are the sum times float32(1 / num_classes) (XLA's division by a
+    constant), so equal predictions give equal bits on both sides."""
     cm = confusion_matrix(labels, preds, num_classes)
     pc = per_class_metrics(cm)
     n = cm.sum()
-    accuracy = np.float32(np.trace(cm) / max(n, 1))
+    accuracy = np.float32(np.trace(cm)) / np.float32(max(n, 1))
     support = pc["support"]
-    w = support / max(support.sum(), 1)
+    w = support / np.float32(max(support.sum(), 1))
+    inv = np.float32(1.0 / num_classes)
     out = {
         "accuracy": accuracy,
-        "precision_macro": pc["precision"].mean(),
-        "recall_macro": pc["recall"].mean(),
-        "f1_macro": pc["f1"].mean(),
-        "precision_weighted": (w * pc["precision"]).sum(),
-        "recall_weighted": (w * pc["recall"]).sum(),
-        "f1_weighted": (w * pc["f1"]).sum(),
+        "precision_macro": pc["precision"].sum(dtype=np.float32) * inv,
+        "recall_macro": pc["recall"].sum(dtype=np.float32) * inv,
+        "f1_macro": pc["f1"].sum(dtype=np.float32) * inv,
+        "precision_weighted": (w * pc["precision"]).sum(dtype=np.float32),
+        "recall_weighted": (w * pc["recall"]).sum(dtype=np.float32),
+        "f1_weighted": (w * pc["f1"]).sum(dtype=np.float32),
         "confusion_matrix": cm,
     }
     out.update({f"{k}_per_class": v for k, v in pc.items() if k != "support"})

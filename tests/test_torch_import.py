@@ -1,5 +1,5 @@
-"""Hygiene of the PyTorch port: it imports without jax, pandas and
-matplotlib (and without PIL, which only ``data/images.py``'s
+"""Hygiene of the PyTorch port: it imports without jax, pandas, matplotlib
+and scikit-learn (and without PIL, which only ``data/images.py``'s
 ``load_image`` needs), and its GPU smoke
 script and entry points refuse to run (and report no result) where there
 is no CUDA device, unless asked for the CPU."""
@@ -40,17 +40,21 @@ def test_port_imports_without_jax():
             "eyegaze_tpu_torch.ops.entropy", "eyegaze_tpu_torch.preprocess_eeg_raw",
             "eyegaze_tpu_torch.preprocess_eeg_windows", "eyegaze_tpu_torch.extract_eeg_features",
             "eyegaze_tpu_torch.generate_metadata",
-            "eyegaze_tpu_torch.verify_metadata"} <= set(modules)
+            "eyegaze_tpu_torch.verify_metadata", "eyegaze_tpu_torch.import_torch_checkpoint",
+            "eyegaze_tpu_torch.analysis", "eyegaze_tpu_torch.analysis.eeg_introspect",
+            "eyegaze_tpu_torch.analysis.gaze_introspect", "eyegaze_tpu_torch.analysis.embedding",
+            "eyegaze_tpu_torch.utils.io_csv", "eyegaze_tpu_torch.analyze_eeg"} <= set(modules)
     code = (
         "import importlib, sys\n"
-        "for banned in ('jax', 'flax', 'optax', 'orbax', 'eyegaze_tpu', 'pandas', 'matplotlib'):\n"
+        "for banned in ('jax', 'flax', 'optax', 'orbax', 'eyegaze_tpu', 'pandas', 'matplotlib',\n"
+        "               'sklearn'):\n"
         "    sys.modules[banned] = None  # any import of it now raises ImportError\n"
         "sys.modules['PIL'] = None  # only data/images.py's load_image needs it\n"
         "import eyegaze_tpu_torch\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'eyegaze_tpu',\n"
-        "                                   'pandas', 'matplotlib')\n"
+        "                                   'pandas', 'matplotlib', 'sklearn')\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"
     )
