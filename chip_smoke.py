@@ -116,9 +116,10 @@ none, fails the run.  Then, each phase raising on any failure:
    median step time, peak memory, every loss finite, one K1 launch per
    forward and no attention launch.  Last ``train_dual_eeg.run`` (the
    entry point without its YAML) trains one bf16 epoch on the 96 synthetic
-   trials into a temporary directory, and ``Predictor.from_checkpoint``
-   serves the validation windows from the best_model.pt it wrote: within
-   2**-5 of the largest |logit| of the trainer's own eval logits.
+   trials into a temporary directory with ``--watch 1`` (one more K1
+   launch: the watch's forward), and ``Predictor.from_checkpoint`` serves
+   the validation windows from the best_model.pt it wrote: within 2**-5 of
+   the largest |logit| of the trainer's own eval logits.
 14. ART training parity at full width (``ArtConfig(attn_dropout=0.0)``,
    f32, as ``eyegaze_tpu_torch.train_art`` trains): one dropout-free step at
    batch 2 on the card, through K3 and its autograd Function (18 launches
@@ -268,6 +269,27 @@ none, fails the run.  Then, each phase raising on any failure:
    CLS features within 2e-3, the ViT Grad-CAM equal (zero on both: only
    the CLS token of the last block's output reaches the logits); no kernel
    of the port.
+33. ``analyze_gaze``'s numeric stages (``analyze_gaze.analyze``) at full
+   width: ViT-B/16 early ('concat') and late ('full') fusion at 224 px,
+   weights from seed 0, over the JAX script's synthetic validation set at
+   ``--trials 24``, card against CPU: the logits, probabilities and CLS
+   features within 1e-4, the predictions equal outside the top-two margin
+   and the confusion matrix, per-pair accuracies and mechanism statistics
+   equal where every trial clears it, the saliency maps within 2e-3 of each
+   map's largest entry; each stage's wall time on both; then
+   ``MultiModelComparator``'s ranking and McNemar tests on the two models;
+   no kernel of the port.
+34. ``analyze_entropy``'s EEG file path at the recorded trial shape: 64
+   reference-named CSVs of (32, 3250) (28 pairs, the three conditions)
+   through ``analyze_eeg_entropy_files`` at fs 250 and the 0.5-50 Hz band,
+   card against CPU: the spectral entropies within 1e-4 (and each device's
+   gap from a float64 scipy reference printed); the card's trials per
+   second, the CSV parse share and the run's peak memory (one chunk); then
+   ``compute_real_entropy`` at ``--trials 30`` on both (within 3e-4, its
+   T = 1024 filter's float32 gap twice); then phase 13's
+   ``--watch 1`` history read back by ``LearningCurveAnalyzer`` and
+   ``WatchAnalyzer``: the best epoch's metric is the trainer's
+   best_metric, every watched layer's norms finite; no kernel of the port.
 
 Every phase runs in float32 (TF32 off) unless it says bf16.  There is no
 CPU fallback: without a CUDA device the script exits non-zero and prints no
@@ -595,6 +617,35 @@ ANALYSIS_NUDGE_DRAWS = 4
 # each map's largest entry; the CLS features at the cross-device bound.
 GAZE_INTROSPECT_PAIRS = 2
 GAZE_MAP_SHARE = 2e-3
+# analyze_gaze's numeric stages at full width (phase 33): the JAX script's
+# synthetic validation set at --trials 24 through ViT-B/16 early and late
+# fusion, weights from seed 0 (analyze_gaze.build_model), card vs CPU, f32
+# both.  The logits, probabilities and CLS features are held at
+# GAZE_ANALYSIS_TOL: phase 32 measures the CLS features about 5e-6 apart,
+# and a logit is a weighted sum of them through the head.  The
+# predictions and every table built from them must be equal wherever every
+# trial's top-two logit margin on the card exceeds 3 x GAZE_ANALYSIS_TOL
+# (tests/test_torch_analyze_eeg.py's rule); saliency at GAZE_MAP_SHARE of
+# each map's largest entry, as in phase 32.
+GAZE_ANALYSIS_TRIALS = 24
+GAZE_ANALYSIS_MODELS = (("early", "concat"), ("late", "full"))
+GAZE_ANALYSIS_TOL = 1e-4
+# analyze_entropy's EEG file path at the recorded trial shape (phase 34): 64
+# reference-named CSVs of (32, 3250) (32 synthetic trials x 2 players),
+# fs 250, the default 0.5-50 Hz band, card vs CPU.  A float32 filtfilt,
+# Welch and entropy on each device: the spectral entropies are held at
+# twice the gap of each device's entropies from a float64 filtfilt and
+# Welch (scipy), which tests/test_torch_analyze_entropy_synthetic.py bounds
+# at 5e-5 for T = 3250 (ENTROPY_TOL; the phase prints both devices' gaps
+# from it) and 1.5e-4 for compute_real_entropy's T = 1024
+# (ENTROPY_SYNTHETIC_TOL).  Its spatial entropies at ENTROPY_SPATIAL_RTOL,
+# the cross-framework bound of tests/test_torch_entropy.py.
+ENTROPY_TRIALS = 32
+ENTROPY_FS = 250.0
+ENTROPY_TOL = 1e-4
+ENTROPY_SYNTHETIC_TOL = 3e-4
+ENTROPY_SPATIAL_RTOL = 1e-5
+ENTROPY_SYNTHETIC_TRIALS = 30
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12     # float32 on the CUDA cores
 BF16_OPS_PER_S = 989e12   # bf16 on the tensor cores
@@ -1658,28 +1709,36 @@ def train_timed_phase(device, dtype) -> dict:
     return {**t, "launches": launches, "parameters": n_params}
 
 
-def train_serve_phase(device, tmp: Path) -> int:
+def train_serve_phase(device, tmp: Path) -> tuple[int, dict]:
     """``train_dual_eeg.run`` (``main`` without its YAML) at full width
-    for one epoch on the synthetic fixtures, bf16 as the YAML trains, into
-    ``tmp``; then ``Predictor.from_checkpoint`` serves the validation
-    windows from the best_model.pt it wrote, on the card.  Its logits must
-    be the trainer's own eval logits within 2**-5 of the largest |logit|.
-    Returns K1's launches in the training run."""
+    for one epoch on the synthetic fixtures, bf16 as the YAML trains, with
+    ``--watch 1``, into ``tmp``; then ``Predictor.from_checkpoint`` serves
+    the validation windows from the best_model.pt it wrote, on the card.
+    Its logits must be the trainer's own eval logits within 2**-5 of the
+    largest |logit|.  Returns K1's launches in the training run and the run's
+    history as ``LearningCurveAnalyzer`` and ``WatchAnalyzer`` read it back
+    from its RunLogger JSONL and watch sidecar, beside the trainer's
+    ``best_metric`` (phase 34 checks them)."""
     from eyegaze_tpu_torch import train_dual_eeg
+    from eyegaze_tpu_torch.analysis.learning_curves import LearningCurveAnalyzer, WatchAnalyzer
     from eyegaze_tpu_torch.serving import Predictor
 
     cfg = flagship_train_config(tmp / "train")
     reset_k1_count()
     t0 = time.perf_counter()
-    result = train_dual_eeg.run(cfg, device=device)
+    result = train_dual_eeg.run(cfg, device=device, watch=1)
     run_s = time.perf_counter() - t0
     launches = k1_count()
     trainer = result["trainer"]
+    jsonl = Path(cfg.training.output_dir) / f"{cfg.wandb.run_name}.jsonl"
+    history = {"curves": LearningCurveAnalyzer.from_jsonl(jsonl),
+               "watch": WatchAnalyzer.for_run(jsonl), "best_metric": result["best_metric"]}
     _, val = train_dual_eeg.prepare_datasets(cfg)
     eval_batches = math.ceil(len(val) / min(TRAIN_BATCH, len(val)))
-    if launches != trainer.optimizer.count + eval_batches:
-        raise RuntimeError(f"{trainer.optimizer.count} train steps and {eval_batches} eval "
-                           f"batches launched K1 {launches} times")
+    # The watch takes one more forward and backward on the epoch's last batch.
+    if launches != trainer.optimizer.count + eval_batches + 1:
+        raise RuntimeError(f"{trainer.optimizer.count} train steps, {eval_batches} eval "
+                           f"batches and the watch launched K1 {launches} times")
     path = Path(cfg.training.output_dir) / "checkpoints" / "best_model.pt"
     pred = Predictor.from_checkpoint(path, device=device, batch_buckets=BUCKETS)
     windows_ = val.batch(list(range(len(val))))
@@ -1687,14 +1746,14 @@ def train_serve_phase(device, tmp: Path) -> int:
     want = trainer.eval_logits
     gap = float(np.abs(logits - want).max())
     tol = LOGIT_BF16_TOL_SHARE * float(np.abs(want).max())
-    print(f"train_dual_eeg, 1 epoch at full width on {len(val)} validation windows: "
+    print(f"train_dual_eeg --watch 1, 1 epoch at full width on {len(val)} validation windows: "
           f"{trainer.optimizer.count} step(s) of {TRAIN_BATCH}, {eval_batches} eval batch(es), "
-          f"{launches} K1 launches, {run_s:.2f} s; best_model.pt served by "
+          f"the watch's step, {launches} K1 launches, {run_s:.2f} s; best_model.pt served by "
           f"Predictor.from_checkpoint (bf16): max |logits - the trainer's eval logits| "
           f"{gap:.3e} (tolerance {tol:.3e}, 2**-5 of the largest |logit|)")
     if not (logits.shape == want.shape and gap <= tol):
         raise RuntimeError(f"the served checkpoint's logits differ from training's: {gap:.3e}")
-    return launches
+    return launches, history
 
 
 def reset_backward_count() -> None:
@@ -3758,6 +3817,239 @@ def gaze_introspect_phase(device) -> dict:
             "cls_gap": cls_gap}
 
 
+def mechanism_key(numbers: dict) -> str:
+    """The mechanism statistics of ``analyze_gaze.analyze`` as text, NaN
+    included, for an exact comparison."""
+    return json.dumps(numbers["mechanism"], sort_keys=True)
+
+
+def gaze_analysis_phase(device) -> dict:
+    """Phase 33: ``analyze_gaze.analyze``, the numeric part of
+    ``python -m eyegaze_tpu_torch.analyze_gaze``, on ViT-B/16 early
+    ('concat') and late ('full') fusion at 224 px, weights from seed 0, over
+    the JAX script's synthetic validation set at ``--trials 24``: on the card
+    (after one untimed run) and on the CPU, the same model moved between
+    them.  The logits, probabilities and CLS features within
+    GAZE_ANALYSIS_TOL; the predictions equal on every trial whose top-two
+    margin on the card exceeds 3 x GAZE_ANALYSIS_TOL, and the confusion
+    matrix, per-pair accuracies and mechanism statistics equal where every
+    trial's does; the early model's saliency maps within GAZE_MAP_SHARE of
+    each map's largest entry.  Then ``MultiModelComparator``'s ranking and
+    pairwise tests (scipy) on the two models' card results, against the
+    CPU's.  No kernel of the port runs."""
+    from eyegaze_tpu_torch import analyze_gaze
+    from eyegaze_tpu_torch.analysis import ModelResults, MultiModelComparator
+
+    cpu = torch.device("cpu")
+    val = analyze_gaze.validation_set(GAZE_ANALYSIS_TRIALS, tiny=False)
+    reset_attention_counts()
+    reset_k1_count()
+    out, results = {}, {"card": [], "cpu": []}
+    for kind, mode in GAZE_ANALYSIS_MODELS:
+        name = f"{kind}_{mode}"
+        model = analyze_gaze.build_model(kind, mode, tiny=False).eval()
+        n_params = sum(p.numel() for p in model.parameters())
+        analyze_gaze.analyze(model, kind, val, device)  # warm
+        card = analyze_gaze.analyze(model, kind, val, device)
+        host = analyze_gaze.analyze(model, kind, val, cpu)
+        del model
+        gaps = {k: float(np.abs(card[k] - host[k]).max())
+                for k in ("logits", "probs", "features")}
+        if not all(g <= GAZE_ANALYSIS_TOL for g in gaps.values()):
+            raise RuntimeError(f"analyze_gaze {name}, card vs CPU: {gaps}")
+        top2 = np.sort(card["logits"], axis=-1)
+        clear = top2[:, -1] - top2[:, -2] > 3 * GAZE_ANALYSIS_TOL
+        if not np.array_equal(card["preds"][clear], host["preds"][clear]):
+            raise RuntimeError(f"analyze_gaze {name}: predictions differ outside the margin")
+        if clear.all() and not (
+                np.array_equal(card["metrics"]["confusion_matrix"],
+                               host["metrics"]["confusion_matrix"])
+                and card["per_pair"] == host["per_pair"]
+                and mechanism_key(card) == mechanism_key(host)):
+            raise RuntimeError(f"analyze_gaze {name}: the tables differ with every trial clear")
+        if "saliency" in card:
+            for g, w in zip(card["saliency"], host["saliency"]):
+                scale = float(np.abs(w).max())
+                gap = float(np.abs(g - w).max())
+                if not (scale > 0 and gap <= GAZE_MAP_SHARE * scale):
+                    raise RuntimeError(f"analyze_gaze {name} saliency: {gap:.3e}, max {scale:.3e}")
+                gaps["saliency_share"] = max(gaps.get("saliency_share", 0.0), gap / scale)
+        for where, n in (("card", card), ("cpu", host)):
+            results[where].append(ModelResults(name, n["labels"], n["preds"], n["probs"]))
+        out[name] = {"parameters": n_params, "card_s": card["seconds"], "cpu_s": host["seconds"],
+                     "gaps": gaps, "inside_margin": int((~clear).sum()),
+                     "accuracy": float(card["metrics"]["accuracy"])}
+        print(f"analyze_gaze numbers, ViT-B/16 {name} ({n_params:,} parameters), "
+              f"{GAZE_ANALYSIS_TRIALS} trials: stage wall s card / CPU "
+              + ", ".join(f"{k} {v:.3f} / {host['seconds'][k]:.3f}"
+                          for k, v in card["seconds"].items())
+              + "; card vs CPU " + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+              + f"; trials inside the margin {int((~clear).sum())} of {len(clear)}; accuracy "
+              f"{float(card['metrics']['accuracy']):.4f}")
+    assert_no_port_kernel("analyze_gaze")
+    comps = {where: MultiModelComparator(r) for where, r in results.items()}
+    ranking = comps["card"].ranking()
+    pairwise = comps["card"].pairwise_rows()
+    every_clear = not any(o["inside_margin"] for o in out.values())
+    if every_clear and (ranking != comps["cpu"].ranking()
+                        or pairwise != comps["cpu"].pairwise_rows()):
+        raise RuntimeError("MultiModelComparator: the card's ranking or tests differ from the "
+                           "CPU's")
+    print(f"MultiModelComparator on the card's results: ranking by f1_macro {ranking}; "
+          f"pairwise McNemar tests {pairwise}"
+          + ("; equal to the CPU's" if every_clear else "; a trial inside the margin: not "
+             "compared with the CPU's"))
+    return {"models": out, "ranking": ranking, "pairwise": pairwise}
+
+
+def entropy_csvs(root: Path) -> Path:
+    """ENTROPY_TRIALS synthetic trial pairs at the recorded shape (32,
+    3250), fs 250, written as reference-named EEG CSVs (``%.5f``), one per
+    player: the JAX script's three filename conventions, 28 pairs, the
+    three conditions."""
+    from eyegaze_tpu_torch.analyze_entropy import parse_eeg_filename
+    from eyegaze_tpu_torch.data.synthetic import synthetic_eeg_pair_dataset
+
+    data = synthetic_eeg_pair_dataset(n=ENTROPY_TRIALS, C=CHANNELS, T=3250, fs=ENTROPY_FS,
+                                      seed=34)
+    d = root / "eeg_csv"
+    d.mkdir()
+    for i in range(ENTROPY_TRIALS):
+        pair, trial, label = int(data["pair"][i]), i + 1, int(data["label"][i])
+        if label == 0:
+            stems = [f"Pair-{pair}-A-Single-EYE_trial{trial}_player",
+                     f"Pair-{pair}-B-Single-EYE_trial{trial}_observer"]
+        else:
+            tag = "Comp" if label == 1 else "Coop"
+            stems = [f"Pair-{pair}-{tag}-EYE_trial{trial}_player{ab}" for ab in "AB"]
+        for stem, x in zip(stems, (data["eeg1"][i], data["eeg2"][i])):
+            if parse_eeg_filename(f"{stem}.csv") is None:
+                raise RuntimeError(f"{stem}.csv is not a reference EEG file name")
+            np.savetxt(d / f"{stem}.csv", x, delimiter=",", fmt="%.5f")
+    return d
+
+
+def float64_spectral_entropy(x: np.ndarray, fs: float) -> np.ndarray:
+    """``ops/entropy.spectral_entropy`` in float64 with scipy: Butterworth
+    order 4 filtfilt over 0.5-50 Hz, Welch (nperseg 256), the entropy of
+    each channel's PSD."""
+    from scipy import signal
+
+    b, a = signal.butter(4, [0.5, 50.0], btype="band", fs=fs)
+    _, psd = signal.welch(signal.filtfilt(b, a, x.astype(np.float64), axis=-1), fs=fs,
+                          nperseg=256, axis=-1)
+    p = np.abs(psd) + 1e-10
+    p = p / p.sum(-1, keepdims=True)
+    return -(p * np.log(p)).sum(-1) / np.log(2)
+
+
+def entropy_phase(device, tmp: Path, train_history: dict) -> dict:
+    """Phase 34: ``analyze_entropy.analyze_eeg_entropy_files`` over
+    ``entropy_csvs``' 64 files at fs 250 and the default band, on the card
+    (after one untimed run) and on the CPU: the records' keys equal, the
+    per-channel spectral entropies within ENTROPY_TOL; the card's trials per
+    second (the faster of two runs), the CSV parse share of that wall time
+    (the faster of two parses alone, as the function parses: the JAX
+    script's zeroed (40, 65536) buffer a file; warm in the file cache) and
+    the peak memory of the runs above what was allocated before them, one
+    chunk each (``_chunk_size`` puts 769 trials of (32, 3250) in one).  Then ``compute_real_entropy`` at
+    ``--trials 30`` on both devices (spectral entropies at
+    ENTROPY_SYNTHETIC_TOL, spatial at ENTROPY_SPATIAL_RTOL).  Then the
+    history of phase 13's ``train_dual_eeg --watch 1`` run read back: the
+    best epoch's val/f1_macro is the trainer's best_metric, every watched
+    layer's norms finite.  No kernel of the port runs."""
+    from eyegaze_tpu_torch import analyze_entropy
+    from eyegaze_tpu_torch.analysis import STANDARD_32_CHANNELS
+    from eyegaze_tpu_torch.data.native import load_csv_f32
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    files = analyze_entropy.scan_eeg_files(entropy_csvs(tmp))
+    write_s = time.perf_counter() - t0
+    if len(files) != 2 * ENTROPY_TRIALS:
+        raise RuntimeError(f"{len(files)} EEG files parsed by name")
+    reset_attention_counts()
+    reset_k1_count()
+    analyze_entropy.analyze_eeg_entropy_files(files, ENTROPY_FS, device=device)  # warm
+    torch.cuda.reset_peak_memory_stats(device)
+    held = torch.cuda.memory_allocated(device)  # what earlier phases still hold
+    card_s = parse_s = math.inf
+    for _ in range(2):  # the faster of two runs, and of two parses alone
+        t0 = time.perf_counter()
+        card_rows = analyze_entropy.analyze_eeg_entropy_files(files, ENTROPY_FS, device=device)
+        card_s = min(card_s, time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        # Copied out of each file's buffer as the function copies, so that
+        # the 10.5-MB buffer is freed and reused, not held for all 64.
+        raw = np.stack([load_csv_f32(f["filepath"], max_rows=CHANNELS + 8, max_cols=65536)[0]
+                        [:CHANNELS, :3250].copy() for f in files])
+        parse_s = min(parse_s, time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(device) - held
+    t0 = time.perf_counter()
+    cpu_rows = analyze_entropy.analyze_eeg_entropy_files(files, ENTROPY_FS, device=cpu)
+    cpu_s = time.perf_counter() - t0
+    keys = ("pair_id", "player", "trial_idx", "condition")
+    if [[r[k] for k in keys] for r in card_rows] != [[r[k] for k in keys] for r in cpu_rows]:
+        raise RuntimeError("analyze_eeg_entropy_files: the card's records differ in their keys")
+    card_ent, cpu_ent = (np.asarray([[r[c] for c in STANDARD_32_CHANNELS] for r in rows])
+                         for rows in (card_rows, cpu_rows))
+    gap = float(np.abs(card_ent - cpu_ent).max())
+    ref = float64_spectral_entropy(raw, ENTROPY_FS)
+    ref_gaps = {"card": float(np.abs(card_ent - ref).max()),
+                "cpu": float(np.abs(cpu_ent - ref).max())}
+    if card_ent.shape != (2 * ENTROPY_TRIALS, CHANNELS) or not gap <= ENTROPY_TOL:
+        raise RuntimeError(f"spectral entropies card vs CPU {gap:.3e}")
+    conditions = sorted({r["condition"] for r in card_rows})
+    pairs = len({r["pair_id"] for r in card_rows})
+    print(f"analyze_eeg_entropy_files on {len(files)} CSVs of ({CHANNELS}, 3250), fs "
+          f"{ENTROPY_FS:g}, {pairs} pairs, {conditions} (written in {write_s:.2f} s): card "
+          f"{card_s:.3f} s, {len(files) / card_s:.1f} trials/s, CSV parse {parse_s:.3f} s "
+          f"({parse_s / card_s:.1%} of the card's wall time, warm file cache), peak memory "
+          f"{peak / 2**20:.1f} MiB for its one chunk (above the {held / 2**20:.1f} MiB held "
+          f"before); CPU {cpu_s:.3f} s; card vs CPU "
+          f"{gap:.3e} (bound {ENTROPY_TOL:g}); against float64 (scipy) card "
+          f"{ref_gaps['card']:.3e}, CPU {ref_gaps['cpu']:.3e}")
+
+    synth = {}
+    for where in (device, cpu):
+        t0 = time.perf_counter()
+        gaze, eeg = analyze_entropy.compute_real_entropy(ENTROPY_SYNTHETIC_TRIALS, 256.0,
+                                                         device=where)
+        synth[where.type] = (gaze, eeg, time.perf_counter() - t0)
+    (g_card, e_card, s_card), (g_cpu, e_cpu, s_cpu) = synth["cuda"], synth["cpu"]
+    e_gap = max(float(np.abs(np.asarray(e_card[c]) - np.asarray(e_cpu[c])).max())
+                for c in ("mean_entropy", *STANDARD_32_CHANNELS))
+    s_rel = float((np.abs(g_card["spatial_entropy"] - g_cpu["spatial_entropy"])
+                   / np.abs(g_cpu["spatial_entropy"])).max())
+    if not (e_gap <= ENTROPY_SYNTHETIC_TOL and s_rel <= ENTROPY_SPATIAL_RTOL):
+        raise RuntimeError(f"compute_real_entropy card vs CPU: spectral {e_gap:.3e}, spatial "
+                           f"relative {s_rel:.3e}")
+    assert_no_port_kernel("analyze_entropy")
+    print(f"compute_real_entropy at --trials {ENTROPY_SYNTHETIC_TRIALS}: card {s_card:.3f} s, "
+          f"CPU {s_cpu:.3f} s; spectral card vs CPU {e_gap:.3e} (bound "
+          f"{ENTROPY_SYNTHETIC_TOL:g}), spatial relative {s_rel:.3e}")
+
+    curves, watch = train_history["curves"], train_history["watch"]
+    best = curves.best_epoch("val/f1_macro")
+    norms = {kind: watch.norm_table(kind) for kind in ("param", "grad")}
+    if best is None or best["val/f1_macro"] != train_history["best_metric"]:
+        raise RuntimeError(f"best epoch {best} against best_metric "
+                           f"{train_history['best_metric']}")
+    if not (norms["param"] and norms["grad"] and all(
+            len(v) == len(watch.records) and np.isfinite(v).all()
+            for table in norms.values() for v in table.values())):
+        raise RuntimeError("the watch sidecar holds a layer without finite norms")
+    print(f"train_dual_eeg --watch 1 history read back: best epoch {best} = best_metric; "
+          f"{len(watch.records)} watch record(s), {len(norms['param'])} parameter and "
+          f"{len(norms['grad'])} gradient layers, every norm finite; health screen "
+          f"{watch.vanishing_or_exploding() or 'clean'}")
+    return {"files": len(files), "card_s": card_s, "cpu_s": cpu_s,
+            "trials_per_s": len(files) / card_s, "parse_share": parse_s / card_s,
+            "peak_mib": peak / 2**20, "gap": gap, "float64_gaps": ref_gaps,
+            "synthetic": {"card_s": s_card, "cpu_s": s_cpu, "spectral_gap": e_gap,
+                          "spatial_rel": s_rel}}
+
+
 def assert_no_spill(report: str, kernel: str) -> None:
     """Raises if nvcc's ptxas report shows a spill in an instance of a
     kernel whose name holds ``kernel`` (an empty report, from a library
@@ -3926,7 +4218,7 @@ def main() -> None:
     train_parity_phase(device)
     train = {dt: train_timed_phase(device, dt) for dt in (torch.bfloat16, torch.float32)}
     with tempfile.TemporaryDirectory() as tmp:
-        k1_train_serve_launches = train_serve_phase(device, Path(tmp))
+        k1_train_serve_launches, train_history = train_serve_phase(device, Path(tmp))
     if any(attention.launch_count.values()):
         raise RuntimeError("flagship training launched the attention kernel")
     bf16, f32 = train[torch.bfloat16], train[torch.float32]
@@ -3983,6 +4275,9 @@ def main() -> None:
         imported = import_phase(device, Path(tmp))
         analysis = analyze_phase(device, Path(tmp), imported["flagship"])
     gaze_introspection = gaze_introspect_phase(device)
+    gaze_analysis_phase(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        entropy_phase(device, Path(tmp), train_history)
     print("offline EEG features at (32, 3250), trials/s end to end: "
           + ", ".join(f"chunk {c} {o['trials_per_s']:.2f} ({o['kernels_per_chunk']:.0f} kernels "
                       f"a chunk, busy {o['busy_share']:.1%}, {o['device_ms_per_chunk']:.3f} ms "

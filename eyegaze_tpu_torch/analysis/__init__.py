@@ -1,7 +1,9 @@
-"""Analysis layer: model introspection and embeddings (the port of
-``eyegaze_tpu/analysis``'s introspection and embedding modules; the error
-analysis, comparison, learning curves and figures are not ported yet)."""
+"""Analysis layer: model introspection, embeddings, error analysis,
+comparison, learning curves and the MATLAB figure suites (the port of
+``eyegaze_tpu/analysis``).  The numbers need neither pandas nor matplotlib;
+the tables and figures import them at their first use."""
 
+from eyegaze_tpu_torch.analysis.comparison import ModelResults, MultiModelComparator
 from eyegaze_tpu_torch.analysis.eeg_introspect import (
     BAND_NAMES,
     CHANNEL_POSITIONS_2D,
@@ -15,9 +17,19 @@ from eyegaze_tpu_torch.analysis.eeg_introspect import (
     run_inference,
 )
 from eyegaze_tpu_torch.analysis.embedding import pca_embed, tsne_embed, umap_embed
+from eyegaze_tpu_torch.analysis.error_analysis import ErrorAnalyzer, MechanismAnalyzer
 from eyegaze_tpu_torch.analysis.gaze_introspect import (
     denormalize_image,
     extract_cls_features,
     input_saliency,
     vit_gradcam,
+)
+from eyegaze_tpu_torch.analysis.learning_curves import LearningCurveAnalyzer
+from eyegaze_tpu_torch.analysis.matlab_parity import (
+    render_all_suites,
+    render_attention_suite,
+    render_entropy_suite,
+    render_frequency_sensitivity_bar,
+    render_gradcam_suite,
+    render_ibs_suite,
 )

@@ -18,8 +18,11 @@ pairs and the validation split of the JAX script.
 It runs on the CUDA card unless ``--device cpu`` asks for the CPU, in full
 float32 (TF32 off).  Every analysed forward launches K1 once on the card.
 The embedding stage needs scikit-learn, which the card's host may lack; it
-then stops with an ``ImportError`` naming it.  ``--render-figures`` is
-refused: the figure suites are not ported yet.
+then stops with an ``ImportError`` naming it.  ``--render-figures`` renders
+the MATLAB figure suites and the grouped frequency-sensitivity bar from the
+CSVs (``analysis/matlab_parity``) after every number has been computed and
+written; it needs pandas and matplotlib, and stops with an ``ImportError``
+naming the one that is missing.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -41,6 +45,8 @@ from eyegaze_tpu_torch.analysis import (
     extract_ibs_matrices,
     frequency_sensitivity,
     gradcam_spectrogram,
+    render_all_suites,
+    render_frequency_sensitivity_bar,
     run_inference,
     tsne_embed,
     umap_embed,
@@ -131,7 +137,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--num-heads", type=int, default=8)
     ap.add_argument("--d-ff", type=int, default=1024)
     ap.add_argument("--render-figures", action="store_true",
-                    help="refused: the MATLAB figure suites are not ported yet")
+                    help="after exporting CSVs, render the MATLAB figure "
+                         "suites natively (analysis/matlab_parity.py)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default the CUDA card; 'cpu' must be asked for)")
     return ap.parse_args(argv)
@@ -140,10 +147,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 def run(args) -> dict:
     """Runs the analyses; returns {'stages': {name: {'seconds', 'forwards'}},
     'planned': planned_forwards(...), 'batches': int}."""
-    if args.render_figures:
-        raise SystemExit("--render-figures is not ported to eyegaze_tpu_torch yet (ROADMAP.md "
-                         "section 1, item 2c, the figures); the CSVs this run writes are what "
-                         "the figure suites read")
     device = resolve_device(args.device, "eyegaze_tpu_torch.analyze_eeg")
     analyses = ALL_ANALYSES if args.analyses == "all" else tuple(args.analyses.split(","))
     unknown = sorted(set(analyses) - set(ALL_ANALYSES))
@@ -277,6 +280,20 @@ def _run(args, analyses, device: torch.device) -> dict:
         io_csv.save_gradcam_metadata(freq_axis, time_axis, dirs["gradcam"] / "gradcam_metadata.csv",
                                      int(args.fs))
         done("gradcam")
+
+    if args.render_figures:
+        print("[analyze_eeg] rendering MATLAB figure suites natively")
+        rendered = render_all_suites(args.output_dir,
+                                     Path(args.output_dir) / "figures")
+        for suite, artifacts in rendered.items():
+            print(f"[analyze_eeg]   {suite}: {len(artifacts)} artifacts")
+        band_csv = dirs["frequency_sensitivity"] / "band_sensitivity.csv"
+        if band_csv.exists():  # analyze_eeg.m:269-341 grouped-bar figure
+            render_frequency_sensitivity_bar(
+                band_csv, Path(args.output_dir) / "figures" /
+                "freq_sensitivity_grouped_bar.png")
+            print("[analyze_eeg]   frequency_sensitivity: 1 artifact")
+        done("figures")
 
     print(f"[analyze_eeg] done -> {args.output_dir}")
     return {"stages": stages, "planned": plan, "batches": len(batch_labels)}

@@ -22,7 +22,10 @@ the JAX compiles over the lane's workers):
   compared as floats, and the test reports it;
 - the probabilities, the AUCs and the t-SNE files' label columns as floats
   at ``TOL`` (the coordinates of two t-SNE runs on features 2e-3 apart are
-  not compared).
+  not compared);
+- both runs render their figures (``--render-figures``): the same figure
+  files, here the grouped frequency-sensitivity bar (the suites: in
+  tests/test_torch_analyze_eeg_maps.py).
 """
 
 import csv
@@ -95,17 +98,17 @@ def checkpoint(tmp: Path) -> tuple[Path, Path]:
 
 
 def run_both(analyses: str, tmp: Path) -> tuple[Path, Path, dict]:
-    """Both CLIs with ``--analyses analyses`` on the one checkpoint: (JAX's
-    output dir, the port's, the port's run summary)."""
+    """Both CLIs with ``--analyses analyses --render-figures`` on the one
+    checkpoint: (JAX's output dir, the port's, the port's run summary)."""
     if analyses in _RUNS:
         return _RUNS[analyses]
     ckpt, pt = checkpoint(tmp)
     want, got = tmp / f"jax_{analyses}", tmp / f"port_{analyses}"
     assert _script("analyze_eeg").main(FLAGS + ["--checkpoint", str(ckpt), "--analyses", analyses,
-                                                "--output-dir", str(want)]) == 0
+                                                "--render-figures", "--output-dir", str(want)]) == 0
     summary = analyze_eeg.run(analyze_eeg.parse_args(
-        FLAGS + ["--checkpoint", str(pt), "--analyses", analyses, "--output-dir", str(got),
-                 "--device", "cpu"]))
+        FLAGS + ["--checkpoint", str(pt), "--analyses", analyses, "--render-figures",
+                 "--output-dir", str(got), "--device", "cpu"]))
     _RUNS[analyses] = want, got, summary
     return _RUNS[analyses]
 
@@ -207,11 +210,38 @@ def test_probabilities_aucs_and_embedding_labels(stage_runs):
         assert all(np.isfinite(np.float64(r[3:])).all() for r in g[1:])
 
 
+def test_figures_are_the_jax_scripts(stage_runs):
+    want, got, summary = stage_runs
+    figures = [p for p in tree(got) if p.startswith("figures")]
+    assert figures == [p for p in tree(want) if p.startswith("figures")]
+    assert "figures/freq_sensitivity_grouped_bar.png" in figures
+    # The tree holds no stage a suite reads: every suite comes back empty.
+    assert not [p for p in figures if p.endswith("_native/")]
+    assert list(summary["stages"]) == ["inference", "metrics", "frequency", "embedding",
+                                       "figures"]
+
+
 def test_render_figures_is_refused(tmp_path):
-    with pytest.raises(SystemExit, match="item 2c"):
-        analyze_eeg.run(analyze_eeg.parse_args(["--render-figures", "--device", "cpu",
-                                                "--output-dir", str(tmp_path / "out")]))
-    assert not (tmp_path / "out").exists()
+    """``--render-figures`` renders the figure suites (against the JAX
+    script's in tests/test_torch_analyze_eeg_figures*.py); where pandas and
+    matplotlib are missing, as on the card's host, it is refused with an
+    ImportError that names pandas, after every number has been computed and
+    its CSV written."""
+    _, pt = checkpoint(tmp_path)
+    out = tmp_path / "out"
+    argv = FLAGS + ["--checkpoint", str(pt), "--analyses", "frequency,ibs", "--render-figures",
+                    "--device", "cpu", "--output-dir", str(out)]
+    code = ("import sys\n"
+            "sys.modules['pandas'] = sys.modules['matplotlib'] = None\n"
+            "from eyegaze_tpu_torch import analyze_eeg\n"
+            f"analyze_eeg.main({argv!r})\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                       timeout=300, env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert r.returncode != 0
+    assert "ImportError" in r.stderr and "needs pandas" in r.stderr
+    assert (out / "frequency_sensitivity" / "band_sensitivity.csv").exists()
+    assert (out / "ibs_connectivity" / "channel_names.csv").exists()
+    assert not list(out.rglob("*.png"))
 
 
 def test_fails_without_cuda_unless_asked_for_the_cpu(tmp_path):

@@ -10,7 +10,11 @@ tests/test_torch_analyze_eeg.py.
   largest entry (a gradient through the whole network,
   tests/test_torch_introspect.py) plus the file's resolution, 1e-6 (two
   values closer than that can print one last digit apart); the
-  attention_summary.csv as floats at 2e-3.
+  attention_summary.csv as floats at 2e-3;
+- both runs render the three MATLAB figure suites (``--render-figures``):
+  the same artifact names, and the derived CSVs held at 2e-3, as the CSVs
+  they are read from are (each derived value a mean of those values or an
+  index into them); the Grad-CAM suite's at the maps' own bound.
 """
 
 import numpy as np
@@ -85,3 +89,29 @@ def test_gradcam_maps_match(stage_runs):
         scale = float(np.abs(w).max())
         assert scale > 0, p
         np.testing.assert_allclose(g, w, rtol=0, atol=CAM_SHARE * scale + 1e-6, err_msg=p)
+
+
+def test_figure_suites_match(stage_runs):
+    want, got, summary = stage_runs
+    figures = [p for p in tree(got) if p.startswith("figures")]
+    assert figures == [p for p in tree(want) if p.startswith("figures")]
+    for suite in ("ibs_connectivity_native/ibs_summary.png",
+                  "attention_weights_native/attention_summary.png",
+                  "gradcam_native/gradcam_summary.png"):
+        assert f"figures/{suite}" in figures
+    assert "figures" in summary["stages"]
+    for p in ("ibs_connectivity_native/ibs_roi_stats.csv",
+              "ibs_connectivity_native/ibs_band_stats.csv",
+              "attention_weights_native/attention_statistics.csv",
+              "attention_weights_native/attention_lag_profile.csv"):
+        assert_rows_close(rows(got / "figures" / p), rows(want / "figures" / p), p)
+    scale = max(float(np.abs(_matrix(want / f"gradcam/gradcam_mean_by_class/gradcam_{c}.csv"))
+                      .max()) for c in CLASSES)
+    for p in ("gradcam_native/gradcam_band_stats.csv",
+              "gradcam_native/gradcam_frequency_profile.csv",
+              "gradcam_native/gradcam_temporal_profile.csv"):
+        g, w = rows(got / "figures" / p), rows(want / "figures" / p)
+        assert g[0] == w[0] and [r[0] for r in g] == [r[0] for r in w], p
+        np.testing.assert_allclose(np.float64([r[1:] for r in g[1:]]),
+                                   np.float64([r[1:] for r in w[1:]]), rtol=0,
+                                   atol=CAM_SHARE * scale + 1e-6, err_msg=p)

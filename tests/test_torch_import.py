@@ -1,6 +1,6 @@
-"""Hygiene of the PyTorch port: it imports without jax, pandas, matplotlib
-and scikit-learn (and without PIL, which only ``data/images.py``'s
-``load_image`` needs), and its GPU smoke
+"""Hygiene of the PyTorch port: it imports without jax, pandas, matplotlib,
+scikit-learn and PIL (the functions that write tables, draw figures, embed
+or decode images import them when called), and its GPU smoke
 script and entry points refuse to run (and report no result) where there
 is no CUDA device, unless asked for the CPU."""
 
@@ -43,13 +43,19 @@ def test_port_imports_without_jax():
             "eyegaze_tpu_torch.verify_metadata", "eyegaze_tpu_torch.import_torch_checkpoint",
             "eyegaze_tpu_torch.analysis", "eyegaze_tpu_torch.analysis.eeg_introspect",
             "eyegaze_tpu_torch.analysis.gaze_introspect", "eyegaze_tpu_torch.analysis.embedding",
-            "eyegaze_tpu_torch.utils.io_csv", "eyegaze_tpu_torch.analyze_eeg"} <= set(modules)
+            "eyegaze_tpu_torch.utils.io_csv", "eyegaze_tpu_torch.analyze_eeg",
+            "eyegaze_tpu_torch.utils.lazy", "eyegaze_tpu_torch.utils.visualizers",
+            "eyegaze_tpu_torch.analysis.error_analysis", "eyegaze_tpu_torch.analysis.comparison",
+            "eyegaze_tpu_torch.analysis.learning_curves",
+            "eyegaze_tpu_torch.analysis.matlab_parity", "eyegaze_tpu_torch.analyze_gaze",
+            "eyegaze_tpu_torch.analyze_entropy", "eyegaze_tpu_torch.render_matlab_figures",
+            "eyegaze_tpu_torch.run_analysis"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "for banned in ('jax', 'flax', 'optax', 'orbax', 'eyegaze_tpu', 'pandas', 'matplotlib',\n"
         "               'sklearn'):\n"
         "    sys.modules[banned] = None  # any import of it now raises ImportError\n"
-        "sys.modules['PIL'] = None  # only data/images.py's load_image needs it\n"
+        "sys.modules['PIL'] = None\n"
         "import eyegaze_tpu_torch\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
