@@ -290,6 +290,21 @@ none, fails the run.  Then, each phase raising on any failure:
    ``--watch 1`` history read back by ``LearningCurveAnalyzer`` and
    ``WatchAnalyzer``: the best epoch's metric is the trainer's
    best_metric, every watched layer's norms finite; no kernel of the port.
+35. The full-scale rehearsal (``python -m
+   eyegaze_tpu_torch.rehearsal_full_scale``), its steps one by one at 448
+   of the dataset's 4,463 trials (32 of the JAX script's 100 CSV trials,
+   16 of its 112 JPG trials, its 64 feature trials): the raw volume, CSVs
+   and 3000 x 1583 JPGs generated, converted, windowed on the card (the
+   pair split's 320 / 128 trials and 9 windows a trial; the first train
+   trials' windows within 1e-3 of the CPU's), features extracted, the
+   flagship trained for one epoch at full width at batch 128 (K1 once per
+   train step and eval batch, counted from a reset; finite losses; its
+   best_model.pt served back) and ViT-B/16 early fusion on the converted
+   images, the entropy numbers of the JPG and CSV trees
+   (``analyze_entropy.compute``: the tables and figures need matplotlib)
+   and ``analyze_eeg --analyses metrics`` on the checkpoint (K1 once per
+   planned forward); no K1-K4 launch in any other step.  Each step's wall
+   seconds and the process's peak RSS after it.
 
 Every phase runs in float32 (TF32 off) unless it says bf16.  There is no
 CPU fallback: without a CUDA device the script exits non-zero and prints no
@@ -301,7 +316,7 @@ exponentials take on the SFU alone (``sfu_ex2_ms``, not a floor).  The
 second-to-last line of stdout is a JSON object with each kernel entry
 point's launches, error, times and bound (K1's launches are serving's,
 training's, the composite's, multimodal training's, the imported
-checkpoints' and the analysis's, with its timing at
+checkpoints', the analysis's and the rehearsal's, with its timing at
 the train shape and the train step's median times and peak memory beside
 them, its time, bound and share at each composite bucket, the
 composite train step's time, memory and K1 launches per step, and the
@@ -646,6 +661,14 @@ ENTROPY_TOL = 1e-4
 ENTROPY_SYNTHETIC_TOL = 3e-4
 ENTROPY_SPATIAL_RTOL = 1e-5
 ENTROPY_SYNTHETIC_TRIALS = 30
+# The full-scale rehearsal (phase 35), cut to fit this script's time: the
+# JAX script's defaults are --trials 4463 --csv-trials 100 --jpg-trials 112
+# (--features-trials 64 stays).  The windows of the first REHEARSAL_CHECKED
+# train trials are held against the CPU's preprocess_and_window.
+REHEARSAL_FLAGS = ["--trials", "448", "--csv-trials", "32", "--jpg-trials", "16",
+                   "--features-trials", "64"]
+REHEARSAL_CHECKED = 4
+REHEARSAL_SERVED = 16  # validation windows served from the trained checkpoint
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12     # float32 on the CUDA cores
 BF16_OPS_PER_S = 989e12   # bf16 on the tensor cores
@@ -4050,6 +4073,108 @@ def entropy_phase(device, tmp: Path, train_history: dict) -> dict:
                           "spatial_rel": s_rel}}
 
 
+def rehearsal_phase(device, tmp: Path) -> dict:
+    """Phase 35: ``rehearsal_full_scale``'s steps one by one at
+    REHEARSAL_FLAGS under ``tmp``, K1's and the attention kernels' counts
+    set to 0 before each: K1 launches once per train step and eval batch in
+    ``train_eeg_full_windows`` and once per planned forward in
+    ``analyze_eeg_ckpt``, and no K1-K4 launch elsewhere.  The
+    ``analyze_entropy`` step's numbers (``analyze_entropy.compute`` on the
+    JPG and CSV trees, as phase 34): its tables and figures need
+    matplotlib, which the card's host lacks.  Checks: the trial and window
+    counts are the pair split's (9 windows a trial), the CSV round trip
+    within 1e-3, the first train trials' windows within WINDOWS_TOL of the
+    CPU's ``preprocess_and_window``, finite losses, a best_model.pt that
+    ``Predictor.from_checkpoint`` serves (finite logits).  Prints each
+    step's wall seconds and the process's peak RSS after it."""
+    from eyegaze_tpu_torch import analyze_entropy
+    from eyegaze_tpu_torch import rehearsal_full_scale as rfs
+    from eyegaze_tpu_torch.preprocess_eeg_windows import preprocess_and_window
+    from eyegaze_tpu_torch.serving import Predictor
+
+    r = rfs.Rehearsal(rfs.parse_args(["--root", str(tmp / "rehearsal"), *REHEARSAL_FLAGS,
+                                      "--device", device.type]))
+    k1 = {}
+    for step in rfs.STEPS:
+        reset_k1_count()
+        reset_attention_counts()
+        if step == "analyze_entropy_real_files":
+            t0 = time.time()
+            args = analyze_entropy.parse_args([str(a) for a in r.entropy_argv()])
+            gaze, eeg, _ = analyze_entropy.compute(args, device)
+            r.report[step] = {"wall_s": time.time() - t0,
+                              "gaze_rows": analyze_entropy.n_rows(gaze),
+                              "eeg_rows": analyze_entropy.n_rows(eeg),
+                              "peak_rss_gib": rfs.peak_rss_gib(), "k1_launches": 0}
+            want = {"gaze_rows": 2 * r.args.jpg_trials, "eeg_rows": 2 * r.args.csv_trials}
+            got = {k: r.report[step][k] for k in want}
+            finite = all(np.isfinite(analyze_entropy.column(table, col)).all()
+                         for table, col in ((gaze, "spatial_entropy"), (eeg, "mean_entropy")))
+            if got != want or not finite:
+                raise RuntimeError(f"analyze_entropy on the rehearsal's files: {got}, "
+                                   f"expected {want}, finite {finite}")
+        else:
+            r.run_step(step)
+        k1[step] = k1_count()
+        if step in rfs.K1_STEPS:
+            reset_k1_count()
+        assert_no_port_kernel(f"the rehearsal's {step}")
+    report = r.report
+    train, analysis = report["train_eeg_full_windows"], report["analyze_eeg_ckpt"]
+    if (k1["train_eeg_full_windows"] != train["train_steps"] + train["eval_batches"]
+            or k1["analyze_eeg_ckpt"] != analysis["forwards"]):
+        raise RuntimeError(f"the rehearsal launched K1 {k1}: {train['train_steps']} train "
+                           f"steps, {train['eval_batches']} eval batches, "
+                           f"{analysis['forwards']} analysed forwards")
+    gen, windows = report["gen_metadata"], report["windows_full"]
+    per_trial = (rfs.T_RAW - rfs.WINDOW) // rfs.STRIDE + 1
+    counts = [gen["train_trials"] * per_trial, gen["val_trials"] * per_trial]
+    if ([windows["train_windows"], windows["val_windows"]] != counts
+            or gen["train_trials"] + gen["val_trials"] != r.args.trials
+            or not report["convert_eeg_csv"]["roundtrip_max_err"] < 1e-3):
+        raise RuntimeError(f"rehearsal counts: {gen}, {windows}, expected windows {counts}")
+
+    pairs = np.load(r.eeg_dir / "pairs.npy")
+    first = np.flatnonzero(~np.isin(pairs, rfs.VAL_PAIRS))[:REHEARSAL_CHECKED]
+    gaps = []
+    for k in (1, 2):
+        raw = np.load(r.eeg_dir / f"eeg{k}.npy", mmap_mode="r")[first]
+        want = preprocess_and_window(raw, rfs.FS, 0.5, 50.0, rfs.WINDOW, rfs.STRIDE,
+                                     device=torch.device("cpu")).reshape(-1, CHANNELS, rfs.WINDOW)
+        got = np.load(r.win_dir / f"train_eeg{k}.npy", mmap_mode="r")[:len(want)]
+        gaps.append(float(np.abs(got - want).max()))
+    if not max(gaps) <= WINDOWS_TOL:
+        raise RuntimeError(f"the rehearsal's first windows, card vs CPU: {gaps}")
+
+    pred = Predictor.from_checkpoint(r.checkpoint, device=device, batch_buckets=BUCKETS)
+    served = [np.array(np.load(r.win_dir / f"val_eeg{k}.npy", mmap_mode="r")[:REHEARSAL_SERVED])
+              for k in (1, 2)]
+    logits = pred.predict(*served)["logits"]
+    if logits.shape != (REHEARSAL_SERVED, 3) or not np.isfinite(logits).all():
+        raise RuntimeError(f"the rehearsal's checkpoint served {logits.shape} logits, finite "
+                           f"{np.isfinite(logits).all()}")
+    features = report["extract_features"]
+    print(f"rehearsal_full_scale at {' '.join(REHEARSAL_FLAGS)}: {gen['train_trials']} / "
+          f"{gen['val_trials']} trials, {windows['train_windows']} / {windows['val_windows']} "
+          f"windows (the pair split's, {per_trial} a trial); CSV round trip "
+          f"{report['convert_eeg_csv']['roundtrip_max_err']:.3e}; the first "
+          f"{REHEARSAL_CHECKED} train trials' windows card vs CPU {max(gaps):.3e} (bound "
+          f"{WINDOWS_TOL:g}); features {features['trials_per_s']:.2f} trials/s; flagship "
+          f"{train['train_steps']} steps at {train['steps_per_s']:.2f} steps/s + "
+          f"{train['eval_batches']} eval batches, losses {train['train_loss']}, K1 "
+          f"{k1['train_eeg_full_windows']} launches; analyze_eeg K1 {k1['analyze_eeg_ckpt']} "
+          f"= the {analysis['forwards']} forwards planned; best_model.pt served "
+          f"{REHEARSAL_SERVED} windows, finite logits; no K1-K4 launch in the other steps")
+    print("rehearsal step wall s (process peak RSS GiB after it): " + ", ".join(
+        f"{step} {report[step]['wall_s']:.3f} ({report[step]['peak_rss_gib']:.2f})"
+        for step in rfs.STEPS))
+    return {"k1_train": k1["train_eeg_full_windows"], "k1_analysis": k1["analyze_eeg_ckpt"],
+            "train_steps": train["train_steps"], "eval_batches": train["eval_batches"],
+            "forwards": analysis["forwards"], "windows_gap": max(gaps),
+            "wall_s": {step: report[step]["wall_s"] for step in rfs.STEPS},
+            "peak_rss_gib": max(report[step]["peak_rss_gib"] for step in rfs.STEPS)}
+
+
 def assert_no_spill(report: str, kernel: str) -> None:
     """Raises if nvcc's ptxas report shows a spill in an instance of a
     kernel whose name holds ``kernel`` (an empty report, from a library
@@ -4278,6 +4403,8 @@ def main() -> None:
     gaze_analysis_phase(device)
     with tempfile.TemporaryDirectory() as tmp:
         entropy_phase(device, Path(tmp), train_history)
+    with tempfile.TemporaryDirectory() as tmp:
+        rehearsal = rehearsal_phase(device, Path(tmp))
     print("offline EEG features at (32, 3250), trials/s end to end: "
           + ", ".join(f"chunk {c} {o['trials_per_s']:.2f} ({o['kernels_per_chunk']:.0f} kernels "
                       f"a chunk, busy {o['busy_share']:.1%}, {o['device_ms_per_chunk']:.3f} ms "
@@ -4332,14 +4459,18 @@ def main() -> None:
         {"name": "pairwise_phase_metrics", "route": "cuda", "source": phase_source,
          "replaces": "eyegaze_tpu/ops/pallas_kernels.py:74",
          "launches": (k1_serving + k1_train + k1_mm_launches + k1_mm_train + imported["k1"]
-                      + analysis["k1"]),
+                      + analysis["k1"] + rehearsal["k1_train"] + rehearsal["k1_analysis"]),
          "path": "EEG serving, f32 and bf16 from a checkpoint; flagship training, bf16 and "
                  "f32 steps and one epoch of train_dual_eeg; the multimodal composite served "
                  "bf16 from a checkpoint, and over HTTP; multimodal training (the f32 parity "
                  "step, bf16 timed and frozen steps, one epoch of train_multimodal and its "
                  "served checkpoint); imported reference checkpoints served (two flagships, "
-                 "the composite); analyze_eeg at full width on the imported flagship",
+                 "the composite); analyze_eeg at full width on the imported flagship; the "
+                 "rehearsal's train_dual_eeg and analyze_eeg steps",
          "launches_import": imported["k1"], "launches_analysis": analysis["k1"],
+         "launches_rehearsal": {"train": rehearsal["k1_train"],
+                                "analysis": rehearsal["k1_analysis"]},
+         "rehearsal": rehearsal,
          "analysis": {"forwards_predicted": analysis["planned"], "batches": analysis["batches"],
                       "stage_s": analysis["stage_s"], "cpu_stage_s": analysis["cpu_stage_s"],
                       "wall_s": analysis["wall_s"], "cpu_wall_s": analysis["cpu_wall_s"],

@@ -41,7 +41,7 @@ class LazyImport:
                 target = importlib.import_module(self._module)
             except ImportError as e:
                 raise ImportError(f"this function needs {package}, which is not installed "
-                                  "here; run it where it is") from e
+                                  "here; run it where it is", name=package) from e
             self._target = getattr(target, self._attr) if self._attr else target
         return self._target
 
