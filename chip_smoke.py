@@ -305,6 +305,23 @@ none, fails the run.  Then, each phase raising on any failure:
    and ``analyze_eeg --analyses metrics`` on the checkpoint (K1 once per
    planned forward); no K1-K4 launch in any other step.  Each step's wall
    seconds and the process's peak RSS after it.
+36. Data parallelism (``eyegaze_tpu_torch.parallel``).  (a) ``train_dual_eeg``'s
+   CLI (its ``main``) at full width, bf16, batch 64, dropout 0, on 240
+   synthetic trials (3 steps and one eval batch), without ``--mesh`` and
+   with ``--mesh dp``: one rank on the one card through NCCL and DDP, K1
+   once per step and eval batch, the epoch's losses within 2e-3 and its
+   gradient norm within 1e-3 relative of the run without; ``--mesh dp2``
+   raises on the one card.  (b, c) Two ranks sharing the card through
+   ``parallel.launch`` with gloo on CUDA tensors, each on its rows of the
+   same global batches as one process: 3 steps of the flagship's bench
+   step (bf16, batch 64, every dropout off, the five loss terms, the IBS
+   alignment and contrastive terms over the global batch) and 3 of bf16
+   ART at attention dropout 0.0 (batch 16); each step's loss and gradient
+   norm and the parameters after the 3 steps held to one process's at
+   ``check_step_parity``'s bounds (ART's loss at its bf16 bound); per rank
+   per step K1 once at N = 192, 18 K3-bf16 launches and 18 launches of
+   K4's one-pass backward.  The step times per rank beside one process's
+   are two ranks sharing one card, not a scale-out rate.
 
 Every phase runs in float32 (TF32 off) unless it says bf16.  There is no
 CPU fallback: without a CUDA device the script exits non-zero and prints no
@@ -316,7 +333,7 @@ exponentials take on the SFU alone (``sfu_ex2_ms``, not a floor).  The
 second-to-last line of stdout is a JSON object with each kernel entry
 point's launches, error, times and bound (K1's launches are serving's,
 training's, the composite's, multimodal training's, the imported
-checkpoints', the analysis's and the rehearsal's, with its timing at
+checkpoints', the analysis's, the rehearsal's and phase 36's, with its timing at
 the train shape and the train step's median times and peak memory beside
 them, its time, bound and share at each composite bucket, the
 composite train step's time, memory and K1 launches per step, and the
@@ -324,10 +341,10 @@ analysis's predicted forwards, stage times and timing at its shapes; the
 f32 head-packed entry's are
 serving's and ART training's, with its backward calls, the ART train
 step's medians and the autograd timing; the bf16 head-packed entry's are
-bf16 serving's, bf16 ART training's and the imported ART's, with that
-step's medians; the
+bf16 serving's, bf16 ART training's, the imported ART's and phase 36's
+ranks', with that step's medians; the
 one-pass backward kernel's, ``flash_attention_bwd``, are bf16 ART
-training's, timed at ART's training shape, each case of the backward phase
+training's and phase 36's ranks', timed at ART's training shape, each case of the backward phase
 beside; the two backward kernels', ``flash_attention_bwd_dkv`` and
 ``flash_attention_bwd_dq``, the flash route's train steps, timed at K4's
 shape and past the one-pass kernel's reach);
@@ -669,6 +686,21 @@ REHEARSAL_FLAGS = ["--trials", "448", "--csv-trials", "32", "--jpg-trials", "16"
                    "--features-trials", "64"]
 REHEARSAL_CHECKED = 4
 REHEARSAL_SERVED = 16  # validation windows served from the trained checkpoint
+# Phase 36, data parallelism: the CLI's run on DP_CLI_TRIALS synthetic
+# trials of one window (192 train windows: 3 steps at batch 64; 48
+# validation windows: one eval batch), and DP_WORLD ranks sharing the one
+# card through gloo for DP_STEPS steps of the flagship and of bf16 ART.
+DP_CLI_TRIALS = 240
+DP_WORLD = 2
+DP_STEPS = 3
+# Two ranks against one process in bf16: the same math, rounded to bf16
+# at other places (the products' shapes differ), as ART's bf16 step
+# against the CPU (ART_BF16_LOSS_RTOL): the losses, the first step's
+# gradient norm and the largest parameter change after the steps within
+# 2**-8 relative.  On the card the first bf16 step's gradient norm was
+# 1.4e-3 apart, past check_step_parity's float32 1e-3, which the float32
+# step is held to.
+DP_BF16_RTOL = 2.0 ** -8
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12     # float32 on the CUDA cores
 BF16_OPS_PER_S = 989e12   # bf16 on the tensor cores
@@ -4175,6 +4207,278 @@ def rehearsal_phase(device, tmp: Path) -> dict:
             "peak_rss_gib": max(report[step]["peak_rss_gib"] for step in rfs.STEPS)}
 
 
+def dp_flagship_yaml(output_dir: Path) -> Path:
+    """The flagship's full-width config (ModelConfig's defaults) for
+    ``train_dual_eeg``'s CLI: DP_CLI_TRIALS synthetic trials of one window
+    each (a fifth held out), batch 64, bf16, dropout 0, the bench's
+    objective, one epoch."""
+    import yaml
+
+    from eyegaze_tpu_torch.train_dual_eeg import BENCH_LOSSES
+
+    cfg = {"data": {"window_size": WINDOW, "stride": STRIDE, "sampling_rate": SAMPLING_RATE,
+                    "synthetic": True, "synthetic_trials": DP_CLI_TRIALS},
+           "training": {"output_dir": str(output_dir), "num_train_epochs": 1,
+                        "per_device_train_batch_size": TRAIN_BATCH,
+                        "per_device_eval_batch_size": TRAIN_BATCH, "learning_rate": TRAIN_LR,
+                        "weight_decay": 0.01, "grad_clip": 1.0, "dropout": 0.0, "bf16": True,
+                        **BENCH_LOSSES},
+           "system": {"seed": 0, "device": "cuda"}}
+    path = output_dir.with_suffix(".yaml")
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def dp_cli_phase(tmp: Path) -> dict:
+    """Phase 36 (a): ``train_dual_eeg``'s CLI (its ``main``) on the flagship
+    at full width, without ``--mesh`` and with ``--mesh dp``: one rank on
+    the one card, through NCCL and DDP, in this process.  The run with the
+    mesh launches K1 once per train step and eval batch; its epoch's losses
+    and gradient norm are the single run's within the flagship's train
+    parity bounds (the same seed, so the same IBS-head dropout masks).
+    ``--mesh dp2`` on the one card raises before anything is built."""
+    from eyegaze_tpu_torch import parallel, train_dual_eeg
+
+    if parallel.mesh_world("dp", "cuda") != 1:
+        raise RuntimeError("phase 36 expects one card")
+    runs = {}
+    for name, mesh in (("one device", []), ("--mesh dp", ["--mesh", "dp"])):
+        path = dp_flagship_yaml(tmp / name.replace(" ", "_").strip("-"))
+        reset_k1_count()
+        t0 = time.perf_counter()
+        result = train_dual_eeg.main(["--config", str(path), "--device", "cuda", *mesh])
+        runs[name] = {"history": result["history"][-1], "k1": k1_count(),
+                      "wall_s": time.perf_counter() - t0}
+    one, mesh = runs["one device"]["history"], runs["--mesh dp"]["history"]
+    n_val = DP_CLI_TRIALS // 5
+    steps, eval_batches = (DP_CLI_TRIALS - n_val) // TRAIN_BATCH, -(-n_val // TRAIN_BATCH)
+    k1 = runs["--mesh dp"]["k1"]
+    losses = sorted(k for k in one if k.startswith("train/loss"))
+    print(f"phase 36 (a), train_dual_eeg --mesh dp (one rank through NCCL and DDP) against "
+          f"the run without --mesh, one bf16 epoch at batch {TRAIN_BATCH}: "
+          + ", ".join(f"{k[6:]} {mesh[k]:.6f} / {one[k]:.6f}" for k in losses)
+          + f", grad_norm {mesh['train/grad_norm']:.6f} / {one['train/grad_norm']:.6f}, val "
+          f"accuracy {mesh['val/accuracy']:.4f} / {one['val/accuracy']:.4f} (bounds: each loss "
+          f"within {LOGIT_TOL}, the grad norm within {PARITY_GRAD_NORM_RTOL} relative); K1 "
+          f"launches {k1} ({steps} steps + {eval_batches} eval batch); wall "
+          f"{runs['--mesh dp']['wall_s']:.2f} / {runs['one device']['wall_s']:.2f} s")
+    if k1 != steps + eval_batches or runs["one device"]["k1"] != k1:
+        raise RuntimeError(f"--mesh dp launched K1 {k1} times, not {steps + eval_batches}")
+    if not (all(abs(mesh[k] - one[k]) <= LOGIT_TOL for k in losses)
+            and abs(mesh["train/grad_norm"] / one["train/grad_norm"] - 1)
+            <= PARITY_GRAD_NORM_RTOL):
+        raise RuntimeError("train_dual_eeg --mesh dp is not the run without --mesh")
+    try:
+        train_dual_eeg.main(["--config", str(dp_flagship_yaml(tmp / "dp2")), "--device", "cuda",
+                             "--mesh", "dp2"])
+    except ValueError as e:
+        print(f"phase 36: --mesh dp2 on the one card raises: {e}")
+    else:
+        raise RuntimeError("--mesh dp2 on one card trained instead of raising")
+    return {"k1": k1, "steps": steps, "eval_batches": eval_batches,
+            "wall_s": runs["--mesh dp"]["wall_s"]}
+
+
+def dp_steps(trainer, batches: list, read=None) -> dict:
+    """``trainer.train_epoch`` on each global batch in turn (one step
+    each), each step timed to a synchronize; ``read()`` after each step
+    gives its launches."""
+    losses, norms, walls, counts = [], [], [], []
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        stats = trainer.train_epoch([batch], i)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(stats["train/loss"])
+        norms.append(stats["train/grad_norm"])
+        if read is not None:
+            counts.append(read())
+    return {"losses": losses, "grad_norms": norms, "walls_ms": walls, "counts": counts,
+            "params": {n: p.detach().float().cpu().clone()
+                       for n, p in trainer.model.named_parameters()}}
+
+
+def dp_trainers(device, mesh):
+    """The flagship (bf16, the bench's objective; "flagship_f32" the same in
+    float32) and ART (bf16, attention dropout 0.0) at full width, every
+    dropout off, each in a ``Trainer`` (``mesh``: its ``use_mesh``) with
+    AdamW at their train LRs."""
+    from eyegaze_tpu_torch import train_art
+    from eyegaze_tpu_torch.train.optim import make_optimizer
+    from eyegaze_tpu_torch.train.trainer import Trainer, TrainerConfig
+    from eyegaze_tpu_torch.train_dual_eeg import build_model, make_objective
+
+    cfg = flagship_train_config(".", dropout=0.0)
+    models = {"flagship": build_model(cfg, device=device, dtype=torch.bfloat16),
+              "flagship_f32": build_model(cfg, device=device),
+              "art": art_train_model(device, 0.0, torch.bfloat16)}
+    flagship_loss = make_objective(cfg)[0]
+    objectives = {"flagship": flagship_loss, "flagship_f32": flagship_loss,
+                  "art": train_art.make_objective(False)[0]}
+    lrs = {"flagship": TRAIN_LR, "flagship_f32": TRAIN_LR, "art": ART_TRAIN_LR}
+    out = {}
+    for name, model in models.items():
+        for m in model.modules():  # the IBS head's fixed 0.3 too
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        out[name] = Trainer(model, make_optimizer(model, lrs[name], 0.01, grad_clip=1.0),
+                            objectives[name], None,
+                            TrainerConfig(use_mesh=mesh, prefetch=0), device=device)
+    return out
+
+
+def dp_batches() -> dict:
+    """DP_STEPS global batches each: the bench's (64, 32, 1024) pairs and
+    ART's 16 noisy -> clean windows, on the host."""
+    from eyegaze_tpu_torch import train_art
+
+    art = train_art.build_dataset(DP_STEPS * ART_TRAIN_BATCH, CHANNELS, WINDOW).arrays
+    return {"flagship": [{k: v.cpu().numpy() for k, v in bench_batch(TRAIN_BATCH, "cpu",
+                                                                     seed=10 + i).items()}
+                         for i in range(DP_STEPS)],
+            "art": [{k: v[i * ART_TRAIN_BATCH:(i + 1) * ART_TRAIN_BATCH] for k, v in art.items()}
+                    for i in range(DP_STEPS)]}
+
+
+def dp_rank(rank, world, device, batches) -> dict:
+    """Phase 36 (b, c) on one rank of the two that share the card through
+    gloo: DP_STEPS bf16 flagship steps, one f32 flagship step (on the first
+    batch), then DP_STEPS ART steps, each rank on its rows of the global
+    batches.  Returns the steps (``dp_steps``), K1's launches and their N,
+    and the attention counts after each ART step."""
+    from eyegaze_tpu_torch.kernels import phase_metrics
+
+    trainers = dp_trainers(device, f"dp{world}")
+    ns = []
+    launch = phase_metrics.phase_metric_sums
+
+    def recording(*args):
+        ns.append(int(args[0].shape[0]))
+        return launch(*args)
+
+    phase_metrics.phase_metric_sums = recording
+    reset_k1_count()
+    flagship = dp_steps(trainers["flagship"], batches["flagship"])
+    flagship["k1"], flagship["k1_n"] = k1_count(), list(ns)
+    reset_k1_count()
+    f32 = dp_steps(trainers["flagship_f32"], batches["flagship"][:1])
+    f32["k1"] = k1_count()
+
+    def read():
+        counts = art_bf16_train_counts()
+        reset_attention_counts()
+        reset_backward_count()
+        return counts
+
+    reset_attention_counts()
+    reset_backward_count()
+    art = dp_steps(trainers["art"], batches["art"], read)
+    return {"flagship": flagship, "flagship_f32": f32, "art": art}
+
+
+def check_dp_parity(name: str, ranks: list, one: dict, lr: float, loss_bound,
+                    rtol: float) -> None:
+    """The two ranks' steps against one process's on the same global
+    batches: each step's loss within ``loss_bound(loss)``; the first step's
+    gradient norm (from the same parameters) within ``rtol``; after the
+    steps, every parameter equal on the ranks, the largest change within
+    ``rtol`` of one process's and every entry within the Adam bound (2 lr +
+    1%) per step.  In float32 ``rtol`` is ``check_step_parity``'s 1e-3; in
+    bf16 it is DP_BF16_RTOL.  The later steps' gradient norms are printed,
+    not bounded: after a step the parameters may differ by the Adam bound,
+    up to 2 lr on an entry whose gradient is rounding noise, which moves a
+    bf16 weight by an ulp and a gradient norm by far more than 1e-3."""
+    if any(not torch.equal(ranks[0]["params"][k], ranks[1]["params"][k])
+           for k in ranks[0]["params"]):
+        raise RuntimeError(f"{name}: the two ranks hold other parameters")
+    got = ranks[0]
+    before = one["before"]
+    step = {k: got["params"][k] - before[k] for k in before}
+    one_step_ = {k: one["params"][k] - before[k] for k in before}
+    largest = max(float(d.abs().max()) for d in step.values())
+    one_largest = max(float(d.abs().max()) for d in one_step_.values())
+    apart = max(float((got["params"][k] - one["params"][k]).abs().max()) for k in before)
+    steps = len(one["losses"])
+    apart_bound = 2 * lr * 1.01 * steps
+    loss_gaps = [abs(a - b) / loss_bound(b) for a, b in zip(got["losses"], one["losses"])]
+    norm_gap = abs(got["grad_norms"][0] / one["grad_norms"][0] - 1) / rtol
+    print(f"{name}, two ranks sharing one card through gloo against one process, "
+          f"{steps} step(s): losses " + ", ".join(
+              f"{a:.6f} / {b:.6f}" for a, b in zip(got["losses"], one["losses"]))
+          + "; grad norms " + ", ".join(
+              f"{a:.6f} / {b:.6f}" for a, b in zip(got["grad_norms"], one["grad_norms"]))
+          + f"; the largest share of a loss bound {max(loss_gaps):.3f}, the first step's share "
+          f"of the grad-norm bound ({rtol:g} relative) {norm_gap:.3f}; the largest parameter "
+          f"change {largest:.6e} / {one_largest:.6e} (bound {rtol:g} relative), entries apart by "
+          f"{apart:.3e} at most (bound {apart_bound:.3e})")
+    if not (max(loss_gaps) <= 1.0 and norm_gap <= 1.0
+            and abs(largest / one_largest - 1) <= rtol and apart <= apart_bound):
+        raise RuntimeError(f"{name}: two ranks are not one process within the bounds")
+
+
+def data_parallel_phase(device, tmp: Path, card: str) -> dict:
+    """Phase 36: data parallelism on the card (a: ``dp_cli_phase``; b, c:
+    ``dp_rank`` on two ranks through ``parallel.launch`` with gloo, against
+    one process on the same global batches, ``check_dp_parity``).  Per rank
+    per step: K1 once at N = 32 x 6 = 192, K3-bf16 18 launches, K4's
+    one-pass backward 18 launches.  Prints the step times beside ``card``
+    (nvidia-smi's name and power limit): two ranks sharing one card, not a
+    scale-out rate."""
+    from eyegaze_tpu_torch import parallel
+
+    t_phase = time.perf_counter()
+    cli = dp_cli_phase(tmp)
+    batches = dp_batches()
+    t0 = time.perf_counter()
+    ranks = parallel.launch(dp_rank, DP_WORLD, batches, device=str(device), backend="gloo")
+    launch_s = time.perf_counter() - t0
+    trainers = dp_trainers(device, False)
+    one = {}
+    for name, trainer in trainers.items():
+        before = {n: p.detach().float().cpu().clone() for n, p in trainer.model.named_parameters()}
+        if name == "art":
+            reset_attention_counts()
+            reset_backward_count()
+        mine = batches["flagship"][:1] if name == "flagship_f32" else batches[name]
+        one[name] = {**dp_steps(trainer, mine), "before": before}
+    check_dp_parity("phase 36 (b), the flagship's bench step in float32 (batch 64, dropout 0)",
+                    [r["flagship_f32"] for r in ranks], one["flagship_f32"], TRAIN_LR,
+                    lambda loss: LOGIT_TOL, PARITY_GRAD_NORM_RTOL)
+    check_dp_parity("phase 36 (b), the flagship's bench step (bf16, batch 64, dropout 0)",
+                    [r["flagship"] for r in ranks], one["flagship"], TRAIN_LR,
+                    lambda loss: DP_BF16_RTOL * abs(loss), DP_BF16_RTOL)
+    check_dp_parity(f"phase 36 (c), ART bf16 at attention dropout 0.0 (batch {ART_TRAIN_BATCH})",
+                    [r["art"] for r in ranks], one["art"], ART_TRAIN_LR,
+                    lambda loss: DP_BF16_RTOL * abs(loss), DP_BF16_RTOL)
+    per_rows = TRAIN_BATCH // DP_WORLD
+    for r, got in enumerate(ranks):
+        f, a = got["flagship"], got["art"]
+        if (f["k1"] != DP_STEPS or f["k1_n"] != [6 * per_rows] * DP_STEPS
+                or got["flagship_f32"]["k1"] != 1):
+            raise RuntimeError(f"rank {r}: K1 launched {f['k1']} times at N {f['k1_n']}")
+        if any(c != (ART_ATTENTION_CALLS,) * 3 for c in a["counts"]):
+            raise RuntimeError(f"rank {r}: ART steps launched (K3-bf16, backward calls, "
+                               f"one-pass kernel) {a['counts']}")
+    rank_ms = {name: [statistics.median(r[name]["walls_ms"][1:]) for r in ranks]
+               for name in ("flagship", "art")}
+    one_ms = {name: statistics.median(one[name]["walls_ms"][1:]) for name in rank_ms}
+    print("phase 36, per rank per step: K1 1 launch at N = " + ", ".join(
+        str(sorted(set(r["flagship"]["k1_n"]))) for r in ranks)
+          + f", K3-bf16 {ART_ATTENTION_CALLS} launches and K4's one-pass backward "
+          f"{ART_ATTENTION_CALLS} launches (each rank, each step); step ms, median of steps 2-"
+          f"{DP_STEPS}, two ranks sharing one card through gloo ({card}; not a scale-out "
+          "rate): "
+          + "; ".join(f"{name} rank 0 {ms[0]:.2f}, rank 1 {ms[1]:.2f}, one process "
+                      f"{one_ms[name]:.2f}" for name, ms in rank_ms.items())
+          + f"; the launch of two ranks {launch_s:.2f} s, the phase {time.perf_counter() - t_phase:.2f} s")
+    return {"cli": cli, "k1": sum(r["flagship"]["k1"] + r["flagship_f32"]["k1"] for r in ranks),
+            "k3_bf16": sum(sum(c[0] for c in r["art"]["counts"]) for r in ranks),
+            "bwd_calls": sum(sum(c[1] for c in r["art"]["counts"]) for r in ranks),
+            "one_pass": sum(sum(c[2] for c in r["art"]["counts"]) for r in ranks),
+            "rank_step_ms": rank_ms, "one_process_step_ms": one_ms, "launch_s": launch_s,
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def assert_no_spill(report: str, kernel: str) -> None:
     """Raises if nvcc's ptxas report shows a spill in an instance of a
     kernel whose name holds ``kernel`` (an empty report, from a library
@@ -4405,6 +4709,8 @@ def main() -> None:
         entropy_phase(device, Path(tmp), train_history)
     with tempfile.TemporaryDirectory() as tmp:
         rehearsal = rehearsal_phase(device, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        dp = data_parallel_phase(device, Path(tmp), card)
     print("offline EEG features at (32, 3250), trials/s end to end: "
           + ", ".join(f"chunk {c} {o['trials_per_s']:.2f} ({o['kernels_per_chunk']:.0f} kernels "
                       f"a chunk, busy {o['busy_share']:.1%}, {o['device_ms_per_chunk']:.3f} ms "
@@ -4447,6 +4753,13 @@ def main() -> None:
     bf16_train_launches = bf16_parity[0] + bf16_k4["launches"] + bf16_epoch[0]
     bwd_calls = bf16_parity[1] + bf16_k4["backward"] + bf16_epoch[1]
     one_pass_launches = bf16_parity[2] + bf16_k4["kernel_launches"] + bf16_epoch[2]
+    # Phase 36's launches: the CLI's --mesh dp run and the two ranks'.
+    dp_path = ("data-parallel training: train_dual_eeg --mesh dp (one rank, NCCL) and two "
+               "gloo ranks sharing the card")
+    dp_k1 = dp["cli"]["k1"] + dp["k1"]
+    dp_steps_ms = {"rank_step_ms": dp["rank_step_ms"],
+                   "one_process_step_ms": dp["one_process_step_ms"],
+                   "note": "two ranks sharing one card through gloo, not a scale-out rate"}
 
     phase_source = "eyegaze_tpu_torch/csrc/phase_metrics.cu"
     source = "eyegaze_tpu_torch/csrc/attention.cu"
@@ -4459,14 +4772,18 @@ def main() -> None:
         {"name": "pairwise_phase_metrics", "route": "cuda", "source": phase_source,
          "replaces": "eyegaze_tpu/ops/pallas_kernels.py:74",
          "launches": (k1_serving + k1_train + k1_mm_launches + k1_mm_train + imported["k1"]
-                      + analysis["k1"] + rehearsal["k1_train"] + rehearsal["k1_analysis"]),
+                      + analysis["k1"] + rehearsal["k1_train"] + rehearsal["k1_analysis"]
+                      + dp_k1),
          "path": "EEG serving, f32 and bf16 from a checkpoint; flagship training, bf16 and "
                  "f32 steps and one epoch of train_dual_eeg; the multimodal composite served "
                  "bf16 from a checkpoint, and over HTTP; multimodal training (the f32 parity "
                  "step, bf16 timed and frozen steps, one epoch of train_multimodal and its "
                  "served checkpoint); imported reference checkpoints served (two flagships, "
                  "the composite); analyze_eeg at full width on the imported flagship; the "
-                 "rehearsal's train_dual_eeg and analyze_eeg steps",
+                 "rehearsal's train_dual_eeg and analyze_eeg steps; " + dp_path,
+         "launches_data_parallel": {"cli_mesh_dp": dp["cli"]["k1"], "two_ranks": dp["k1"],
+                                    "per_rank_per_step": dp["k1"] / (DP_WORLD * (DP_STEPS + 1)),
+                                    "n_per_rank": 6 * TRAIN_BATCH // DP_WORLD, **dp_steps_ms},
          "launches_import": imported["k1"], "launches_analysis": analysis["k1"],
          "launches_rehearsal": {"train": rehearsal["k1_train"],
                                 "analysis": rehearsal["k1_analysis"]},
@@ -4530,10 +4847,13 @@ def main() -> None:
          **attn_timing["flash_attention", torch.bfloat16]},
         {"name": "headpacked_attention", "route": "cuda", "source": source,
          "replaces": "eyegaze_tpu/ops/attn_kernels.py:78",
-         "launches": art_bf16_all + bf16_train_launches + imported["k3_bf16"],
+         "launches": art_bf16_all + bf16_train_launches + imported["k3_bf16"] + dp["k3_bf16"],
          "path": "ART serving, bf16, and from a checkpoint; bf16 ART training at attention "
                  "dropout 0.0 (parity step, timed steps, one epoch), its forward; an imported "
-                 "reference ART checkpoint served",
+                 "reference ART checkpoint served; " + dp_path + " (ART's steps)",
+         "launches_data_parallel": {"two_ranks": dp["k3_bf16"],
+                                    "per_rank_per_step": dp["k3_bf16"] / (DP_WORLD * DP_STEPS),
+                                    **dp_steps_ms},
          "launches_import": imported["k3_bf16"],
          "launches_per_request": art_bf16_all / (art_forwards + 1),
          "launches_serving": art_bf16_all, "launches_training": bf16_train_launches,
@@ -4558,10 +4878,14 @@ def main() -> None:
         "name": "flash_attention_bwd", "route": "cuda", "source": source,
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
         "replaces_also": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
-        "kernel": "attention_bwd_one_pass_kernel", "launches": one_pass_launches,
-        "path": bwd_path, "launches_per_request": bf16_k4["kernel_launches"] / TRAIN_STEPS,
+        "kernel": "attention_bwd_one_pass_kernel", "launches": one_pass_launches + dp["one_pass"],
+        "path": bwd_path + "; " + dp_path + " (ART's steps)",
+        "launches_per_request": bf16_k4["kernel_launches"] / TRAIN_STEPS,
         "launches_per_train_step": bf16_k4["kernel_launches"] / TRAIN_STEPS,
-        "backward_calls": bwd_calls,
+        "backward_calls": bwd_calls + dp["bwd_calls"],
+        "launches_data_parallel": {"two_ranks": dp["one_pass"],
+                                   "per_rank_per_step": dp["one_pass"] / (DP_WORLD * DP_STEPS),
+                                   **dp_steps_ms},
         "max_abs_err": max(e["max_abs_err"] for e in art_bwd["errors"].values()),
         "share_of_bf16_bound": max(e["share_of_bound"] for e in art_bwd["errors"].values()),
         "ms": art_bwd["kernel_ms"]["attention_bwd_one_pass_kernel"],

@@ -126,8 +126,8 @@ class SystemConfig:
     # "gpu") mean the CUDA card to the port's entry points.
     device: str = "cuda"
     num_workers: int = 0
-    # The JAX package's device-mesh switch; the port refuses a set mesh
-    # until it has data parallelism over torch.distributed.
+    # The device-mesh spec ('dp', 'dpN'): the entry points train
+    # data-parallel over it (eyegaze_tpu_torch.parallel); tp > 1 is refused.
     mesh: Any = False
 
 

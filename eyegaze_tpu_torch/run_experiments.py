@@ -10,7 +10,9 @@ says ``cpu``.
     python -m eyegaze_tpu_torch.run_experiments --list
     python -m eyegaze_tpu_torch.run_experiments --dry-run --experiments A
     python -m eyegaze_tpu_torch.run_experiments --experiments A,B,C [--names A5_full_model ...]
-    python -m eyegaze_tpu_torch.run_experiments --yes --epochs 2
+    python -m eyegaze_tpu_torch.run_experiments --yes --epochs 2 [--mesh dp]
+
+``--mesh`` is passed through to every run (data parallelism over the cards).
 
 Reading and writing the YAML files needs PyYAML.
 """
@@ -146,9 +148,12 @@ def filter_experiments(categories, names):
     return out
 
 
-def run_experiment(name: str, config_path: Path, dry_run: bool = False) -> bool:
+def run_experiment(name: str, config_path: Path, dry_run: bool = False,
+                   mesh: str | None = None) -> bool:
     cmd = [sys.executable, "-m", "eyegaze_tpu_torch.train_dual_eeg", "--config",
            str(config_path)]
+    if mesh:
+        cmd += ["--mesh", mesh]
     print(f"[run_experiments] {name}: {' '.join(cmd)}", flush=True)
     if dry_run:
         return True
@@ -165,6 +170,9 @@ def main(argv=None):
     ap.add_argument("--yes", action="store_true", help="skip interactive confirm")
     ap.add_argument("--config", default=str(CONFIG_PATH))
     ap.add_argument("--epochs", type=int, default=None, help="override epochs (smoke runs)")
+    ap.add_argument("--mesh", nargs="?", const="dp", default=None,
+                    help="device-mesh spec passed through to every training run: 'dp' = "
+                         "data-parallel over every visible card, 'dpN' over N")
     args = ap.parse_args(argv)
 
     if args.list:
@@ -198,7 +206,7 @@ def main(argv=None):
         cfg_path = cfg_dir / f"{name}.yaml"
         save_yaml_config(config_from_dict(create_experiment_config(base, name, exp,
                                                                    extra_training)), cfg_path)
-        ok = run_experiment(name, cfg_path, dry_run=args.dry_run)
+        ok = run_experiment(name, cfg_path, dry_run=args.dry_run, mesh=args.mesh)
         results[name] = ok
         if not ok:
             print(f"[run_experiments] {name} FAILED; continuing")

@@ -21,6 +21,28 @@ one train step over a pytree state, this one drives a module and an
 - ``prefetch`` host batches stay in flight: on a CUDA device each goes
   through pinned memory as a ``non_blocking`` copy.
 
+Under ``use_mesh`` (a ``dp`` spec, ``parallel/sharding.py``) the trainer is
+one rank of a group that ``parallel.launch`` (the entry points' ``--mesh``)
+or torchrun (``--multihost``) started:
+
+- the model trains through ``DistributedDataParallel``; dropout draws from
+  ``seed + rank``;
+- each train batch is the global batch, of which the rank takes its rows
+  (``shard_rows``; a batch that does not split evenly raises, where the JAX
+  trainer replicates it), or with ``local_batches`` the rank's own batch;
+- the epoch's train metrics (losses, correct, count, grad_norm) are the
+  global batch's, summed over the ranks where the epoch reads them;
+- a loss that leaves out an output computed from parameters needs
+  ``find_unused_parameters``; without it a step that leaves a parameter
+  without a gradient raises;
+- evaluation runs each global eval batch (with ``local_batches``, the
+  ranks' batches gathered first) through ``RowParallel``: every rank scores
+  the full validation set, a ragged batch padded to the rank multiple and
+  trimmed back, and ``eval_metrics_fn`` sees the outputs of the whole
+  batch, so a ratio of sums over the batch (ART's SNR) is the global one;
+- rank 0 alone logs and writes checkpoints, the others wait at a barrier;
+  ``restore`` loads on every rank.
+
 Parameters and the optimizer stay float32; a model built with
 ``dtype=torch.bfloat16`` computes in bf16 (no gradient scaler: bf16 has
 float32's exponent range).
@@ -36,6 +58,7 @@ from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from eyegaze_tpu_torch import parallel
 from eyegaze_tpu_torch.train.checkpoint import CheckpointManager
 from eyegaze_tpu_torch.train.metrics import classification_metrics
 from eyegaze_tpu_torch.train.optim import Optimizer
@@ -54,9 +77,16 @@ class TrainerConfig:
     greater_is_better: bool = True
     checkpoint_dir: Optional[str] = None
     seed: int = 42
-    # The JAX package's device mesh; refused until the port has data
-    # parallelism over torch.distributed.
+    # The device-mesh spec ('dp', 'dpN'): train as one rank of the running
+    # data-parallel group (module docstring).
     use_mesh: Any = False
+    # Under a mesh: each rank's batches are its own rows (--multihost), not
+    # the global batch that every rank iterates (--mesh).  Every rank must
+    # then give as many train batches of as many rows (multihost.common_steps).
+    local_batches: bool = False
+    # Under a mesh: the loss leaves out an output computed from parameters,
+    # which then get no gradient (parallel.data_parallel_module).
+    find_unused_parameters: bool = False
     # wandb.watch equivalent: every N epochs, log parameter + gradient
     # histograms (one extra gradient on the epoch's last batch).  0 disables.
     # Needs a watch_logger on the Trainer.
@@ -99,27 +129,43 @@ class Trainer:
     ):
         if eval_logits_fn is not None and eval_metrics_fn is not None:
             raise ValueError("give one of eval_logits_fn and eval_metrics_fn, not both")
+        self.rank, self.world = 0, 1
         if config.use_mesh:
-            raise ValueError(f"use_mesh={config.use_mesh!r}: data parallelism is not ported yet "
-                             "(ROADMAP item 12, DDP over torch.distributed); train on one device")
+            if not parallel.active():
+                raise ValueError(f"use_mesh={config.use_mesh!r} needs a running group: start the "
+                                 "ranks with eyegaze_tpu_torch.parallel.launch (the entry "
+                                 "points' --mesh) or torchrun (--multihost)")
+            self.rank, self.world = parallel.rank_and_world()
         self.config = config
         self.device = torch.device(device)
         self.model = model.to(self.device)
+        # The module train steps call (DDP under a mesh), and the one
+        # evaluation calls (the rank's rows, gathered).
+        self._train_model = (
+            parallel.data_parallel_module(self.model, self.device,
+                                          find_unused_parameters=config.find_unused_parameters)
+            if config.use_mesh else self.model)
+        self._eval_model = parallel.RowParallel(self.model) if config.use_mesh else self.model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self.eval_logits_fn = eval_logits_fn
         self.eval_metrics_fn = eval_metrics_fn
         self.num_classes = num_classes
-        self.logger = logger or (lambda d: None)
-        self.watch_logger = watch_logger
+        primary = self.rank == 0
+        self.logger = (logger if primary else None) or (lambda d: None)
+        self.watch_logger = (watch_logger if primary else lambda d: None) if watch_logger else None
         self.ckpt = (CheckpointManager(config.checkpoint_dir, config.greater_is_better)
                      if config.checkpoint_dir else None)
         self.history: list[Dict] = []
         self.eval_logits: Optional[np.ndarray] = None  # the last evaluate's, in batch order
         self._last_batch: Optional[Batch] = None
-        seed_device(self.device, config.seed)
+        seed_device(self.device, config.seed + self.rank)
 
-    def _put(self, batch: Dict[str, np.ndarray]) -> Batch:
+    def _put(self, batch: Dict[str, np.ndarray], rows: bool = False) -> Batch:
+        """``batch`` on the device; with ``rows`` under a mesh (train
+        batches), only the rank's rows of a global batch."""
+        if rows and self.config.use_mesh and not self.config.local_batches:
+            batch = parallel.shard_rows(batch, self.rank, self.world)
         out = {}
         for k, v in batch.items():
             t = torch.from_numpy(np.ascontiguousarray(v))
@@ -128,10 +174,11 @@ class Trainer:
             out[k] = t
         return out
 
-    def _prefetched(self, batches: Iterable[Dict[str, np.ndarray]]) -> Iterator[Batch]:
+    def _prefetched(self, batches: Iterable[Dict[str, np.ndarray]],
+                    rows: bool = False) -> Iterator[Batch]:
         in_flight: collections.deque = collections.deque()
         for batch in batches:
-            in_flight.append(self._put(batch))
+            in_flight.append(self._put(batch, rows))
             if len(in_flight) > self.config.prefetch:
                 yield in_flight.popleft()
         while in_flight:
@@ -141,10 +188,12 @@ class Trainer:
         """One update on a device batch; returns its metrics as device
         tensors: loss, grad_norm (before clipping), correct and count
         (where there are logits and labels), and aux's 'loss_*'."""
-        self.model.train()
-        loss, aux = self.loss_fn(self.model, batch)
+        self._train_model.train()
+        loss, aux = self.loss_fn(self._train_model, batch)
         self.optimizer.zero_grad()
         loss.backward()
+        if self.config.use_mesh and not self.config.find_unused_parameters:
+            self._require_gradients()
         metrics = {"loss": loss.detach(), "grad_norm": self.optimizer.step()}
         if "logits" in aux and "label" in batch:
             metrics["correct"] = (aux["logits"].argmax(dim=-1) == batch["label"]).sum()
@@ -153,15 +202,29 @@ class Trainer:
         self._last_batch = batch
         return metrics
 
+    def _require_gradients(self) -> None:
+        """Raises where DDP left a parameter without a gradient: its bucket
+        was not averaged over the ranks."""
+        missing = [n for n, p in self.model.named_parameters()
+                   if p.requires_grad and p.grad is None]
+        if missing:
+            raise RuntimeError(f"the loss gives {len(missing)} parameters no gradient "
+                               f"({', '.join(missing[:4])}, ...), so DDP averaged none of their "
+                               "buckets: train with TrainerConfig(find_unused_parameters=True)")
+
     def train_epoch(self, batches: Iterable[Dict[str, np.ndarray]], epoch: int) -> Dict:
         totals: Dict[str, Any] = {}
         n_batches = 0
         t0 = time.time()
-        for batch in self._prefetched(batches):
+        for batch in self._prefetched(batches, rows=True):
             for k, v in self.train_step(batch).items():
                 totals[k] = totals.get(k, 0) + v
             n_batches += 1
-        totals = {k: float(v) for k, v in totals.items()}  # the epoch's one wait on the device
+        # The epoch's one wait on the device; under a mesh the sums of the
+        # global batch: correct and count add up, the rest are rank means.
+        summed = parallel.sum_over_ranks(list(totals.values()), self.device)
+        totals = {k: s if k in ("correct", "count") else s / self.world
+                  for k, s in zip(totals, summed)}
         dt = time.time() - t0
         out = {f"train/{k}": v / n_batches for k, v in totals.items()
                if k not in ("correct", "count")}
@@ -178,8 +241,8 @@ class Trainer:
         self.model.eval()
         try:
             with torch.inference_mode():
-                for batch in self._prefetched(batches):
-                    all_logits.append(self.eval_logits_fn(self.model, batch).float().cpu())
+                for batch in self._eval_batches(batches):
+                    all_logits.append(self.eval_logits_fn(self._eval_model, batch).float().cpu())
                     all_labels.append(batch["label"].cpu())
         finally:
             self.model.train()
@@ -190,6 +253,31 @@ class Trainer:
         return {f"val/{k}": (v if k == "confusion_matrix" else float(v))
                 for k, v in m.items() if not k.endswith("per_class")}
 
+    def _eval_batches(self, batches: Iterable[Dict[str, np.ndarray]]) -> Iterator[Batch]:
+        """The eval batches on the device, each the global batch: with
+        ``local_batches`` the ranks' i-th batches are gathered in rank order
+        first (a batch's rows may differ, none included; a rank whose
+        batches ran out gives none, one that held none raises on every
+        rank)."""
+        if not (self.config.use_mesh and self.config.local_batches):
+            yield from self._prefetched(batches)
+            return
+        it = iter(batches)
+        empty = None
+        while True:
+            batch = next(it, None)
+            if batch is not None:
+                empty = {k: v[:0] for k, v in batch.items()}
+            holding, without = parallel.sum_over_ranks(
+                [batch is not None, batch is None and empty is None], self.device)
+            if holding == 0:
+                return
+            if without:
+                raise RuntimeError(f"{int(without)} of {self.world} ranks hold no eval batch "
+                                   "while others do: every rank needs a validation shard")
+            yield self._put({k: parallel.all_processes_concat(v)
+                             for k, v in (batch if batch is not None else empty).items()})
+
     def _evaluate_metrics(self, batches: Iterable[Dict[str, np.ndarray]]) -> Dict:
         """``eval_metrics_fn``'s metrics, each the mean of its per-batch
         values; they stay on the device until the last batch."""
@@ -198,8 +286,8 @@ class Trainer:
         self.model.eval()
         try:
             with torch.inference_mode():
-                for batch in self._prefetched(batches):
-                    for k, v in self.eval_metrics_fn(self.model, batch).items():
+                for batch in self._eval_batches(batches):
+                    for k, v in self.eval_metrics_fn(self._eval_model, batch).items():
                         sums[k] = sums[k] + v.float() if k in sums else v.float()
                     n += 1
         finally:
@@ -208,10 +296,11 @@ class Trainer:
 
     def _watch(self, epoch: int) -> None:
         """Parameter and gradient histograms; the gradient is of the loss on
-        the epoch's last batch, taken apart from the optimizer's."""
-        self.model.train()
+        the epoch's last batch (under a mesh, of the global batch: every rank
+        takes part), taken apart from the optimizer's."""
+        self._train_model.train()
         self.optimizer.zero_grad()
-        self.loss_fn(self.model, self._last_batch)[0].backward()
+        self.loss_fn(self._train_model, self._last_batch)[0].backward()
         record = {"epoch": epoch}
         record.update(tree_histograms(self.model.named_parameters(), prefix="param/"))
         record.update(tree_histograms(((n, p.grad) for n, p in self.model.named_parameters()
@@ -221,8 +310,13 @@ class Trainer:
 
     def restore(self, name: str) -> int:
         """Loads checkpoint ``name`` into the model and the optimizer;
-        returns its train step."""
-        return self.ckpt.restore(name, self.model, self.optimizer)
+        returns its train step.  Under a mesh with more than one rank the
+        saved generator state is rank 0's, so each rank draws from ``seed +
+        rank + world * step`` instead."""
+        step = self.ckpt.restore(name, self.model, self.optimizer)
+        if self.world > 1:
+            seed_device(self.device, self.config.seed + self.rank + self.world * step)
+        return step
 
     def fit(
         self,
@@ -238,11 +332,14 @@ class Trainer:
                 stats.update(self.evaluate(eval_batches_fn()))
                 metric = stats.get(f"val/{self.config.metric_for_best}")
                 if metric is not None and self.ckpt is not None:
-                    if self.ckpt.save_if_best(metric, self.model, self.optimizer, config_dict,
-                                              {"epoch": epoch}):
+                    if self.rank == 0 and self.ckpt.save_if_best(
+                            metric, self.model, self.optimizer, config_dict, {"epoch": epoch}):
                         best = metric
+                    parallel.barrier()
             if self.ckpt is not None and (epoch + 1) % self.config.save_every_epochs == 0:
-                self.ckpt.save_periodic(epoch, self.model, self.optimizer, config_dict)
+                if self.rank == 0:
+                    self.ckpt.save_periodic(epoch, self.model, self.optimizer, config_dict)
+                parallel.barrier()
             if (self.config.watch_every_epochs > 0 and self.watch_logger is not None
                     and (epoch + 1) % self.config.watch_every_epochs == 0
                     and self._last_batch is not None):

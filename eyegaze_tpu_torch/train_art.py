@@ -1,9 +1,11 @@
-"""Train the Artifact Removal Transformer (EEG denoising seq2seq) on one device.
+"""Train the Artifact Removal Transformer (EEG denoising seq2seq) on one device
+or data-parallel over several.
 
 The counterpart of ``scripts/train_art.py``:
 
     python -m eyegaze_tpu_torch.train_art [--epochs 5] [--trials 64] [--loss-zscore]
         [--attn-dropout 0.0] [--tiny] [--output-dir runs/art_torch] [--device cpu]
+        [--mesh [dp|dpN]]
 
 Noisy -> clean pairs from the seeded generators (clean multi-sine EEG; the
 input is it plus Gaussian noise of std 0.5), the last fifth held out for
@@ -21,7 +23,12 @@ train step runs the attention kernel K3 forward and its autograd backward
 on the card.  By default attention dropout follows the model's dropout and
 train steps take the plain attention path; evaluation runs K3 either way.
 Training runs on the CUDA card unless ``--device cpu`` asks for the CPU;
-without a card it stops with a message.  ``--mesh`` is refused.
+without a card it stops with a message.  ``--mesh`` trains data-parallel,
+one rank per card (N gloo ranks for "dpN" with ``--device cpu``;
+``train_dual_eeg``'s docstring): ``--batch-size`` is the global batch and
+must split over the ranks, dropout draws from ``seed + rank``, and the
+evaluation's SNR is the global batch's (``Trainer``).  At ``--attn-dropout
+0.0`` every rank runs K3 and its backward on its own rows.
 """
 
 from __future__ import annotations
@@ -33,12 +40,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from eyegaze_tpu_torch import parallel
 from eyegaze_tpu_torch.data.loader import ArrayDataset, batch_iterator
 from eyegaze_tpu_torch.data.synthetic import gen_eeg
 from eyegaze_tpu_torch.models.art import ArtConfig, ArtifactRemovalTransformer, art_loss
 from eyegaze_tpu_torch.train.optim import cosine_annealing_schedule, make_optimizer
 from eyegaze_tpu_torch.train.trainer import Trainer, TrainerConfig
-from eyegaze_tpu_torch.train_dual_eeg import NO_SCALE_OUT, resolve_device
+from eyegaze_tpu_torch.train_dual_eeg import resolve_device
 from eyegaze_tpu_torch.utils.logging import RunLogger
 
 
@@ -89,7 +97,11 @@ def make_objective(loss_zscore: bool):
 
 def run(args: argparse.Namespace, *, device: torch.device) -> dict:
     """Train as ``args`` say on ``device``; returns the fit result
-    ({best_metric, history}), the trainer and the validation split."""
+    ({best_metric, history}), the trainer and the validation split.  With
+    ``args.mesh`` and no running group it spawns the ranks, each running
+    this function, and returns rank 0's fit result."""
+    if args.mesh and not parallel.active():
+        return parallel.fit_on_ranks(run, parallel.mesh_world(args.mesh, device), device, args)
     cfg = build_config(args)
     model = ArtifactRemovalTransformer(cfg, device=device,
                                        generator=torch.Generator().manual_seed(42))
@@ -100,6 +112,8 @@ def run(args: argparse.Namespace, *, device: torch.device) -> dict:
     print(f"[model] ART: {sum(p.numel() for p in model.parameters()):,} params on {device}")
 
     bs = min(args.batch_size, len(train_ds))
+    if args.mesh:
+        parallel.require_divisible(bs, parallel.rank_and_world()[1])
     steps_per_epoch = max(len(train_ds) // bs, 1)
     optimizer = make_optimizer(model, cosine_annealing_schedule(args.lr, args.epochs,
                                                                 steps_per_epoch),
@@ -110,7 +124,7 @@ def run(args: argparse.Namespace, *, device: torch.device) -> dict:
         model, optimizer, loss_fn, None,
         TrainerConfig(num_epochs=args.epochs, metric_for_best="loss", greater_is_better=False,
                       checkpoint_dir=str(Path(args.output_dir) / "checkpoints"), seed=7,
-                      watch_every_epochs=args.watch),
+                      use_mesh=args.mesh, watch_every_epochs=args.watch),
         device=device, logger=logger.log, eval_metrics_fn=eval_metrics_fn,
         watch_logger=logger.log_watch if args.watch else None,
     )
@@ -121,7 +135,8 @@ def run(args: argparse.Namespace, *, device: torch.device) -> dict:
         # The ArtConfig in the meta: ArtDenoiser.from_checkpoint rebuilds the model from it.
         config_dict={"model": dataclasses.asdict(cfg)},
     )
-    print(f"[done] best val loss: {result['best_metric']}")
+    if trainer.rank == 0:  # the ranks but 0 keep no best metric
+        print(f"[done] best val loss: {result['best_metric']}")
     return {**result, "trainer": trainer, "val": val_ds}
 
 
@@ -144,14 +159,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' must be asked for)")
     ap.add_argument("--mesh", nargs="?", const="dp", default=None,
-                    help="not ported: refused (ROADMAP item 12)")
+                    help="data-parallel mesh: 'dp' = every visible card, 'dpN' = N (N gloo "
+                         "ranks with --device cpu)")
     return ap.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.mesh:
-        raise SystemExit(f"--mesh: {NO_SCALE_OUT}")
     device = resolve_device(args.device, "eyegaze_tpu_torch.train_art")
     return run(args, device=device)["best_metric"]
 

@@ -1,10 +1,10 @@
-"""Train the DualEEGTransformer on one device.
+"""Train the DualEEGTransformer on one device or data-parallel over several.
 
 The counterpart of ``scripts/train_dual_eeg.py``:
 
     python -m eyegaze_tpu_torch.train_dual_eeg --config configs/dual_eeg_transformer.yaml
         [--resume] [--watch N] [--epochs N] [--batch-size N] [--synthetic-trials N]
-        [--device cpu]
+        [--device cpu] [--mesh [dp|dpN]] [--multihost]
 
 The config schema is the reference YAML's.  Data come from the real
 pre-split or unsplit ``.npy`` layout under ``data.eeg_base_path`` when it is
@@ -19,16 +19,33 @@ on every better validation metric and ``checkpoint_epoch_<n>.*`` every
 and ``scripts/import_torch_checkpoint.py`` imports it into the JAX package.
 ``--resume`` continues after the latest periodic checkpoint, from its epoch
 and train step.
+
+``--mesh`` (or ``system.mesh``) trains data-parallel over the local
+devices: the entry point spawns one rank per card ("dp": every visible
+card; "dpN": N of them, more than there are raises), or N gloo ranks with
+``--device cpu``.  ``training.per_device_train_batch_size`` stays the
+global batch, as in the JAX script, and must split evenly over the ranks;
+the IBS alignment and contrastive losses take the rows of the global batch
+(``parallel.gather_rows``), so a step equals one device's.  ``--multihost``
+joins the group that torchrun started (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``): each process loads its
+``process_shard_bounds`` slice of the split and trains its own batches of
+``per_device_train_batch_size`` rows, as many an epoch as the smallest
+shard holds; without torchrun's variables it trains in one process, as
+``--mesh dp1`` does.  A tensor-parallel spec
+(tp > 1) is refused.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from eyegaze_tpu_torch import parallel
 from eyegaze_tpu_torch.config import ExperimentConfig, load_yaml_config
 from eyegaze_tpu_torch.data.loader import DualEEGWindowDataset
 from eyegaze_tpu_torch.data.metadata import stratified_split
@@ -36,6 +53,7 @@ from eyegaze_tpu_torch.data.synthetic import synthetic_eeg_pair_dataset
 from eyegaze_tpu_torch.models.dual_eeg import DualEEGTransformer
 from eyegaze_tpu_torch.ops.preprocess import common_average_reference, zscore
 from eyegaze_tpu_torch.ops.spectral import bandpass_fft
+from eyegaze_tpu_torch.parallel import gather_rows
 from eyegaze_tpu_torch.train.losses import (
     cross_entropy,
     ibs_alignment_loss,
@@ -51,8 +69,6 @@ from eyegaze_tpu_torch.utils.logging import RunLogger
 BENCH_LOSSES = dict(use_sym_loss=True, use_ibs_loss=True, use_ibs_cls_loss=True,
                     use_ibs_contrastive=True, lambda_sym=0.1, lambda_ibs=0.1,
                     lambda_ibs_cls=0.3, lambda_ibs_contrastive=0.1)
-NO_SCALE_OUT = ("multi-device and multi-host training are not ported yet (ROADMAP item 12, "
-                "DDP over torch.distributed); train on one device")
 
 
 def resolve_device(name: str, program: str = "eyegaze_tpu_torch.train_dual_eeg") -> torch.device:
@@ -97,14 +113,19 @@ def build_model(cfg: ExperimentConfig, *, device: torch.device,
     )
 
 
-def prepare_datasets(cfg: ExperimentConfig):
+def prepare_datasets(cfg: ExperimentConfig, process_shard: bool = False):
     """Trial-level arrays -> windowed (train, val) datasets (stratified
     split seeded from ``data.random_seed``, train_art.py:69-139 semantics).
 
     Real data: ``data.eeg_base_path`` holding the output of
     scripts/preprocess_eeg_raw.py ({train,val}_eeg{1,2}/labels/pairs.npy, or
     unsplit eeg1/eeg2/labels/pairs.npy, split here).  Otherwise the seeded
-    synthetic fixtures.
+    synthetic fixtures.  ``process_shard`` (``--multihost``): every process
+    computes the same split (or reads the pre-split files) and keeps its
+    contiguous ``process_shard_bounds`` slice of each side's trials, trimmed
+    to a multiple of the processes first; the identity with one process.
+    The JAX script shards only the split it computes: each of its processes
+    loads the whole of a pre-split layout.
     """
     d = cfg.data
     eeg_dir = Path(d.eeg_base_path) if d.eeg_base_path else None
@@ -113,15 +134,22 @@ def prepare_datasets(cfg: ExperimentConfig):
         return DualEEGWindowDataset(e1, e2, labels, window_size=d.window_size,
                                     stride=d.stride, pairs=pairs)
 
+    world = parallel.rank_and_world()[1]
+
+    def my_slice(ids):
+        ids = list(ids)[:len(ids) - len(ids) % world]
+        lo, hi = parallel.process_shard_bounds(len(ids))
+        return ids[lo:hi]
+
     if eeg_dir and (eeg_dir / "train_eeg1.npy").exists():
         def load(split):
-            return windowed(
-                np.load(eeg_dir / f"{split}_eeg1.npy"),
-                np.load(eeg_dir / f"{split}_eeg2.npy"),
-                np.load(eeg_dir / f"{split}_labels.npy"),
-                np.load(eeg_dir / f"{split}_pairs.npy")
-                if (eeg_dir / f"{split}_pairs.npy").exists() else None,
-            )
+            mmap = "r" if process_shard else None  # a process reads its slice alone
+            arrays = [np.load(eeg_dir / f"{split}_{name}.npy", mmap_mode=mmap)
+                      for name in ("eeg1", "eeg2", "labels")]
+            pairs = eeg_dir / f"{split}_pairs.npy"
+            arrays.append(np.load(pairs, mmap_mode=mmap) if pairs.exists() else None)
+            ids = my_slice(range(len(arrays[2]))) if process_shard else slice(None)
+            return windowed(*(None if a is None else np.asarray(a[ids]) for a in arrays))
         print(f"[data] real pre-split npy from {eeg_dir}")
         return load("train"), load("val")
 
@@ -142,6 +170,8 @@ def prepare_datasets(cfg: ExperimentConfig):
     train_idx, val_idx = stratified_split(
         idx, data["label"], test_size=d.train_test_split, seed=d.random_seed
     )
+    if process_shard:
+        train_idx, val_idx = my_slice(train_idx), my_slice(val_idx)
 
     def subset(ids):
         ids = np.asarray(ids)
@@ -154,7 +184,11 @@ def prepare_datasets(cfg: ExperimentConfig):
 def make_objective(cfg: ExperimentConfig):
     """(loss_fn, eval_logits_fn) for the Trainer: the configured loss terms
     (``training.use_*`` and ``lambda_*``) and the eval forward, each behind
-    the optional bandpass + CAR + z-score of ``data.enable_preprocessing``."""
+    the optional bandpass + CAR + z-score of ``data.enable_preprocessing``.
+    The IBS alignment and contrastive terms couple the rows of the batch:
+    under data parallelism they take the global batch's tokens and labels
+    (``gather_rows``, an identity on one device); the other terms are rank
+    means, which DDP's average makes the global mean."""
     t = cfg.training
     lam = dict(sym=t.lambda_sym, ibs=t.lambda_ibs, ibs_cls=t.lambda_ibs_cls,
                contrastive=t.lambda_ibs_contrastive)
@@ -179,7 +213,8 @@ def make_objective(cfg: ExperimentConfig):
             loss = loss + lam["sym"] * term
             aux["loss_sym"] = term
         if has_ibs and use["ibs"]:
-            term = ibs_alignment_loss(out["ibs_token"], out["cls1"], out["cls2"])
+            term = ibs_alignment_loss(gather_rows(out["ibs_token"]), gather_rows(out["cls1"]),
+                                      gather_rows(out["cls2"]))
             loss = loss + lam["ibs"] * term
             aux["loss_ibs_align"] = term
         if has_ibs and use["ibs_cls"]:
@@ -187,7 +222,7 @@ def make_objective(cfg: ExperimentConfig):
             loss = loss + lam["ibs_cls"] * term
             aux["loss_ibs_cls"] = term
         if has_ibs and use["contrastive"]:
-            term = ibs_contrastive_loss(out["ibs_token"], labels)
+            term = ibs_contrastive_loss(gather_rows(out["ibs_token"]), gather_rows(labels))
             loss = loss + lam["contrastive"] * term
             aux["loss_contrastive"] = term
         return loss, aux
@@ -199,17 +234,32 @@ def make_objective(cfg: ExperimentConfig):
 
 
 def run(cfg: ExperimentConfig, *, device: torch.device, resume: bool = False,
-        watch: int = 0) -> dict:
+        watch: int = 0, multihost: bool = False) -> dict:
     """Train ``cfg`` on ``device``: returns the fit result ({best_metric,
-    history}) and the trainer."""
-    if cfg.system.mesh:
-        raise SystemExit(f"system.mesh={cfg.system.mesh!r}: {NO_SCALE_OUT}")
+    history}) and the trainer.  With ``system.mesh`` and no running group,
+    it spawns the mesh's ranks, each running this function, and returns
+    rank 0's fit result; ``multihost``: this process is a rank of torchrun's
+    group, with its own shard of the data."""
+    mesh = cfg.system.mesh
+    if mesh and not parallel.active():
+        return parallel.fit_on_ranks(run, parallel.mesh_world(mesh, device), device, cfg,
+                                     resume=resume, watch=watch)
     t = cfg.training
     model = build_model(cfg, device=device, dtype=torch.bfloat16 if t.bf16 else torch.float32)
-    train_ds, val_ds = prepare_datasets(cfg)
+    train_ds, val_ds = prepare_datasets(cfg, process_shard=multihost)
     print(f"[data] train windows: {len(train_ds)}, val windows: {len(val_ds)}")
     bs = min(t.per_device_train_batch_size, len(train_ds))
+    if mesh and not multihost:
+        parallel.require_divisible(bs, parallel.rank_and_world()[1])
     steps_per_epoch = max(len(train_ds) // bs, 1)
+    if multihost:
+        # A trial's windows differ in number, so the shards may too: every
+        # process takes the smallest shard's steps (DDP needs each step on
+        # every rank, and the schedules must agree).
+        own, steps_per_epoch = steps_per_epoch, parallel.common_steps(steps_per_epoch, bs)
+        if own != steps_per_epoch:
+            print(f"[multihost] {steps_per_epoch} train steps an epoch on every process, "
+                  f"{own - steps_per_epoch} of this process's batches left out")
     print(f"[model] {sum(p.numel() for p in model.parameters()):,} parameters on {device}")
 
     schedule = cosine_annealing_schedule(t.learning_rate, t.num_train_epochs, steps_per_epoch)
@@ -226,6 +276,11 @@ def run(cfg: ExperimentConfig, *, device: torch.device, resume: bool = False,
             greater_is_better=t.greater_is_better,
             checkpoint_dir=str(Path(t.output_dir) / "checkpoints"),
             seed=cfg.system.seed,
+            use_mesh=mesh,
+            local_batches=multihost,
+            # The IBS logits without the IBS cross entropy: the IBS head
+            # gets no gradient.
+            find_unused_parameters=cfg.ablation.use_ibs and not t.use_ibs_cls_loss,
             watch_every_epochs=watch,
         ),
         device=device,
@@ -243,13 +298,15 @@ def run(cfg: ExperimentConfig, *, device: torch.device, resume: bool = False,
 
     eval_bs = min(t.per_device_eval_batch_size, max(len(val_ds), 1))
     result = trainer.fit(
-        train_batches_fn=lambda epoch: train_ds.iter_batches(
+        train_batches_fn=lambda epoch: itertools.islice(train_ds.iter_batches(
             bs, shuffle=True, seed=cfg.system.seed, drop_remainder=True, epoch=epoch),
+            steps_per_epoch),
         eval_batches_fn=lambda: val_ds.iter_batches(eval_bs),
         config_dict=cfg.to_dict(),
         start_epoch=start_epoch,
     )
-    print(f"[done] best {t.metric_for_best_model}: {result['best_metric']}")
+    if trainer.rank == 0:  # the ranks but 0 keep no best metric
+        print(f"[done] best {t.metric_for_best_model}: {result['best_metric']}")
     return {**result, "trainer": trainer}
 
 
@@ -268,13 +325,16 @@ def main(argv=None):
                     help="torch device (default: system.device, the CUDA card; 'cpu' must be "
                          "asked for)")
     ap.add_argument("--mesh", nargs="?", const="dp", default=None,
-                    help="not ported: refused (ROADMAP item 12)")
-    ap.add_argument("--multihost", action="store_true", help="not ported: refused (ROADMAP item 12)")
+                    help="device-mesh spec (system.mesh): 'dp' = data-parallel over every "
+                         "visible card, 'dpN' over N (N gloo ranks with --device cpu)")
+    ap.add_argument("--multihost", action="store_true",
+                    help="join the group torchrun started, each process training its shard "
+                         "of the data; without torchrun's variables, one process")
     args = ap.parse_args(argv)
-    if args.mesh or args.multihost:
-        raise SystemExit(f"--mesh / --multihost: {NO_SCALE_OUT}")
 
     cfg = load_yaml_config(args.config)
+    if args.mesh:
+        cfg.system.mesh = args.mesh
     if args.epochs is not None:
         cfg.training.num_train_epochs = args.epochs
     if args.batch_size is not None:
@@ -283,7 +343,22 @@ def main(argv=None):
     if args.synthetic_trials is not None:
         cfg.data.synthetic_trials = args.synthetic_trials
     device = resolve_device(args.device or cfg.system.device)
-    return run(cfg, device=device, resume=args.resume, watch=args.watch)
+    if not args.multihost:
+        return run(cfg, device=device, resume=args.resume, watch=args.watch)
+    rank, world = parallel.initialize_multihost(device)
+    print(f"[multihost] process {rank}/{world}")
+    if not parallel.active():
+        cfg.system.mesh = False
+        return run(cfg, device=device, resume=args.resume, watch=args.watch)
+    if cfg.system.mesh and parallel.parse_mesh_spec(cfg.system.mesh, world)[0] != world:
+        raise SystemExit(f"--mesh {cfg.system.mesh}: under --multihost the group is torchrun's "
+                         f"{world} processes")
+    cfg.system.mesh = cfg.system.mesh or "dp"
+    try:
+        return run(cfg, device=parallel.local_device(device), resume=args.resume,
+                   watch=args.watch, multihost=True)
+    finally:
+        parallel.leave()
 
 
 if __name__ == "__main__":

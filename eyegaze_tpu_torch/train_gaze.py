@@ -1,5 +1,6 @@
-"""Train the gaze ViTs on gaze-heatmap pairs on one device: early fusion,
-late fusion, or a bare ViT on data-level fused pairs.
+"""Train the gaze ViTs on gaze-heatmap pairs on one device or data-parallel
+over several: early fusion, late fusion, or a bare ViT on data-level fused
+pairs.
 
 The counterpart of ``scripts/train_gaze.py``:
 
@@ -7,7 +8,7 @@ The counterpart of ``scripts/train_gaze.py``:
         [--model early|late|datafusion] [--data-fusion-mode horizontal]
         [--image-norm imagenet|vit] [--tiny] [--epochs N] [--batch-size N]
         [--images DIR | --image-root DIR --metadata FILE] [--pretrained FILE.npz]
-        [--watch N] [--resume] [--device cpu]
+        [--watch N] [--resume] [--device cpu] [--mesh [dp|dpN]]
 
 The recipe is the JAX script's: validation held out by pair ID
 (``data.val_pairs``), inverse-frequency weighted cross entropy when
@@ -36,7 +37,10 @@ and ``model.image_norm``, so that ``GazePredictor.from_checkpoint`` and
 ``--resume`` continues after the latest periodic checkpoint, from its epoch
 and train step (the JAX script restarts at epoch 0).  Training runs on the
 CUDA card unless ``--device cpu`` asks for the CPU; without a card it stops
-with a message.  ``--mesh`` is refused.
+with a message.  ``--mesh`` trains data-parallel, one rank per card (N gloo
+ranks for "dpN" with ``--device cpu``; ``train_dual_eeg``'s docstring):
+``training.per_device_train_batch_size`` is the global batch and must split
+over the ranks, and dropout and the augment draw from ``seed + rank``.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from eyegaze_tpu_torch import parallel
 from eyegaze_tpu_torch.config import ExperimentConfig, load_yaml_config
 from eyegaze_tpu_torch.data.gaze_augment import augment_gaze_pair
 from eyegaze_tpu_torch.data.image_fusion import (
@@ -66,10 +71,11 @@ from eyegaze_tpu_torch.models.vit import (
     VisionTransformer,
     load_timm_state_dict,
 )
+from eyegaze_tpu_torch.parallel import gather_rows
 from eyegaze_tpu_torch.train.losses import cross_entropy, weighted_cross_entropy
 from eyegaze_tpu_torch.train.optim import make_optimizer, warmup_cosine_schedule
 from eyegaze_tpu_torch.train.trainer import Trainer, TrainerConfig
-from eyegaze_tpu_torch.train_dual_eeg import NO_SCALE_OUT, resolve_device
+from eyegaze_tpu_torch.train_dual_eeg import resolve_device
 from eyegaze_tpu_torch.utils.logging import RunLogger
 
 KINDS = ("early", "late", "datafusion")
@@ -129,7 +135,9 @@ def make_objective(kind: str, *, img_size: int, weights=None, generator: torch.G
                    data_fusion_mode: str = "horizontal", image_norm: str = "imagenet"):
     """(loss_fn, eval_logits_fn) for the Trainer.  The loss is the (class-
     ``weights``-weighted) cross entropy on the augmented pair, the augment
-    drawn from ``generator``; the eval forward takes the pair as it is."""
+    drawn from ``generator``; the eval forward takes the pair as it is.  The weighted mean divides by the batch's sum of weights,
+    so under data parallelism it takes the global batch's logits and labels
+    (``gather_rows``, an identity on one device)."""
     if kind == "datafusion":
         if data_fusion_mode not in DATA_FUSION_MODES:
             raise ValueError(f"data_fusion_mode must be one of {DATA_FUSION_MODES}")
@@ -150,7 +158,7 @@ def make_objective(kind: str, *, img_size: int, weights=None, generator: torch.G
         logits = forward(model, img1, img2)
         labels = batch["label"]
         loss = (cross_entropy(logits, labels) if weights is None
-                else weighted_cross_entropy(logits, labels, weights))
+                else weighted_cross_entropy(gather_rows(logits), gather_rows(labels), weights))
         return loss, {"logits": logits, "loss_ce": loss}
 
     def eval_logits_fn(model, batch):
@@ -164,9 +172,14 @@ def run(cfg: ExperimentConfig, kind: str = "early", *, device: torch.device, tin
         image_root=None, metadata=None, resume: bool = False, watch: int = 0) -> dict:
     """Train the ``kind`` model as ``cfg`` says on ``device``; returns the fit
     result ({best_metric, history}), the trainer and the validation split.
-    ``--tiny`` sets ``cfg.model.img_size`` to 64."""
-    if cfg.system.mesh:
-        raise SystemExit(f"system.mesh={cfg.system.mesh!r}: {NO_SCALE_OUT}")
+    ``--tiny`` sets ``cfg.model.img_size`` to 64.  With ``system.mesh`` and
+    no running group it spawns the ranks, each running this function, and
+    returns rank 0's fit result."""
+    if cfg.system.mesh and not parallel.active():
+        return parallel.fit_on_ranks(
+            run, parallel.mesh_world(cfg.system.mesh, device), device, cfg, kind, tiny=tiny,
+            data_fusion_mode=data_fusion_mode, image_norm=image_norm, images=images,
+            image_root=image_root, metadata=metadata, resume=resume, watch=watch)
     if tiny:
         cfg.model.img_size = 64
     t = cfg.training
@@ -180,6 +193,9 @@ def run(cfg: ExperimentConfig, kind: str = "early", *, device: torch.device, tin
     print(f"[model] {kind}-fusion ViT ({cfg.model.fusion_mode}): "
           f"{sum(p.numel() for p in model.parameters()):,} params on {device}")
     bs = min(t.per_device_train_batch_size, len(train_ds))
+    rank, world = parallel.rank_and_world()
+    if cfg.system.mesh:
+        parallel.require_divisible(bs, world)
     steps_per_epoch = max(len(train_ds) // bs, 1)
     schedule = warmup_cosine_schedule(t.learning_rate,
                                       int(steps_per_epoch * max(t.warmup_epochs, 0)),
@@ -197,7 +213,8 @@ def run(cfg: ExperimentConfig, kind: str = "early", *, device: torch.device, tin
         TrainerConfig(num_epochs=t.num_train_epochs, save_every_epochs=t.save_every_n_epochs,
                       metric_for_best="f1_macro",
                       checkpoint_dir=str(Path(t.output_dir) / "checkpoints"),
-                      seed=cfg.system.seed, watch_every_epochs=watch),
+                      seed=cfg.system.seed, use_mesh=cfg.system.mesh,
+                      watch_every_epochs=watch),
         device=device, logger=logger.log, watch_logger=logger.log_watch if watch else None,
     )
     start_epoch = 0
@@ -208,7 +225,7 @@ def run(cfg: ExperimentConfig, kind: str = "early", *, device: torch.device, tin
             start_epoch = latest + 1
             print(f"[resume] restored epoch {latest}, step {step}")
     # A resumed run draws other augments than the epochs it continues did.
-    generator.manual_seed(cfg.system.seed + 100003 * start_epoch)
+    generator.manual_seed(cfg.system.seed + rank + 100003 * start_epoch)
 
     # The meta lets serving rebuild the model: the kind, the head count (no
     # parameter shape holds it) and the datafusion preprocessing.
@@ -226,7 +243,8 @@ def run(cfg: ExperimentConfig, kind: str = "early", *, device: torch.device, tin
         config_dict=config_dict,
         start_epoch=start_epoch,
     )
-    print(f"[done] best f1_macro: {result['best_metric']}")
+    if trainer.rank == 0:  # the ranks but 0 keep no best metric
+        print(f"[done] best f1_macro: {result['best_metric']}")
     return {**result, "trainer": trainer, "val": val_ds}
 
 
@@ -259,14 +277,15 @@ def main(argv=None):
                     help="torch device (default: system.device, the CUDA card; 'cpu' must be "
                          "asked for)")
     ap.add_argument("--mesh", nargs="?", const="dp", default=None,
-                    help="not ported: refused (ROADMAP item 12)")
+                    help="device-mesh spec (system.mesh): 'dp' = data-parallel over every "
+                         "visible card, 'dpN' over N (N gloo ranks with --device cpu)")
     args = ap.parse_args(argv)
     if args.image_root and not args.metadata:
         ap.error("--image-root requires --metadata")
-    if args.mesh:
-        raise SystemExit(f"--mesh: {NO_SCALE_OUT}")
 
     cfg = load_yaml_config(args.config)
+    if args.mesh:
+        cfg.system.mesh = args.mesh
     if args.epochs is not None:
         cfg.training.num_train_epochs = args.epochs
     if args.batch_size is not None:

@@ -1,4 +1,5 @@
-"""Train HyperEEG, with its six documented ablations, on one device.
+"""Train HyperEEG, with its six documented ablations, on one device or
+data-parallel over several.
 
 The counterpart of ``scripts/train_hypereeg.py``, with its flags and
 defaults:
@@ -8,6 +9,7 @@ defaults:
         [--batch-size 256] [--lr 5e-4] [--warmup-epochs 10] [--window 1024]
         [--stride 256] [--channels 32] [--fs 250] [--trials 48] [--no-augment]
         [--tiny] [--output-dir DIR] [--watch N] [--device cpu]
+        [--mesh [dp|dpN]]
 
 The recipe is the JAX script's: the model in float32 (the JAX script passes
 no ``dtype``), weights from seed 42 (``--tiny``: embed 32, 4 heads, sinc
@@ -26,8 +28,11 @@ It writes ``<output-dir>/checkpoints/best_model.pt`` (+ ``.meta.json``,
 eyegaze_tpu_torch.serve --kind hypereeg`` rebuild the model.  There is no
 ``--resume``, as in the JAX script.  Training runs on the CUDA card unless
 ``--device cpu`` asks for the CPU; without a card it stops with a message.
-``--mesh`` is refused.  HyperEEG's attentions are Flax's and launch no
-kernel of the port.
+``--mesh`` trains data-parallel, one rank per card (N gloo ranks for "dpN"
+with ``--device cpu``; ``train_dual_eeg``'s docstring): ``--batch-size`` is
+the global batch and must split over the ranks, and dropout and the
+augment draw from ``seed + rank``.  HyperEEG's attentions are Flax's and
+launch no kernel of the port.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from eyegaze_tpu_torch import parallel
 from eyegaze_tpu_torch.data.augment import augment_eeg
 from eyegaze_tpu_torch.data.loader import DualEEGWindowDataset
 from eyegaze_tpu_torch.data.synthetic import synthetic_eeg_pair_dataset
@@ -51,7 +57,7 @@ from eyegaze_tpu_torch.models.hypereeg import (
 from eyegaze_tpu_torch.train.losses import cross_entropy
 from eyegaze_tpu_torch.train.optim import make_optimizer, warmup_cosine_schedule
 from eyegaze_tpu_torch.train.trainer import Trainer, TrainerConfig
-from eyegaze_tpu_torch.train_dual_eeg import NO_SCALE_OUT, resolve_device
+from eyegaze_tpu_torch.train_dual_eeg import resolve_device
 from eyegaze_tpu_torch.utils.logging import RunLogger
 
 SEED = 42
@@ -84,11 +90,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default the CUDA card; 'cpu' must be asked for)")
     ap.add_argument("--mesh", nargs="?", const="dp", default=None,
-                    help="not ported: refused (ROADMAP item 12)")
-    args = ap.parse_args(argv)
-    if args.mesh:
-        raise SystemExit(f"--mesh: {NO_SCALE_OUT}")
-    return args
+                    help="data-parallel mesh: 'dp' = every visible card, 'dpN' = N (N gloo "
+                         "ranks with --device cpu)")
+    return ap.parse_args(argv)
 
 
 def build_model(args: argparse.Namespace, *, device: torch.device,
@@ -139,7 +143,10 @@ def make_objective(*, augment: bool, generator: torch.Generator):
 def run(args: argparse.Namespace, *, device: torch.device) -> dict:
     """Train as ``args`` (``parse_args``'s) say on ``device``; returns the
     fit result ({best_metric, history}), the trainer and the validation
-    split."""
+    split.  With ``args.mesh`` and no running group it spawns the ranks,
+    each running this function, and returns rank 0's fit result."""
+    if args.mesh and not parallel.active():
+        return parallel.fit_on_ranks(run, parallel.mesh_world(args.mesh, device), device, args)
     out_dir = args.output_dir or f"runs/eeg_hypereeg/{args.ablation}"
     model = build_model(args, device=device)
     train_ds, val_ds = prepare_data(args)
@@ -147,17 +154,20 @@ def run(args: argparse.Namespace, *, device: torch.device) -> dict:
     print(f"[model] HyperEEG[{args.ablation}]: "
           f"{sum(p.numel() for p in model.parameters()):,} params on {device}")
     bs = min(args.batch_size, len(train_ds))
+    rank, world = parallel.rank_and_world()
+    if args.mesh:
+        parallel.require_divisible(bs, world)
     steps_per_epoch = max(len(train_ds) // bs, 1)
     schedule = warmup_cosine_schedule(args.lr, args.warmup_epochs * steps_per_epoch,
                                       args.epochs * steps_per_epoch)
-    generator = torch.Generator(device=device).manual_seed(SEED)
+    generator = torch.Generator(device=device).manual_seed(SEED + rank)
     logger = RunLogger(out_dir, f"hypereeg_{args.ablation}")
     trainer = Trainer(
         model, make_optimizer(model, schedule, 0.01, grad_clip=1.0),
         *make_objective(augment=args.augment, generator=generator),
         TrainerConfig(num_epochs=args.epochs, metric_for_best="f1_macro",
                       checkpoint_dir=str(Path(out_dir) / "checkpoints"), seed=SEED,
-                      watch_every_epochs=args.watch),
+                      use_mesh=args.mesh, watch_every_epochs=args.watch),
         device=device, logger=logger.log, watch_logger=logger.log_watch if args.watch else None,
     )
     eval_bs = min(bs, max(len(val_ds), 1))
@@ -168,7 +178,8 @@ def run(args: argparse.Namespace, *, device: torch.device) -> dict:
         config_dict={"ablation": args.ablation,
                      "model": {"hypereeg": {f: getattr(model, f) for f in FIELDS}}},
     )
-    print(f"[done] best f1_macro: {result['best_metric']}")
+    if trainer.rank == 0:  # the ranks but 0 keep no best metric
+        print(f"[done] best f1_macro: {result['best_metric']}")
     return {**result, "trainer": trainer, "val": val_ds}
 
 

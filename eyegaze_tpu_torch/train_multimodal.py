@@ -1,10 +1,11 @@
-"""Train the multimodal fuzzy-gating composite (gaze + EEG) on one device.
+"""Train the multimodal fuzzy-gating composite (gaze + EEG) on one device or
+data-parallel over several.
 
 The counterpart of ``scripts/train_multimodal.py``:
 
     python -m eyegaze_tpu_torch.train_multimodal --config configs/multimodal_fuzzy_fusion.yaml
         [--epochs N] [--tiny] [--resume] [--watch N] [--gaze-checkpoint DIR]
-        [--eeg-checkpoint DIR] [--images DIR --eeg DIR] [--device cpu]
+        [--eeg-checkpoint DIR] [--images DIR --eeg DIR] [--device cpu] [--mesh [dp|dpN]]
 
 The recipe is the JAX script's:
 
@@ -44,9 +45,12 @@ constructor's fields, so ``MultimodalPredictor.from_checkpoint`` and
 ``--resume`` continues after the latest periodic checkpoint, from its epoch
 and train step (the JAX script restarts at epoch 0).  Training runs on the
 CUDA card unless ``--device cpu`` asks for the CPU; without a card it stops
-with a message.  ``--mesh`` is refused.  On the card the EEG encoder
-launches the phase-metrics kernel K1 once per train step and once per eval
-batch.
+with a message.  ``--mesh`` trains data-parallel, one rank per card (N gloo
+ranks for "dpN" with ``--device cpu``; ``train_dual_eeg``'s docstring):
+``training.per_device_train_batch_size`` is the global batch and must split
+over the ranks, and dropout draws from ``seed + rank``.  On the card the EEG
+encoder launches the phase-metrics kernel K1 once per train step and once
+per eval batch, on every rank.
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from eyegaze_tpu_torch import parallel
 from eyegaze_tpu_torch.config import ExperimentConfig, load_yaml_config
 from eyegaze_tpu_torch.data.image_fusion import imagenet_normalize, to_unit_float
 from eyegaze_tpu_torch.data.loader import MultimodalArrays
@@ -69,7 +74,7 @@ from eyegaze_tpu_torch.models.multimodal import FIELDS, MultimodalFusionModel
 from eyegaze_tpu_torch.train.losses import cross_entropy
 from eyegaze_tpu_torch.train.optim import Optimizer, make_optimizer
 from eyegaze_tpu_torch.train.trainer import Trainer, TrainerConfig
-from eyegaze_tpu_torch.train_dual_eeg import NO_SCALE_OUT, resolve_device
+from eyegaze_tpu_torch.train_dual_eeg import resolve_device
 from eyegaze_tpu_torch.utils.logging import RunLogger
 
 # scripts/train_multimodal.py:93-101, at img 64.
@@ -208,9 +213,14 @@ def run(cfg: ExperimentConfig, *, device: torch.device, tiny: bool = False, imag
         watch: int = 0) -> dict:
     """Train the composite as ``cfg`` says on ``device``; returns the fit
     result ({best_metric, history}), the trainer and the validation split.
-    ``tiny`` sets ``cfg.model.img_size`` to 64."""
-    if cfg.system.mesh:
-        raise SystemExit(f"system.mesh={cfg.system.mesh!r}: {NO_SCALE_OUT}")
+    ``tiny`` sets ``cfg.model.img_size`` to 64.  With ``system.mesh`` and no
+    running group it spawns the ranks, each running this function, and
+    returns rank 0's fit result."""
+    if cfg.system.mesh and not parallel.active():
+        return parallel.fit_on_ranks(
+            run, parallel.mesh_world(cfg.system.mesh, device), device, cfg, tiny=tiny,
+            images=images, eeg=eeg, gaze_checkpoint=gaze_checkpoint,
+            eeg_checkpoint=eeg_checkpoint, resume=resume, watch=watch)
     if bool(images) != bool(eeg):
         raise ValueError("images and eeg must be given together")
     if tiny:
@@ -231,7 +241,9 @@ def run(cfg: ExperimentConfig, *, device: torch.device, tiny: bool = False, imag
         TrainerConfig(num_epochs=t.num_train_epochs, save_every_epochs=t.save_every_n_epochs,
                       metric_for_best="f1_macro",
                       checkpoint_dir=str(Path(t.output_dir) / "checkpoints"),
-                      seed=cfg.system.seed, watch_every_epochs=watch),
+                      seed=cfg.system.seed, use_mesh=cfg.system.mesh,
+                      # The EEG encoder's IBS head feeds no loss.
+                      find_unused_parameters=model.use_ibs, watch_every_epochs=watch),
         device=device, logger=logger.log, watch_logger=logger.log_watch if watch else None,
     )
     start_epoch = 0
@@ -247,6 +259,8 @@ def run(cfg: ExperimentConfig, *, device: torch.device, tiny: bool = False, imag
     config_dict = cfg.to_dict()
     config_dict["model"]["multimodal"] = {f: getattr(model, f) for f in FIELDS}
     bs = min(t.per_device_train_batch_size, len(train_ds))
+    if cfg.system.mesh:
+        parallel.require_divisible(bs, parallel.rank_and_world()[1])
     result = trainer.fit(
         train_batches_fn=lambda epoch: train_ds.iter_batches(
             bs, shuffle=True, seed=cfg.system.seed, drop_remainder=True, epoch=epoch),
@@ -254,7 +268,8 @@ def run(cfg: ExperimentConfig, *, device: torch.device, tiny: bool = False, imag
         config_dict=config_dict,
         start_epoch=start_epoch,
     )
-    print(f"[done] best f1_macro: {result['best_metric']}")
+    if trainer.rank == 0:  # the ranks but 0 keep no best metric
+        print(f"[done] best f1_macro: {result['best_metric']}")
     return {**result, "trainer": trainer, "val": val_ds}
 
 
@@ -282,14 +297,15 @@ def main(argv=None):
                     help="torch device (default: system.device, the CUDA card; 'cpu' must be "
                          "asked for)")
     ap.add_argument("--mesh", nargs="?", const="dp", default=None,
-                    help="not ported: refused (ROADMAP item 12)")
+                    help="device-mesh spec (system.mesh): 'dp' = data-parallel over every "
+                         "visible card, 'dpN' over N (N gloo ranks with --device cpu)")
     args = ap.parse_args(argv)
     if bool(args.images) != bool(args.eeg):
         ap.error("--images and --eeg must be given together")
-    if args.mesh:
-        raise SystemExit(f"--mesh: {NO_SCALE_OUT}")
 
     cfg = load_yaml_config(args.config)
+    if args.mesh:
+        cfg.system.mesh = args.mesh
     if args.epochs is not None:
         cfg.training.num_train_epochs = args.epochs
     device = resolve_device(args.device or cfg.system.device,

@@ -382,5 +382,5 @@ def test_train_art_entry_point_on_the_cpu(tmp_path):
     assert "[model] ART: " in r.stdout and "[done] best val loss:" in r.stdout
     assert "val/snr_improvement_db=" in r.stdout
     assert (tmp_path / "art" / "checkpoints" / "best_model.pt").exists()
-    r = _run("eyegaze_tpu_torch.train_art", "--tiny", "--mesh", "--device", "cpu")
-    assert r.returncode != 0 and "ROADMAP item 12" in r.stderr
+    r = _run("eyegaze_tpu_torch.train_art", "--tiny", "--mesh", "dp1,tp2", "--device", "cpu")
+    assert r.returncode != 0 and "ROADMAP §1 item 5" in r.stderr

@@ -343,8 +343,8 @@ def test_resume_continues_from_the_saved_epoch(tmp_path):
     resumed = train_gaze.main(argv + ["--epochs", "2", "--resume"])
     assert [h["epoch"] for h in resumed["history"]] == [1]
     assert resumed["trainer"].optimizer.count == 2 * steps
-    with pytest.raises(SystemExit, match="ROADMAP item 12"):
-        train_gaze.main(argv + ["--mesh"])
+    with pytest.raises(ValueError, match="ROADMAP §1 item 5"):
+        train_gaze.main(argv + ["--mesh", "dp1,tp2"])
     with pytest.raises(SystemExit):
         train_gaze.main(argv + ["--image-root", str(tmp_path)])  # needs --metadata
 

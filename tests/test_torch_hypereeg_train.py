@@ -21,7 +21,7 @@ script's, and ``python -m eyegaze_tpu_torch.train_hypereeg`` on the CPU.
   ``HyperEEGPredictor.from_checkpoint`` (bf16) within 2**-5 of the largest
   |logit| of the trainer's float32 eval logits, ``serve --kind hypereeg``'s
   predictor equal to it; the per-step LR of a 3-epoch run against JAX's
-  ``warmup_cosine_schedule``; ``--mesh`` refused.
+  ``warmup_cosine_schedule``; a tensor-parallel ``--mesh`` refused.
 """
 
 import json
@@ -152,8 +152,8 @@ def test_one_tiny_epoch_served_back(tmp_path):
     np.testing.assert_allclose(got, want, rtol=0, atol=SHARE * np.abs(want).max())
     served = serve.build_predictor("hypereeg", path, (8,), CPU)
     np.testing.assert_array_equal(served.predict(rows["eeg1"], rows["eeg2"])["logits"], got)
-    with pytest.raises(SystemExit, match="ROADMAP item 12"):
-        train_hypereeg.main(["--tiny", "--mesh"])
+    with pytest.raises(ValueError, match="ROADMAP §1 item 5"):
+        train_hypereeg.main(["--tiny", "--mesh", "dp1,tp2", "--device", "cpu"])
 
 
 def test_per_step_lr_follows_the_jax_schedule(tmp_path):

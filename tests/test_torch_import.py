@@ -50,7 +50,9 @@ def test_port_imports_without_jax():
             "eyegaze_tpu_torch.analysis.matlab_parity", "eyegaze_tpu_torch.analyze_gaze",
             "eyegaze_tpu_torch.analyze_entropy", "eyegaze_tpu_torch.render_matlab_figures",
             "eyegaze_tpu_torch.run_analysis",
-            "eyegaze_tpu_torch.rehearsal_full_scale"} <= set(modules)
+            "eyegaze_tpu_torch.rehearsal_full_scale", "eyegaze_tpu_torch.parallel",
+            "eyegaze_tpu_torch.parallel.mesh", "eyegaze_tpu_torch.parallel.sharding",
+            "eyegaze_tpu_torch.parallel.multihost"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "for banned in ('jax', 'flax', 'optax', 'orbax', 'eyegaze_tpu', 'pandas', 'matplotlib',\n"

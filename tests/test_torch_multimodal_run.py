@@ -12,8 +12,8 @@
   back by ``MultimodalPredictor.from_checkpoint`` at the eval batch's size:
   logits equal to the bit to the trainer's own eval logits (bf16 both, the
   same ops on the same rows).  ``serve.sniff_kind`` reads the stamp.
-- ``--resume`` continues from the saved epoch and train step; ``--mesh``
-  and ``--images`` without ``--eeg`` are refused.
+- ``--resume`` continues from the saved epoch and train step; a
+  tensor-parallel ``--mesh`` and ``--images`` without ``--eeg`` are refused.
 """
 
 import json
@@ -86,8 +86,8 @@ def test_resume_continues_from_the_saved_epoch(first_run):
     resumed = train_multimodal.main(argv + ["--epochs", "2", "--resume"])
     assert [h["epoch"] for h in resumed["history"]] == [1]
     assert resumed["trainer"].optimizer.count == 2 * steps
-    with pytest.raises(SystemExit, match="ROADMAP item 12"):
-        train_multimodal.main(argv + ["--mesh"])
+    with pytest.raises(ValueError, match="ROADMAP §1 item 5"):
+        train_multimodal.main(argv + ["--mesh", "dp1,tp2"])
     with pytest.raises(SystemExit):
         train_multimodal.main(argv + ["--images", "converted"])  # needs --eeg
 
