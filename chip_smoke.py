@@ -322,6 +322,29 @@ none, fails the run.  Then, each phase raising on any failure:
    per step K1 once at N = 192, 18 K3-bf16 launches and 18 launches of
    K4's one-pass backward.  The step times per rank beside one process's
    are two ranks sharing one card, not a scale-out rate.
+37. Tensor parallelism (``eyegaze_tpu_torch.parallel.tensor``: Megatron
+   column and row layers, one all_reduce per sharded block forward and one
+   per copy into a tp region backward).  Gloo ranks share the card through
+   ``parallel.launch``, against one process on the same batches and
+   checkpoints, at ``check_dp_parity``'s bounds (the parameters gathered
+   over the tp ranks).  Two ranks, ``tp2``: (a) 3 bf16 ART steps at batch 16,
+   attention dropout 0.0, every dropout off: per rank per step 18 K3-bf16
+   launches at (16, 1024, 4, 16), 18 launches of K4's one-pass backward and
+   the all_reduces predicted from the layers (6 encoder blocks x 2 + 6
+   decoder blocks x 3 forward, 6 x 2 + 6 x 4 copies backward); (b) 3 bf16
+   ViT-B/16 early-fusion steps at batch 16 without dropout or augment, each
+   rank's parameter bytes beside one process's; (d) the flagship, ViT-B/16
+   early fusion, ART, the composite and HyperEEG served bf16 from a
+   checkpoint under ``tp2``, each within 2**-5 of the largest output of the
+   same checkpoint served unsharded on the card, K1 as often as unsharded
+   and ART's request 18 K3-bf16 launches at 4 heads a rank.  Four ranks,
+   ``dp2,tp2``: (c) 3 bf16 and one f32 flagship bench steps at batch 64,
+   dropout 0, K1 once per rank per step at N = 192.  In one process: (e),
+   run beside phase 3, K3-bf16's forward and K4's one-pass backward at
+   (16, 1024, 4, 16) against their twins, timed beside SDPA's and their
+   bounds; (f) ``--mesh tp2`` on the one card raises in ``train_art``'s CLI
+   and in ``serve``.
+   The step times are ranks sharing one card, not a scale-out rate.
 
 Every phase runs in float32 (TF32 off) unless it says bf16.  There is no
 CPU fallback: without a CUDA device the script exits non-zero and prints no
@@ -333,7 +356,7 @@ exponentials take on the SFU alone (``sfu_ex2_ms``, not a floor).  The
 second-to-last line of stdout is a JSON object with each kernel entry
 point's launches, error, times and bound (K1's launches are serving's,
 training's, the composite's, multimodal training's, the imported
-checkpoints', the analysis's, the rehearsal's and phase 36's, with its timing at
+checkpoints', the analysis's, the rehearsal's and phases 36's and 37's, with its timing at
 the train shape and the train step's median times and peak memory beside
 them, its time, bound and share at each composite bucket, the
 composite train step's time, memory and K1 launches per step, and the
@@ -341,10 +364,12 @@ analysis's predicted forwards, stage times and timing at its shapes; the
 f32 head-packed entry's are
 serving's and ART training's, with its backward calls, the ART train
 step's medians and the autograd timing; the bf16 head-packed entry's are
-bf16 serving's, bf16 ART training's, the imported ART's and phase 36's
-ranks', with that step's medians; the
+bf16 serving's, bf16 ART training's, the imported ART's and phases 36's
+and 37's ranks', with that step's medians and phase 37's timing at a tp2
+rank's shape; the
 one-pass backward kernel's, ``flash_attention_bwd``, are bf16 ART
-training's and phase 36's ranks', timed at ART's training shape, each case of the backward phase
+training's and phases 36's and 37's ranks', timed at ART's training shape
+and at a tp2 rank's, each case of the backward phase
 beside; the two backward kernels', ``flash_attention_bwd_dkv`` and
 ``flash_attention_bwd_dq``, the flash route's train steps, timed at K4's
 shape and past the one-pass kernel's reach);
@@ -693,6 +718,11 @@ REHEARSAL_SERVED = 16  # validation windows served from the trained checkpoint
 DP_CLI_TRIALS = 240
 DP_WORLD = 2
 DP_STEPS = 3
+# Phase 37 (tensor parallelism): two ranks at tp2 and four at dp2,tp2 sharing
+# the card; a tp2 rank holds 4 of ART's 8 heads.
+TP_MESH, TP_DPTP, TP_WORLD, TP_STEPS = "tp2", "dp2,tp2", 2, 3
+TP_ATTN_SHAPE = (16, 1024, 4, 16)  # (B, T, H, d): ART's train batch at 8 / tp heads
+TP_SERVE_SHARE = 2.0 ** -5  # the port's bf16 card bound, of the largest |output|
 # Two ranks against one process in bf16: the same math, rounded to bf16
 # at other places (the products' shapes differ), as ART's bf16 step
 # against the CPU (ART_BF16_LOSS_RTOL): the losses, the first step's
@@ -1995,166 +2025,175 @@ def attention_backward_phase(device, clock_hz) -> dict:
     backward's, with each one's peak memory in transit.  Returns each
     case's fields; the first case's (ART's shape) are the one-pass
     kernel's on the kernels line, the second's (K4's) the two kernels'."""
+    from eyegaze_tpu_torch.kernels import attention
+
+    return [backward_case(device, clock_hz, 40 + seed, entry, shape, tk)
+            for seed, (entry, shape, tk) in enumerate(
+                attention.BACKWARD_CASES + (attention.BACKWARD_PAST_REACH,))]
+
+
+def backward_case(device, clock_hz, seed: int, entry: str, shape: tuple, tk: int) -> dict:
+    """One case of ``attention_backward_phase`` (its docstring): ``entry``
+    at (B, Tq, H, d) ``shape`` with ``tk`` keys, inputs drawn from
+    ``seed``."""
     from torch.profiler import ProfilerActivity, profile
 
     from eyegaze_tpu_torch.kernels import attention
 
-    results = []
-    cases = attention.BACKWARD_CASES + (attention.BACKWARD_PAST_REACH,)
-    for seed, (entry, (b, tq, h, d), tk) in enumerate(cases):
-        path = attention.backward_path(tk, d)
-        flash = entry == "flash_attention"
-        t_dim, h_dim = (2, 1) if flash else (1, 2)
-        scale = 1.0 / math.sqrt(d)
-        r = np.random.default_rng(40 + seed)
-        x = [torch.from_numpy(r.normal(size=(b, t, h, d)).astype(np.float32)).to(
-            device, torch.bfloat16) for t in (tq, tk, tk, tq)]
-        if flash:
-            x = [a.transpose(1, 2).contiguous() for a in x]
-        q, k, v, g = x
-        for a in (q, k, v):
-            a.requires_grad_()
-        fn = getattr(attention, entry)
-        shape = f"{entry} (B {b}, H {h}, Tq {tq}, Tk {tk}, d {d}) bf16"
+    b, tq, h, d = shape
+    path = attention.backward_path(tk, d)
+    flash = entry == "flash_attention"
+    t_dim, h_dim = (2, 1) if flash else (1, 2)
+    scale = 1.0 / math.sqrt(d)
+    r = np.random.default_rng(seed)
+    x = [torch.from_numpy(r.normal(size=(b, t, h, d)).astype(np.float32)).to(
+        device, torch.bfloat16) for t in (tq, tk, tk, tq)]
+    if flash:
+        x = [a.transpose(1, 2).contiguous() for a in x]
+    q, k, v, g = x
+    for a in (q, k, v):
+        a.requires_grad_()
+    fn = getattr(attention, entry)
+    shape = f"{entry} (B {b}, H {h}, Tq {tq}, Tk {tk}, d {d}) bf16"
 
-        def bhtd(a):
-            return a if flash else a.transpose(1, 2)
+    def bhtd(a):
+        return a if flash else a.transpose(1, 2)
 
-        out = fn(q, k, v, scale)
-        o, lse = out.detach(), out.grad_fn.saved_tensors[4]
-        got = torch.autograd.grad(out, (q, k, v), g)
+    out = fn(q, k, v, scale)
+    o, lse = out.detach(), out.grad_fn.saved_tensors[4]
+    got = torch.autograd.grad(out, (q, k, v), g)
+    torch.cuda.synchronize()
+    qd, kd, vd = (a.detach() for a in (q, k, v))
+    qt, kt, vt, ot, gt = (bhtd(a) for a in (qd, kd, vd, o, g))
+    lse_err = float((lse - attention.attention_lse_reference(qt, kt, scale)).abs().max())
+    if not lse_err <= 1e-4:
+        raise RuntimeError(f"{shape}: the forward's log-sum-exp is off by {lse_err:.3e}")
+    want = attention.flash_attention_backward_reference(qt, kt, vt, ot, lse, gt, scale)
+    errs = attention.assert_backward_within(
+        shape, [bhtd(a) for a in got], want,
+        attention.backward_bound(qt, kt, vt, ot, lse, gt, scale))
+    del want
+    qs, ks, vs = (bhtd(a).detach().clone().requires_grad_() for a in (q, k, v))
+    sdpa = torch.autograd.grad(F.scaled_dot_product_attention(qs, ks, vs, scale=scale),
+                               (qs, ks, vs), gt)
+    witness = {label: float(torch.linalg.vector_norm((bhtd(a) - w).float())
+                            / torch.linalg.vector_norm(w.float()))
+               for label, a, w in zip(("dq", "dk", "dv"), got, sdpa)}
+    del sdpa, qs, ks, vs
+    if max(witness.values()) > SDPA_WITNESS_RTOL:
+        raise RuntimeError(f"{shape}: the kernels' gradients are not "
+                           f"F.scaled_dot_product_attention's: {witness}")
+    print(f"{shape} backward ({path} path): max |kernels - twin| "
+          + ", ".join(f"{k} {e['max_abs_err']:.3e} ({e['share_of_bound']:.2f} of its bound)"
+                      for k, e in errs.items())
+          + f"; forward LSE within {lse_err:.2e} of the twin's; relative Frobenius distance "
+          f"from F.scaled_dot_product_attention's gradients "
+          + ", ".join(f"{k} {e:.2e}" for k, e in witness.items())
+          + f" (bound {SDPA_WITNESS_RTOL:g})")
+
+    def kernels():
+        attention._launch_backward(qd, kd, vd, o, lse, g, scale, t_dim, h_dim)
+
+    def twin():
+        attention.flash_attention_backward_reference(qt, kt, vt, ot, lse, gt, scale)
+
+    lib = torch.ops.aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, False, False,
+                                                             scale=scale)
+
+    def library():
+        torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            gt, qt, kt, vt, lib[0], lib[1], lib[2], lib[3], lib[4], lib[5], 0.0, False,
+            lib[6], lib[7], scale=scale)
+
+    ms, plain_ms, library_ms = alternate_ms(kernels, twin, library)
+    ms_b2b, library_b2b = alternate_ms(kernels, library, calls=BACK_TO_BACK)
+    ms_graph, library_graph = graph_ms(kernels), graph_ms(library)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(BACK_TO_BACK):
+            kernels()
         torch.cuda.synchronize()
-        qd, kd, vd = (a.detach() for a in (q, k, v))
-        qt, kt, vt, ot, gt = (bhtd(a) for a in (qd, kd, vd, o, g))
-        lse_err = float((lse - attention.attention_lse_reference(qt, kt, scale)).abs().max())
-        if not lse_err <= 1e-4:
-            raise RuntimeError(f"{shape}: the forward's log-sum-exp is off by {lse_err:.3e}")
-        want = attention.flash_attention_backward_reference(qt, kt, vt, ot, lse, gt, scale)
-        errs = attention.assert_backward_within(
-            shape, [bhtd(a) for a in got], want,
-            attention.backward_bound(qt, kt, vt, ot, lse, gt, scale))
-        del want
-        qs, ks, vs = (bhtd(a).detach().clone().requires_grad_() for a in (q, k, v))
-        sdpa = torch.autograd.grad(F.scaled_dot_product_attention(qs, ks, vs, scale=scale),
-                                   (qs, ks, vs), gt)
-        witness = {label: float(torch.linalg.vector_norm((bhtd(a) - w).float())
-                                / torch.linalg.vector_norm(w.float()))
-                   for label, a, w in zip(("dq", "dk", "dv"), got, sdpa)}
-        del sdpa, qs, ks, vs
-        if max(witness.values()) > SDPA_WITNESS_RTOL:
-            raise RuntimeError(f"{shape}: the kernels' gradients are not "
-                               f"F.scaled_dot_product_attention's: {witness}")
-        print(f"{shape} backward ({path} path): max |kernels - twin| "
-              + ", ".join(f"{k} {e['max_abs_err']:.3e} ({e['share_of_bound']:.2f} of its bound)"
-                          for k, e in errs.items())
-              + f"; forward LSE within {lse_err:.2e} of the twin's; relative Frobenius distance "
-              f"from F.scaled_dot_product_attention's gradients "
-              + ", ".join(f"{k} {e:.2e}" for k, e in witness.items())
-              + f" (bound {SDPA_WITNESS_RTOL:g})")
+    per_kernel = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and "attention_bwd" in ev.name:
+            name = re.search(r"attention_bwd_\w+?_kernel", ev.name).group(0)
+            per_kernel[name] = per_kernel.get(name, 0.0) + ev.device_time / 1e3
+    per_kernel = {k: v / BACK_TO_BACK for k, v in per_kernel.items()}
+    if set(per_kernel) != set(BWD_KERNELS[path]):
+        raise RuntimeError(f"{shape}: torch.profiler saw the backward kernels "
+                           f"{sorted(per_kernel)} on the {path} path")
 
-        def kernels():
-            attention._launch_backward(qd, kd, vd, o, lse, g, scale, t_dim, h_dim)
+    # The bound: the backward's five products (S, dP, dV, dK, dQ), 2 B H
+    # Tq Tk d operations each, against Q, K, V, O, dO read, dQ, dK, dV
+    # written (bf16), LSE read and Di written once (f32); the one-pass
+    # kernel does that work.  On the two-kernel path each kernel's own:
+    # dQ recomputes S and dP and sums dQ (3 products), reads q, k, v, o,
+    # dO and LSE and writes dQ and Di; dK/dV recomputes S and dP and sums
+    # dV and dK (4), reads q, k, v, dO, LSE and Di, writes dK, dV.
+    mm = 2 * b * h * tq * tk * d
+    q_bytes, k_bytes, row_bytes = 2 * b * tq * h * d, 2 * b * tk * h * d, 4 * b * h * tq
+    bwd_bound, bwd_by = bound(4 * q_bytes + 4 * k_bytes + 2 * row_bytes, 5 * mm,
+                              BF16_OPS_PER_S)
+    dq_bound = bound(3 * q_bytes + 2 * k_bytes + 2 * row_bytes + q_bytes, 3 * mm,
+                     BF16_OPS_PER_S)
+    dkv_bound = bound(2 * q_bytes + 2 * k_bytes + 2 * row_bytes + 2 * k_bytes, 4 * mm,
+                      BF16_OPS_PER_S)
+    # How often each score's exponential is taken.
+    passes = 1 if path.startswith("one_pass") else 2
+    sfu_ms = passes * b * h * tq * tk / (SFU_EX2_PER_CLOCK * SMS * clock_hz) * 1e3
 
-        def twin():
-            attention.flash_attention_backward_reference(qt, kt, vt, ot, lse, gt, scale)
+    def function():
+        torch.autograd.grad(fn(q, k, v, scale), (q, k, v), g)
 
-        lib = torch.ops.aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, False, False,
-                                                                 scale=scale)
+    ql, kl, vl = (bhtd(a).detach().clone().requires_grad_() for a in (q, k, v))
 
-        def library():
-            torch.ops.aten._scaled_dot_product_flash_attention_backward(
-                gt, qt, kt, vt, lib[0], lib[1], lib[2], lib[3], lib[4], lib[5], 0.0, False,
-                lib[6], lib[7], scale=scale)
+    def library_train():
+        torch.autograd.grad(F.scaled_dot_product_attention(ql, kl, vl, scale=scale),
+                            (ql, kl, vl), gt)
 
-        ms, plain_ms, library_ms = alternate_ms(kernels, twin, library)
-        ms_b2b, library_b2b = alternate_ms(kernels, library, calls=BACK_TO_BACK)
-        ms_graph, library_graph = graph_ms(kernels), graph_ms(library)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(BACK_TO_BACK):
-                kernels()
-            torch.cuda.synchronize()
-        per_kernel = {}
-        for ev in prof.events():
-            if ev.device_type == torch.autograd.DeviceType.CUDA and "attention_bwd" in ev.name:
-                name = re.search(r"attention_bwd_\w+?_kernel", ev.name).group(0)
-                per_kernel[name] = per_kernel.get(name, 0.0) + ev.device_time / 1e3
-        per_kernel = {k: v / BACK_TO_BACK for k, v in per_kernel.items()}
-        if set(per_kernel) != set(BWD_KERNELS[path]):
-            raise RuntimeError(f"{shape}: torch.profiler saw the backward kernels "
-                               f"{sorted(per_kernel)} on the {path} path")
+    def stock():  # the kernel forward, then the stock-op backward K3 had
+        with torch.no_grad():
+            fn(qd, kd, vd, scale)
+        bthd = (lambda a: a.transpose(1, 2)) if flash else (lambda a: a)
+        attention.attention_backward_reference(bthd(qd), bthd(kd), bthd(vd), bthd(g), scale)
 
-        # The bound: the backward's five products (S, dP, dV, dK, dQ), 2 B H
-        # Tq Tk d operations each, against Q, K, V, O, dO read, dQ, dK, dV
-        # written (bf16), LSE read and Di written once (f32); the one-pass
-        # kernel does that work.  On the two-kernel path each kernel's own:
-        # dQ recomputes S and dP and sums dQ (3 products), reads q, k, v, o,
-        # dO and LSE and writes dQ and Di; dK/dV recomputes S and dP and sums
-        # dV and dK (4), reads q, k, v, dO, LSE and Di, writes dK, dV.
-        mm = 2 * b * h * tq * tk * d
-        q_bytes, k_bytes, row_bytes = 2 * b * tq * h * d, 2 * b * tk * h * d, 4 * b * h * tq
-        bwd_bound, bwd_by = bound(4 * q_bytes + 4 * k_bytes + 2 * row_bytes, 5 * mm,
-                                  BF16_OPS_PER_S)
-        dq_bound = bound(3 * q_bytes + 2 * k_bytes + 2 * row_bytes + q_bytes, 3 * mm,
-                         BF16_OPS_PER_S)
-        dkv_bound = bound(2 * q_bytes + 2 * k_bytes + 2 * row_bytes + 2 * k_bytes, 4 * mm,
-                          BF16_OPS_PER_S)
-        # How often each score's exponential is taken.
-        passes = 1 if path.startswith("one_pass") else 2
-        sfu_ms = passes * b * h * tq * tk / (SFU_EX2_PER_CLOCK * SMS * clock_hz) * 1e3
-
-        def function():
-            torch.autograd.grad(fn(q, k, v, scale), (q, k, v), g)
-
-        ql, kl, vl = (bhtd(a).detach().clone().requires_grad_() for a in (q, k, v))
-
-        def library_train():
-            torch.autograd.grad(F.scaled_dot_product_attention(ql, kl, vl, scale=scale),
-                                (ql, kl, vl), gt)
-
-        def stock():  # the kernel forward, then the stock-op backward K3 had
-            with torch.no_grad():
-                fn(qd, kd, vd, scale)
-            bthd = (lambda a: a.transpose(1, 2)) if flash else (lambda a: a)
-            attention.attention_backward_reference(bthd(qd), bthd(kd), bthd(vd), bthd(g), scale)
-
-        fwd_bwd_ms, library_fwd_bwd_ms, stock_ms = alternate_ms(function, library_train, stock)
-        transit = {}
-        for label, call in (("function", function), ("stock", stock)):
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated(device)
-            torch.cuda.reset_peak_memory_stats(device)
-            call()
-            torch.cuda.synchronize()
-            transit[label] = (torch.cuda.max_memory_allocated(device) - base) / 2**30
-        split = ("" if path.startswith("one_pass") else
-                 f"; dQ kernel {dq_bound[0]:.4f}, dK/dV kernel {dkv_bound[0]:.4f}")
-        print(f"{shape} backward kernels alone ({path} path): one call {ms:.4f} ms ("
-              + ", ".join(f"{k} {v:.4f}" for k, v in per_kernel.items())
-              + f" ms of device time, torch.profiler), back to back {ms_b2b:.4f}, CUDA graph "
-              f"{ms_graph:.4f} ({bwd_bound / ms_graph:.0%} of the bound); twin {plain_ms:.4f}; "
-              f"the library's backward (aten flash backward) one call {library_ms:.4f}, back to "
-              f"back {library_b2b:.4f}, graph {library_graph:.4f}; bound {bwd_bound:.4f} ms "
-              f"({bwd_by}: 10 B H Tq Tk d = {5 * mm:.3g} operations at "
-              f"{BF16_OPS_PER_S / 1e12:g} TFLOP/s{split}); the {passes * b * h * tq * tk:.3g} "
-              f"exponentials on the SFU alone {sfu_ms:.4f} ms (not a floor).  Forward + "
-              f"backward: Function "
-              f"{fwd_bwd_ms:.4f} ms, F.scaled_dot_product_attention {library_fwd_bwd_ms:.4f} ms, "
-              f"kernel forward + the stock-op backward {stock_ms:.4f} ms (in turns); peak "
-              f"memory in transit {transit['function']:.3f} GiB (Function) against "
-              f"{transit['stock']:.3f} GiB (stock backward)")
-        results.append({
-            "shape": [b, h, tq, d], "tk": tk, "entry": entry, "path": path, "errors": errs,
-            "lse_max_abs_err": lse_err, "sdpa_relative_distance": witness,
-            "ms": ms, "ms_back_to_back": ms_b2b, "ms_graph": ms_graph,
-            "kernel_ms": per_kernel, "plain_ms": plain_ms, "library_ms": library_ms,
-            "library_ms_back_to_back": library_b2b, "library_ms_graph": library_graph,
-            "bound_ms": bwd_bound, "bound_by": bwd_by, "dq_bound": dq_bound,
-            "dkv_bound": dkv_bound, "sfu_ex2_ms": sfu_ms, "fwd_bwd_ms": fwd_bwd_ms,
-            "library_fwd_bwd_ms": library_fwd_bwd_ms, "stock_fwd_bwd_ms": stock_ms,
-            "transit_gib": transit})
-        del q, k, v, g, x, got, out, o, lse, lib, ql, kl, vl
-        torch.cuda.empty_cache()
-    return results
+    fwd_bwd_ms, library_fwd_bwd_ms, stock_ms = alternate_ms(function, library_train, stock)
+    transit = {}
+    for label, call in (("function", function), ("stock", stock)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        call()
+        torch.cuda.synchronize()
+        transit[label] = (torch.cuda.max_memory_allocated(device) - base) / 2**30
+    split = ("" if path.startswith("one_pass") else
+             f"; dQ kernel {dq_bound[0]:.4f}, dK/dV kernel {dkv_bound[0]:.4f}")
+    print(f"{shape} backward kernels alone ({path} path): one call {ms:.4f} ms ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in per_kernel.items())
+          + f" ms of device time, torch.profiler), back to back {ms_b2b:.4f}, CUDA graph "
+          f"{ms_graph:.4f} ({bwd_bound / ms_graph:.0%} of the bound); twin {plain_ms:.4f}; "
+          f"the library's backward (aten flash backward) one call {library_ms:.4f}, back to "
+          f"back {library_b2b:.4f}, graph {library_graph:.4f}; bound {bwd_bound:.4f} ms "
+          f"({bwd_by}: 10 B H Tq Tk d = {5 * mm:.3g} operations at "
+          f"{BF16_OPS_PER_S / 1e12:g} TFLOP/s{split}); the {passes * b * h * tq * tk:.3g} "
+          f"exponentials on the SFU alone {sfu_ms:.4f} ms (not a floor).  Forward + "
+          f"backward: Function "
+          f"{fwd_bwd_ms:.4f} ms, F.scaled_dot_product_attention {library_fwd_bwd_ms:.4f} ms, "
+          f"kernel forward + the stock-op backward {stock_ms:.4f} ms (in turns); peak "
+          f"memory in transit {transit['function']:.3f} GiB (Function) against "
+          f"{transit['stock']:.3f} GiB (stock backward)")
+    result = {
+        "shape": [b, h, tq, d], "tk": tk, "entry": entry, "path": path, "errors": errs,
+        "lse_max_abs_err": lse_err, "sdpa_relative_distance": witness,
+        "ms": ms, "ms_back_to_back": ms_b2b, "ms_graph": ms_graph,
+        "kernel_ms": per_kernel, "plain_ms": plain_ms, "library_ms": library_ms,
+        "library_ms_back_to_back": library_b2b, "library_ms_graph": library_graph,
+        "bound_ms": bwd_bound, "bound_by": bwd_by, "dq_bound": dq_bound,
+        "dkv_bound": dkv_bound, "sfu_ex2_ms": sfu_ms, "fwd_bwd_ms": fwd_bwd_ms,
+        "library_fwd_bwd_ms": library_fwd_bwd_ms, "stock_fwd_bwd_ms": stock_ms,
+        "transit_gib": transit}
+    del q, k, v, g, x, got, out, o, lse, lib, ql, kl, vl
+    torch.cuda.empty_cache()
+    return result
 
 
 def art_train_timed_phase(device, attn_dropout) -> dict:
@@ -4279,10 +4318,11 @@ def dp_cli_phase(tmp: Path) -> dict:
             "wall_s": runs["--mesh dp"]["wall_s"]}
 
 
-def dp_steps(trainer, batches: list, read=None) -> dict:
+def dp_steps(trainer, batches: list, read=None, full: bool = False) -> dict:
     """``trainer.train_epoch`` on each global batch in turn (one step
     each), each step timed to a synchronize; ``read()`` after each step
-    gives its launches."""
+    gives its launches.  ``full``: the parameters after the steps with the
+    tp shards gathered (``tp_full_params``)."""
     losses, norms, walls, counts = [], [], [], []
     for i, batch in enumerate(batches):
         t0 = time.perf_counter()
@@ -4293,25 +4333,27 @@ def dp_steps(trainer, batches: list, read=None) -> dict:
         norms.append(stats["train/grad_norm"])
         if read is not None:
             counts.append(read())
+    params = (tp_full_params(trainer.model) if full else
+              {n: p.detach().float().cpu().clone() for n, p in trainer.model.named_parameters()})
     return {"losses": losses, "grad_norms": norms, "walls_ms": walls, "counts": counts,
-            "params": {n: p.detach().float().cpu().clone()
-                       for n, p in trainer.model.named_parameters()}}
+            "params": params}
 
 
-def dp_trainers(device, mesh):
+def dp_trainers(device, mesh, names=("flagship", "flagship_f32", "art")):
     """The flagship (bf16, the bench's objective; "flagship_f32" the same in
     float32) and ART (bf16, attention dropout 0.0) at full width, every
     dropout off, each in a ``Trainer`` (``mesh``: its ``use_mesh``) with
-    AdamW at their train LRs."""
+    AdamW at their train LRs; those of ``names``."""
     from eyegaze_tpu_torch import train_art
     from eyegaze_tpu_torch.train.optim import make_optimizer
     from eyegaze_tpu_torch.train.trainer import Trainer, TrainerConfig
     from eyegaze_tpu_torch.train_dual_eeg import build_model, make_objective
 
     cfg = flagship_train_config(".", dropout=0.0)
-    models = {"flagship": build_model(cfg, device=device, dtype=torch.bfloat16),
-              "flagship_f32": build_model(cfg, device=device),
-              "art": art_train_model(device, 0.0, torch.bfloat16)}
+    build = {"flagship": lambda: build_model(cfg, device=device, dtype=torch.bfloat16),
+             "flagship_f32": lambda: build_model(cfg, device=device),
+             "art": lambda: art_train_model(device, 0.0, torch.bfloat16)}
+    models = {name: build[name]() for name in names}
     flagship_loss = make_objective(cfg)[0]
     objectives = {"flagship": flagship_loss, "flagship_f32": flagship_loss,
                   "art": train_art.make_objective(False)[0]}
@@ -4340,15 +4382,12 @@ def dp_batches() -> dict:
                     for i in range(DP_STEPS)]}
 
 
-def dp_rank(rank, world, device, batches) -> dict:
-    """Phase 36 (b, c) on one rank of the two that share the card through
-    gloo: DP_STEPS bf16 flagship steps, one f32 flagship step (on the first
-    batch), then DP_STEPS ART steps, each rank on its rows of the global
-    batches.  Returns the steps (``dp_steps``), K1's launches and their N,
-    and the attention counts after each ART step."""
+def flagship_rank_steps(trainers: dict, batches: list, full: bool = False) -> dict:
+    """A rank's flagship steps in phases 36 and 37: the bf16 trainer's on
+    ``batches``, the f32 one's on the first (``dp_steps``, ``full`` its
+    flag), each with K1's launches, the bf16 steps with the N of each."""
     from eyegaze_tpu_torch.kernels import phase_metrics
 
-    trainers = dp_trainers(device, f"dp{world}")
     ns = []
     launch = phase_metrics.phase_metric_sums
 
@@ -4357,12 +4396,46 @@ def dp_rank(rank, world, device, batches) -> dict:
         return launch(*args)
 
     phase_metrics.phase_metric_sums = recording
-    reset_k1_count()
-    flagship = dp_steps(trainers["flagship"], batches["flagship"])
-    flagship["k1"], flagship["k1_n"] = k1_count(), list(ns)
-    reset_k1_count()
-    f32 = dp_steps(trainers["flagship_f32"], batches["flagship"][:1])
-    f32["k1"] = k1_count()
+    try:
+        reset_k1_count()
+        flagship = dp_steps(trainers["flagship"], batches, full=full)
+        flagship["k1"], flagship["k1_n"] = k1_count(), list(ns)
+        reset_k1_count()
+        f32 = dp_steps(trainers["flagship_f32"], batches[:1], full=full)
+        f32["k1"] = k1_count()
+    finally:
+        phase_metrics.phase_metric_sums = launch
+    return {"flagship": flagship, "flagship_f32": f32}
+
+
+@contextlib.contextmanager
+def recorded_heads():
+    """``attention.headpacked_attention`` recording the head count of each
+    call into the list it yields."""
+    from eyegaze_tpu_torch.kernels import attention
+
+    heads = []
+    launch = attention.headpacked_attention
+
+    def recording(q, *args):
+        heads.append(int(q.shape[2]))
+        return launch(q, *args)
+
+    attention.headpacked_attention = recording
+    try:
+        yield heads
+    finally:
+        attention.headpacked_attention = launch
+
+
+def dp_rank(rank, world, device, batches) -> dict:
+    """Phase 36 (b, c) on one rank of the two that share the card through
+    gloo: DP_STEPS bf16 flagship steps, one f32 flagship step (on the first
+    batch), then DP_STEPS ART steps, each rank on its rows of the global
+    batches.  Returns the steps (``dp_steps``), K1's launches and their N,
+    and the attention counts after each ART step."""
+    trainers = dp_trainers(device, f"dp{world}")
+    out = flagship_rank_steps(trainers, batches["flagship"])
 
     def read():
         counts = art_bf16_train_counts()
@@ -4372,8 +4445,8 @@ def dp_rank(rank, world, device, batches) -> dict:
 
     reset_attention_counts()
     reset_backward_count()
-    art = dp_steps(trainers["art"], batches["art"], read)
-    return {"flagship": flagship, "flagship_f32": f32, "art": art}
+    out["art"] = dp_steps(trainers["art"], batches["art"], read)
+    return out
 
 
 def check_dp_parity(name: str, ranks: list, one: dict, lr: float, loss_bound,
@@ -4388,9 +4461,9 @@ def check_dp_parity(name: str, ranks: list, one: dict, lr: float, loss_bound,
     not bounded: after a step the parameters may differ by the Adam bound,
     up to 2 lr on an entry whose gradient is rounding noise, which moves a
     bf16 weight by an ulp and a gradient norm by far more than 1e-3."""
-    if any(not torch.equal(ranks[0]["params"][k], ranks[1]["params"][k])
-           for k in ranks[0]["params"]):
-        raise RuntimeError(f"{name}: the two ranks hold other parameters")
+    if any(not torch.equal(ranks[0]["params"][k], other["params"][k])
+           for other in ranks[1:] for k in ranks[0]["params"]):
+        raise RuntimeError(f"{name}: the ranks hold other parameters")
     got = ranks[0]
     before = one["before"]
     step = {k: got["params"][k] - before[k] for k in before}
@@ -4402,7 +4475,7 @@ def check_dp_parity(name: str, ranks: list, one: dict, lr: float, loss_bound,
     apart_bound = 2 * lr * 1.01 * steps
     loss_gaps = [abs(a - b) / loss_bound(b) for a, b in zip(got["losses"], one["losses"])]
     norm_gap = abs(got["grad_norms"][0] / one["grad_norms"][0] - 1) / rtol
-    print(f"{name}, two ranks sharing one card through gloo against one process, "
+    print(f"{name}, {len(ranks)} ranks sharing one card through gloo against one process, "
           f"{steps} step(s): losses " + ", ".join(
               f"{a:.6f} / {b:.6f}" for a, b in zip(got["losses"], one["losses"]))
           + "; grad norms " + ", ".join(
@@ -4476,7 +4549,376 @@ def data_parallel_phase(device, tmp: Path, card: str) -> dict:
             "bwd_calls": sum(sum(c[1] for c in r["art"]["counts"]) for r in ranks),
             "one_pass": sum(sum(c[2] for c in r["art"]["counts"]) for r in ranks),
             "rank_step_ms": rank_ms, "one_process_step_ms": one_ms, "launch_s": launch_s,
-            "phase_s": time.perf_counter() - t_phase}
+            "phase_s": time.perf_counter() - t_phase, "one": one}
+
+
+def tp_full_params(model) -> dict:
+    """Every parameter of ``model`` on the CPU in float32, the tp shards
+    gathered: one process's names and shapes."""
+    from eyegaze_tpu_torch.parallel import tensor
+
+    names = {n for n, _ in model.named_parameters()}
+    return {k: v.float().cpu().clone() for k, v in tensor.full_state_dict(model).items()
+            if k in names}
+
+
+def tp_art_trainer(device, mesh):
+    """ART at full width in bf16, attention dropout 0.0 and every dropout
+    off, in a ``Trainer`` under ``mesh`` (None: one process) with AdamW at
+    ART's train LR."""
+    from eyegaze_tpu_torch import train_art
+    from eyegaze_tpu_torch.train.optim import make_optimizer
+    from eyegaze_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    model = art_train_model(device, 0.0, torch.bfloat16)
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    return Trainer(model, make_optimizer(model, ART_TRAIN_LR, 0.01, grad_clip=1.0),
+                   train_art.make_objective(False)[0], None,
+                   TrainerConfig(use_mesh=mesh, prefetch=0), device=device)
+
+
+def tp_vit_trainer(device, mesh):
+    """ViT-B/16 early fusion (concat) in bf16 without dropout, train_gaze's
+    forward and class-weighted CE without the augment, in a ``Trainer``
+    under ``mesh`` (None: one process)."""
+    from eyegaze_tpu_torch import train_gaze
+    from eyegaze_tpu_torch.train.losses import weighted_cross_entropy
+    from eyegaze_tpu_torch.train.optim import make_optimizer
+    from eyegaze_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = gaze_train_config(".", dropout=0.0)
+    model = train_gaze.build_model(cfg, "early", device=device)
+    _, forward = train_gaze.make_objective("early", img_size=cfg.model.img_size,
+                                           generator=torch.Generator(device=device))
+    weights = gaze_class_weights(device)
+
+    def loss_fn(m, batch):
+        return weighted_cross_entropy(forward(m, batch), batch["label"], weights), {}
+
+    return Trainer(model, make_optimizer(model, GAZE_TRAIN_LR, 0.01, grad_clip=1.0), loss_fn,
+                   None, TrainerConfig(use_mesh=mesh, prefetch=0), device=device)
+
+
+def tp_batches(names=("art", "vit", "flagship")) -> dict:
+    """TP_STEPS global batches of each of ``names``, on the host, drawn from
+    seeds (each rank draws its own, the same): ART's 16 noisy -> clean
+    windows and the bench's 64 window pairs (phase 36's), ViT pairs of 16
+    uint8 (3, 224, 224) images."""
+    out = {}
+    if "art" in names or "flagship" in names:
+        dp = dp_batches()
+        out.update({k: dp[k] for k in ("art", "flagship") if k in names})
+    if "vit" in names:
+        out["vit"] = []
+        for i in range(TP_STEPS):
+            a, b = gaze_pairs(GAZE_TRAIN_BATCH, 70 + i)
+            out["vit"].append({"img1": a, "img2": b,
+                               "label": (np.arange(GAZE_TRAIN_BATCH) % 3).astype(np.int32)})
+    return out
+
+
+def tp_serve_cases(tmp: Path) -> list:
+    """Phase 37 (d)'s checkpoints, seeded at full width (phase 30's models
+    and metas, and HyperEEG at its documented preset) and written to
+    ``tmp``: (kind, path, predictor class, request) for the flagship,
+    ViT-B/16 early fusion, ART, the composite and HyperEEG."""
+    from eyegaze_tpu_torch import serving
+    from eyegaze_tpu_torch.models.art import ArtConfig, ArtifactRemovalTransformer
+    from eyegaze_tpu_torch.models.dual_eeg import DualEEGTransformer
+    from eyegaze_tpu_torch.models.hypereeg import FIELDS, create_hypereeg_model
+    from eyegaze_tpu_torch.models.multimodal import MultimodalFusionModel
+    from eyegaze_tpu_torch.models.vit import EarlyFusionViT
+
+    def seeded():
+        return dict(device=torch.device("cpu"), generator=torch.Generator().manual_seed(17))
+
+    r = np.random.default_rng(30)
+    eeg = [r.normal(size=(IMPORT_WINDOWS, CHANNELS, WINDOW)).astype(np.float32)
+           for _ in range(2)]
+    art = ArtConfig()
+    gaze_meta = {"kind": "early", "fusion_mode": "concat", "img_size": GAZE_GEOMETRY["img_size"],
+                 "num_labels": 3, "vit_num_heads": GAZE_GEOMETRY["num_heads"]}
+    builds = (
+        ("flagship", lambda: DualEEGTransformer(**GEOMETRY, **seeded()), FLAGSHIP_META,
+         serving.Predictor, eeg),
+        ("gaze early (ViT-B/16)",
+         lambda: EarlyFusionViT(fusion_mode="concat", **GAZE_GEOMETRY, **seeded()),
+         {"config": {"model": gaze_meta}}, serving.GazePredictor, gaze_pairs(IMPORT_PAIRS, 31)),
+        ("ART", lambda: ArtifactRemovalTransformer(art, **seeded()),
+         {"config": {"model": dataclasses.asdict(art)}}, serving.ArtDenoiser, eeg[:1]),
+        ("multimodal composite", lambda: MultimodalFusionModel(**MM_GEOMETRY, **seeded()),
+         {"config": {"model": {"multimodal": MM_GEOMETRY, "num_labels": 3}}},
+         serving.MultimodalPredictor, multimodal_inputs(IMPORT_PAIRS, 33)),
+        ("HyperEEG", lambda: create_hypereeg_model("full", "documented", **seeded()), None,
+         serving.HyperEEGPredictor, hypereeg_pairs(IMPORT_WINDOWS, 37)))
+    out = []
+    for name, build, meta, cls, request in builds:
+        model = build()
+        if meta is None:
+            meta = {"config": {"model": {"hypereeg": {f: getattr(model, f) for f in FIELDS}}}}
+        path = save_checkpoint(model.state_dict(), meta, tmp / f"tp_{len(out)}.pt")
+        out.append((name, str(path), cls, request))
+        del model
+    return out
+
+
+def tp_serve(cases: list, device, mesh) -> dict:
+    """Each case served bf16 ``from_checkpoint`` under ``mesh`` (None:
+    unsharded): its first output, and each request's K1 and K3-bf16
+    launches and the heads K3 saw."""
+    from eyegaze_tpu_torch.kernels import attention
+
+    out = {}
+    with recorded_heads() as heads:
+        for name, path, cls, request in cases:
+            pred = cls.from_checkpoint(path, device=device, mesh=mesh)
+            reset_k1_count()
+            reset_attention_counts()
+            heads.clear()
+            got = pred.predict(*request)
+            key = "denoised" if "denoised" in got else "logits"
+            out[name] = {"out": np.asarray(got[key]), "k1": k1_count(),
+                         "k3_bf16": attention.bf16_launch_count["headpacked_attention"],
+                         "heads": sorted(set(heads))}
+            del pred
+    return out
+
+
+def tp_rank(rank, world, device, payload) -> dict:
+    """Phase 37 on one rank of the gloo ranks sharing the card.  Two ranks
+    (``tp2``): (a) TP_STEPS bf16 ART steps, with each step's K3-bf16
+    launches, backward calls, one-pass kernel launches, the heads K3 saw
+    and the layers' all_reduces; (b) TP_STEPS bf16 ViT-B/16 steps and the
+    rank's parameter bytes; (d) ``tp_serve`` under tp2.  Four ranks
+    (``dp2,tp2``): (c) TP_STEPS bf16 flagship bench steps and one f32 step,
+    with K1's launches and their N."""
+    from eyegaze_tpu_torch.parallel import tensor
+
+    seconds = {"start": time.time() - payload["t_launch"]}
+    t0 = time.perf_counter()
+    if world == 4:
+        trainers = dp_trainers(device, TP_DPTP, names=("flagship", "flagship_f32"))
+        out = flagship_rank_steps(trainers, tp_batches(("flagship",))["flagship"], full=True)
+        seconds["flagship"] = time.perf_counter() - t0
+        return {**out, "seconds": seconds}
+    batches = tp_batches(("art", "vit"))
+    with recorded_heads() as heads:
+
+        def read():
+            counts = art_bf16_train_counts() + (tensor.all_reduce_count,
+                                                tuple(sorted(set(heads))))
+            reset_attention_counts()
+            reset_backward_count()
+            tensor.all_reduce_count = 0
+            heads.clear()
+            return counts
+
+        art_trainer = tp_art_trainer(device, TP_MESH)
+        reset_attention_counts()
+        reset_backward_count()
+        tensor.all_reduce_count = 0
+        art = dp_steps(art_trainer, batches["art"], read, full=True)
+    del art_trainer
+    seconds["art"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vit_trainer = tp_vit_trainer(device, TP_MESH)
+    vit = dp_steps(vit_trainer, batches["vit"], full=True)
+    vit["param_bytes"] = sum(p.numel() * p.element_size()
+                             for p in vit_trainer.model.parameters())
+    del vit_trainer
+    torch.cuda.empty_cache()
+    seconds["vit"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve = tp_serve(payload["serve"], device, TP_MESH)
+    seconds["serve"] = time.perf_counter() - t0
+    return {"art": art, "vit": vit, "serve": serve, "seconds": seconds}
+
+
+def tp_attention_phase(device, clock_hz) -> dict:
+    """Phase 37 (e), run beside phase 3: K3-bf16's forward and K4's
+    one-pass backward at a tp2 rank's ART shape, (16, 1024, 4, 16), in this
+    process: the forward
+    within the bf16 bound of its twin (as phase 3 holds it), timed in turns
+    with the twin and F.scaled_dot_product_attention, and replayed from a
+    CUDA graph beside the library's; the backward through
+    ``backward_case``."""
+    from eyegaze_tpu_torch.kernels import attention
+
+    q, k, v = attention_inputs(TP_ATTN_SHAPE, torch.bfloat16, device, 61)
+    scale = 1.0 / math.sqrt(ATTN_DK)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    got = attention.headpacked_attention(q, k, v, scale).transpose(1, 2)
+    want = attention.attention_reference(qt, kt, vt, scale)
+    share = assert_within_bf16_bound(got, want, attention.attention_reference(qt, kt, vt.abs(),
+                                                                             scale))
+    err = float((got.float() - want.float()).abs().max())
+
+    def kernel():
+        attention.headpacked_attention(q, k, v, scale)
+
+    def library():
+        F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+
+    ms, plain_ms, library_ms = alternate_ms(
+        kernel, lambda: attention.attention_reference(qt, kt, vt, scale), library)
+    ms_graph, library_graph = graph_ms(kernel), graph_ms(library)
+    bound_ms, bound_by = attention_bound(*qt.shape, torch.bfloat16)
+    print(f"phase 37 (e), headpacked_attention {TP_ATTN_SHAPE} bf16 (a tp2 rank's ART "
+          f"heads): max |kernel - twin| {err:.3e}, {share:.2f} of the bf16 bound; one call "
+          f"{ms:.4f} ms, twin {plain_ms:.4f} ms, F.scaled_dot_product_attention "
+          f"{library_ms:.4f} ms; CUDA graph kernel {ms_graph:.4f} ms, library "
+          f"{library_graph:.4f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+    forward = {"shape": list(TP_ATTN_SHAPE), "max_abs_err": err, "share_of_bf16_bound": share,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "ms_graph": ms_graph,
+               "library_ms_graph": library_graph, "bound_ms": bound_ms, "bound_by": bound_by}
+    del q, k, v, qt, kt, vt, got, want
+    backward = backward_case(device, clock_hz, 62, "headpacked_attention", TP_ATTN_SHAPE,
+                             WINDOW)
+    if backward["path"] != "one_pass":
+        raise RuntimeError(f"K4's backward at {TP_ATTN_SHAPE} took the {backward['path']} path")
+    return {"forward": forward, "backward": backward}
+
+
+def tp_refusal_phase(tmp: Path) -> None:
+    """Phase 37 (f): ``--mesh tp2`` on the one card raises in a trainer's CLI
+    (``train_art``) and in ``serve``, before anything is built."""
+    from eyegaze_tpu_torch import serve, train_art
+
+    for name, call in (
+            ("train_art --mesh tp2", lambda: train_art.main(
+                ["--tiny", "--epochs", "1", "--mesh", TP_MESH, "--output-dir",
+                 str(tmp / "tp_refused")])),
+            ("serve --mesh tp2", lambda: serve.main(
+                ["--checkpoint", str(tmp / "tp_0.pt"), "--mesh", TP_MESH, "--port", "0"]))):
+        try:
+            call()
+        except ValueError as e:
+            print(f"phase 37 (f): {name} on the one card raises: {e}")
+        else:
+            raise RuntimeError(f"{name} on one card ran instead of raising")
+
+
+def tensor_parallel_phase(device, tmp: Path, card: str, dp_one: dict, kernels: dict) -> dict:
+    """Phase 37: tensor parallelism on the card.  Gloo ranks share the card
+    through ``parallel.launch``: two (``tp2``: a, b, d) and four
+    (``dp2,tp2``: c), against one process on the same batches and
+    checkpoints (``check_dp_parity``'s bounds; serving within 2**-5 of the
+    largest output); then (f) the refusals, in this process.  ``dp_one``:
+    phase 36's one-process flagship steps on the same global batches;
+    ``kernels``: (e), ``tp_attention_phase``'s, which runs beside phase 3
+    (its backward case reads ``torch.profiler``, which saw no kernel when
+    asked after phases 36-37's ranks, in one call of the whole script).
+    Prints the step times beside ``card``: ranks sharing one card, not a
+    scale-out rate."""
+    from eyegaze_tpu_torch import parallel
+    from eyegaze_tpu_torch.models.art import ArtConfig
+
+    t_phase = time.perf_counter()
+    batches = tp_batches(("art", "vit"))
+    serve_cases = tp_serve_cases(tmp)
+    threads = torch.get_num_threads()
+    t0 = time.perf_counter()
+    try:  # the ranks share the host's cores: each takes its part of them
+        torch.set_num_threads(max(threads // TP_WORLD, 1))
+        two = parallel.launch(tp_rank, TP_WORLD, {"serve": serve_cases, "t_launch": time.time()},
+                              device=str(device), backend="gloo")
+        t_two = time.perf_counter() - t0
+        torch.set_num_threads(max(threads // (2 * TP_WORLD), 1))
+        four = parallel.launch(tp_rank, 2 * TP_WORLD, {"t_launch": time.time()},
+                               device=str(device), backend="gloo")
+    finally:
+        torch.set_num_threads(threads)
+    launch_s = time.perf_counter() - t0
+    one = {k: dp_one[k] for k in ("flagship", "flagship_f32")}  # phase 36's, same batches
+    for name, build, mine in (("art", tp_art_trainer, batches["art"]),
+                              ("vit", tp_vit_trainer, batches["vit"])):
+        trainer = build(device, None)
+        before = {n: p.detach().float().cpu().clone() for n, p in trainer.model.named_parameters()}
+        one[name] = {**dp_steps(trainer, mine), "before": before}
+        if name == "vit":
+            one[name]["param_bytes"] = sum(p.numel() * p.element_size()
+                                           for p in trainer.model.parameters())
+        del trainer
+    torch.cuda.empty_cache()
+    check_dp_parity(f"phase 37 (a), ART bf16 at attention dropout 0.0 (batch {ART_TRAIN_BATCH}) "
+                    f"under {TP_MESH}", [r["art"] for r in two], one["art"], ART_TRAIN_LR,
+                    lambda loss: DP_BF16_RTOL * abs(loss), DP_BF16_RTOL)
+    check_dp_parity(f"phase 37 (b), ViT-B/16 early fusion bf16 (batch {GAZE_TRAIN_BATCH}) under "
+                    f"{TP_MESH}", [r["vit"] for r in two], one["vit"], GAZE_TRAIN_LR,
+                    lambda loss: DP_BF16_RTOL * abs(loss), DP_BF16_RTOL)
+    check_dp_parity(f"phase 37 (c), the flagship's bench step in float32 (batch {TRAIN_BATCH}) "
+                    f"under {TP_DPTP}", [r["flagship_f32"] for r in four], one["flagship_f32"],
+                    TRAIN_LR, lambda loss: LOGIT_TOL, PARITY_GRAD_NORM_RTOL)
+    check_dp_parity(f"phase 37 (c), the flagship's bench step (bf16, batch {TRAIN_BATCH}) under "
+                    f"{TP_DPTP}", [r["flagship"] for r in four], one["flagship"], TRAIN_LR,
+                    lambda loss: DP_BF16_RTOL * abs(loss), DP_BF16_RTOL)
+    cfg = ArtConfig()
+    reduces = 4 * cfg.num_encoder_layers + 7 * cfg.num_decoder_layers
+    for r, got in enumerate(two):
+        want = (ART_ATTENTION_CALLS, ART_ATTENTION_CALLS, ART_ATTENTION_CALLS, reduces,
+                (ATTN_HEADS // TP_WORLD,))
+        if any(c != want for c in got["art"]["counts"]):
+            raise RuntimeError(f"rank {r}: ART steps gave (K3-bf16, backward calls, one-pass "
+                               f"kernel, all_reduces, heads) {got['art']['counts']}, not {want}")
+    for r, got in enumerate(four):
+        f = got["flagship"]
+        if (f["k1"] != TP_STEPS or f["k1_n"] != [6 * TRAIN_BATCH // 2] * TP_STEPS
+                or got["flagship_f32"]["k1"] != 1):
+            raise RuntimeError(f"rank {r} of {TP_DPTP}: K1 launched {f['k1']} times at N "
+                               f"{f['k1_n']}")
+    served = tp_serve(serve_cases, device, None)
+    for name, want in served.items():
+        for r, got in enumerate(two):
+            g = got["serve"][name]
+            scale = float(np.abs(want["out"]).max())
+            gap = float(np.abs(g["out"] - want["out"]).max())
+            expect_k3 = ART_ATTENTION_CALLS if name == "ART" else 0
+            heads = [ATTN_HEADS // TP_WORLD] if name == "ART" else []
+            if gap > TP_SERVE_SHARE * scale or g["k3_bf16"] != expect_k3 or g["heads"] != heads \
+                    or g["k1"] != want["k1"]:
+                raise RuntimeError(f"{name} served under {TP_MESH} on rank {r}: gap {gap:.3e} "
+                                   f"(bound {TP_SERVE_SHARE * scale:.3e}), K3-bf16 "
+                                   f"{g['k3_bf16']} at heads {g['heads']}, K1 {g['k1']}")
+        print(f"phase 37 (d), {name} served bf16 from a checkpoint under {TP_MESH} against the "
+              f"same checkpoint unsharded on the card: max |gap| "
+              + ", ".join(f"rank {r} {float(np.abs(g['serve'][name]['out'] - want['out']).max()):.3e}"
+                          for r, g in enumerate(two))
+              + f" (bound {TP_SERVE_SHARE:g} of the largest |output| "
+              f"{float(np.abs(want['out']).max()):.3f}); per request per rank K1 "
+              f"{two[0]['serve'][name]['k1']}, K3-bf16 {two[0]['serve'][name]['k3_bf16']} at "
+              f"{two[0]['serve'][name]['heads'] or '-'} heads")
+    tp_refusal_phase(tmp)
+    rank_ms = {name: [statistics.median(r[name]["walls_ms"][1:]) for r in ranks]
+               for name, ranks in (("art", two), ("vit", two), ("flagship", four))}
+    one_ms = {name: statistics.median(one[name]["walls_ms"][1:]) for name in rank_ms}
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 37, per rank per step: ART K3-bf16 {ART_ATTENTION_CALLS} launches at "
+          f"{ATTN_HEADS // TP_WORLD} heads, K4's one-pass backward {ART_ATTENTION_CALLS} "
+          f"launches, {reduces} tp all_reduces (predicted from the layers); flagship K1 1 launch "
+          f"at N = {6 * TRAIN_BATCH // 2}; ViT-B/16 parameter bytes per rank "
+          + ", ".join(f"{r['vit']['param_bytes']:,}" for r in two)
+          + f" against {one['vit']['param_bytes']:,} in one process; step ms, median of steps "
+          f"2-{TP_STEPS}, ranks sharing one card through gloo ({card}; not a scale-out rate): "
+          + "; ".join(f"{name} " + ", ".join(f"rank {i} {m:.2f}" for i, m in enumerate(ms))
+                      + f", one process {one_ms[name]:.2f}" for name, ms in rank_ms.items())
+          + f"; the two launches {launch_s:.2f} s (tp2 {t_two:.2f}: rank 0 in at "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in two[0]["seconds"].items())
+          + "; dp2,tp2: rank 0 in at " + ", ".join(f"{k} {v:.2f} s"
+                                                  for k, v in four[0]["seconds"].items())
+          + f"), the phase {phase_s:.2f} s")
+    art_counts = [c for r in two for c in r["art"]["counts"]]
+    return {"k1": sum(r["flagship"]["k1"] + r["flagship_f32"]["k1"] for r in four),
+            "k3_bf16_train": sum(c[0] for c in art_counts),
+            "bwd_calls": sum(c[1] for c in art_counts),
+            "one_pass": sum(c[2] for c in art_counts),
+            "all_reduces_per_step": reduces,
+            "k3_bf16_serve": sum(r["serve"]["ART"]["k3_bf16"] for r in two),
+            "rank_step_ms": rank_ms, "one_process_step_ms": one_ms,
+            "vit_param_bytes": {"ranks": [r["vit"]["param_bytes"] for r in two],
+                                "one_process": one["vit"]["param_bytes"]},
+            "kernels": kernels, "launch_s": launch_s, "phase_s": phase_s}
 
 
 def assert_no_spill(report: str, kernel: str) -> None:
@@ -4618,6 +5060,7 @@ def main() -> None:
     k2_timing, _ = phase_kernel_phase(device, plv=True)
     attn_timing = attention_phase(device, clock_hz)
     bwd_cases = attention_backward_phase(device, clock_hz)
+    tp_kernels = tp_attention_phase(device, clock_hz)
 
     reset_attention_counts()
     k1_launches, medians, raw1, raw2, logits, state = slice_phase(device)
@@ -4711,6 +5154,8 @@ def main() -> None:
         rehearsal = rehearsal_phase(device, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         dp = data_parallel_phase(device, Path(tmp), card)
+    with tempfile.TemporaryDirectory() as tmp:
+        tp = tensor_parallel_phase(device, Path(tmp), card, dp["one"], tp_kernels)
     print("offline EEG features at (32, 3250), trials/s end to end: "
           + ", ".join(f"chunk {c} {o['trials_per_s']:.2f} ({o['kernels_per_chunk']:.0f} kernels "
                       f"a chunk, busy {o['busy_share']:.1%}, {o['device_ms_per_chunk']:.3f} ms "
@@ -4760,6 +5205,13 @@ def main() -> None:
     dp_steps_ms = {"rank_step_ms": dp["rank_step_ms"],
                    "one_process_step_ms": dp["one_process_step_ms"],
                    "note": "two ranks sharing one card through gloo, not a scale-out rate"}
+    # Phase 37's launches: the ranks of tp2 and dp2,tp2 sharing the card.
+    tp_path = ("tensor-parallel training and serving: tp2 and dp2,tp2 gloo ranks sharing the "
+               "card")
+    tp_steps_ms = {"rank_step_ms": tp["rank_step_ms"],
+                   "one_process_step_ms": tp["one_process_step_ms"],
+                   "note": "ranks sharing one card through gloo, not a scale-out rate"}
+    tp_fwd, tp_bwd = tp["kernels"]["forward"], tp["kernels"]["backward"]
 
     phase_source = "eyegaze_tpu_torch/csrc/phase_metrics.cu"
     source = "eyegaze_tpu_torch/csrc/attention.cu"
@@ -4773,17 +5225,22 @@ def main() -> None:
          "replaces": "eyegaze_tpu/ops/pallas_kernels.py:74",
          "launches": (k1_serving + k1_train + k1_mm_launches + k1_mm_train + imported["k1"]
                       + analysis["k1"] + rehearsal["k1_train"] + rehearsal["k1_analysis"]
-                      + dp_k1),
+                      + dp_k1 + tp["k1"]),
          "path": "EEG serving, f32 and bf16 from a checkpoint; flagship training, bf16 and "
                  "f32 steps and one epoch of train_dual_eeg; the multimodal composite served "
                  "bf16 from a checkpoint, and over HTTP; multimodal training (the f32 parity "
                  "step, bf16 timed and frozen steps, one epoch of train_multimodal and its "
                  "served checkpoint); imported reference checkpoints served (two flagships, "
                  "the composite); analyze_eeg at full width on the imported flagship; the "
-                 "rehearsal's train_dual_eeg and analyze_eeg steps; " + dp_path,
+                 "rehearsal's train_dual_eeg and analyze_eeg steps; " + dp_path + "; "
+                 + tp_path + " (the flagship's steps under dp2,tp2)",
          "launches_data_parallel": {"cli_mesh_dp": dp["cli"]["k1"], "two_ranks": dp["k1"],
                                     "per_rank_per_step": dp["k1"] / (DP_WORLD * (DP_STEPS + 1)),
                                     "n_per_rank": 6 * TRAIN_BATCH // DP_WORLD, **dp_steps_ms},
+         "launches_tensor_parallel": {
+             "dp2_tp2_ranks": tp["k1"],
+             "per_rank_per_step": tp["k1"] / (2 * TP_WORLD * (TP_STEPS + 1)),
+             "n_per_rank": 6 * TRAIN_BATCH // 2, **tp_steps_ms},
          "launches_import": imported["k1"], "launches_analysis": analysis["k1"],
          "launches_rehearsal": {"train": rehearsal["k1_train"],
                                 "analysis": rehearsal["k1_analysis"]},
@@ -4847,10 +5304,18 @@ def main() -> None:
          **attn_timing["flash_attention", torch.bfloat16]},
         {"name": "headpacked_attention", "route": "cuda", "source": source,
          "replaces": "eyegaze_tpu/ops/attn_kernels.py:78",
-         "launches": art_bf16_all + bf16_train_launches + imported["k3_bf16"] + dp["k3_bf16"],
+         "launches": (art_bf16_all + bf16_train_launches + imported["k3_bf16"] + dp["k3_bf16"]
+                      + tp["k3_bf16_train"] + tp["k3_bf16_serve"]),
          "path": "ART serving, bf16, and from a checkpoint; bf16 ART training at attention "
                  "dropout 0.0 (parity step, timed steps, one epoch), its forward; an imported "
-                 "reference ART checkpoint served; " + dp_path + " (ART's steps)",
+                 "reference ART checkpoint served; " + dp_path + " (ART's steps); " + tp_path
+                 + " (ART's tp2 steps and request, 4 heads a rank)",
+         "launches_tensor_parallel": {
+             "tp2_ranks_train": tp["k3_bf16_train"], "tp2_ranks_serve": tp["k3_bf16_serve"],
+             "per_rank_per_step": tp["k3_bf16_train"] / (TP_WORLD * TP_STEPS),
+             "per_rank_per_request": tp["k3_bf16_serve"] / TP_WORLD,
+             "all_reduces_per_rank_per_step": tp["all_reduces_per_step"], **tp_steps_ms},
+         "tensor_parallel_shape": tp_fwd,
          "launches_data_parallel": {"two_ranks": dp["k3_bf16"],
                                     "per_rank_per_step": dp["k3_bf16"] / (DP_WORLD * DP_STEPS),
                                     **dp_steps_ms},
@@ -4878,14 +5343,21 @@ def main() -> None:
         "name": "flash_attention_bwd", "route": "cuda", "source": source,
         "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
         "replaces_also": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
-        "kernel": "attention_bwd_one_pass_kernel", "launches": one_pass_launches + dp["one_pass"],
-        "path": bwd_path + "; " + dp_path + " (ART's steps)",
+        "kernel": "attention_bwd_one_pass_kernel",
+        "launches": one_pass_launches + dp["one_pass"] + tp["one_pass"],
+        "path": bwd_path + "; " + dp_path + " (ART's steps); " + tp_path + " (ART's tp2 steps)",
         "launches_per_request": bf16_k4["kernel_launches"] / TRAIN_STEPS,
         "launches_per_train_step": bf16_k4["kernel_launches"] / TRAIN_STEPS,
-        "backward_calls": bwd_calls + dp["bwd_calls"],
+        "backward_calls": bwd_calls + dp["bwd_calls"] + tp["bwd_calls"],
         "launches_data_parallel": {"two_ranks": dp["one_pass"],
                                    "per_rank_per_step": dp["one_pass"] / (DP_WORLD * DP_STEPS),
                                    **dp_steps_ms},
+        "launches_tensor_parallel": {"tp2_ranks": tp["one_pass"],
+                                     "per_rank_per_step": tp["one_pass"] / (TP_WORLD * TP_STEPS),
+                                     **tp_steps_ms},
+        "tensor_parallel_shape": {k: tp_bwd[k] for k in (
+            "shape", "tk", "path", "errors", "ms", "ms_graph", "kernel_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "library_ms_graph")},
         "max_abs_err": max(e["max_abs_err"] for e in art_bwd["errors"].values()),
         "share_of_bf16_bound": max(e["share_of_bound"] for e in art_bwd["errors"].values()),
         "ms": art_bwd["kernel_ms"]["attention_bwd_one_pass_kernel"],

@@ -126,8 +126,8 @@ class SystemConfig:
     # "gpu") mean the CUDA card to the port's entry points.
     device: str = "cuda"
     num_workers: int = 0
-    # The device-mesh spec ('dp', 'dpN'): the entry points train
-    # data-parallel over it (eyegaze_tpu_torch.parallel); tp > 1 is refused.
+    # The device-mesh spec ('dp', 'dpN', 'tpN', 'dpN,tpM'): the entry points
+    # train over it (eyegaze_tpu_torch.parallel).
     mesh: Any = False
 
 

@@ -43,7 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from eyegaze_tpu_torch.models.transformer import Conv1d, Dense, LayerNorm, init_weights_
+from eyegaze_tpu_torch.models.transformer import Conv1d, Dense, LayerNorm, init_weights_, to_region
 from eyegaze_tpu_torch.models.vit import dot_product_attention
 
 ABLATIONS = {
@@ -169,27 +169,31 @@ class FlaxAttention(nn.Module):
     ``out_features`` = ``embed_dim``: the ``query``, ``key`` and ``value``
     projections (Flax's (E, H, hd) DenseGeneral kernels as (E, E) Dense
     weights), ``vit.dot_product_attention`` and the ``out`` projection, all
-    in ``dtype``."""
+    in ``dtype``.  Under tp (``parallel/tensor.py``) it runs the rank's
+    heads: the graph block's attention shards, the cross attention stays
+    replicated (``parallel/sharding.py``)."""
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0, *,
                  device: torch.device, dtype: torch.dtype = torch.float32):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed dim {embed_dim} is not divisible by num_heads {num_heads}")
-        self.num_heads, self.dropout = num_heads, dropout
+        self.num_heads, self.head_dim, self.tp = num_heads, embed_dim // num_heads, 1
+        self.dropout = dropout
         for name in ("query", "key", "value", "out"):
             setattr(self, name, Dense(embed_dim, embed_dim, device=device, dtype=dtype))
 
     def forward(self, xq: torch.Tensor, xkv: torch.Tensor) -> torch.Tensor:
-        b, tq, e = xq.shape
-        heads = self.num_heads
+        b, tq, _ = xq.shape
+        heads, hd = self.num_heads, self.head_dim
+        xq, xkv = to_region(self.tp, xq, xkv)
 
-        def split(x: torch.Tensor) -> torch.Tensor:  # (B, T, E) -> (B, H, T, hd)
-            return x.reshape(b, x.shape[1], heads, e // heads).transpose(1, 2)
+        def split(x: torch.Tensor) -> torch.Tensor:  # (B, T, H hd) -> (B, H, T, hd)
+            return x.reshape(b, x.shape[1], heads, hd).transpose(1, 2)
 
         o = dot_product_attention(split(self.query(xq)), split(self.key(xkv)),
                                   split(self.value(xkv)), self.dropout if self.training else 0.0)
-        return self.out(o.transpose(1, 2).reshape(b, tq, e))
+        return self.out(o.transpose(1, 2).reshape(b, tq, heads * hd))
 
 
 class IntraGraphBlock(nn.Module):

@@ -19,6 +19,15 @@ and bias to ``dtype`` and returns ``dtype``, and every ``LayerNorm`` normalises
 in float32 and returns float32 whatever its input, as Flax's
 ``nn.LayerNorm()`` does.  So in bf16 the residual stream is float32 after
 the first LayerNorm and each projection recasts it.
+
+Under tensor parallelism (``parallel/tensor.py``) ``MultiHeadAttention`` and
+``FeedForward`` hold the rank's heads (``num_heads`` is then the local count)
+and the rank's hidden units: each copies its inputs into the tp region, its
+column projections give the local heads or hidden, its row projection
+reduces over the tp group, and dropout inside the region draws from the
+region's generator (``tensor.region_dropout``).  The attention route and
+the kernels see H / tp heads.  At ``tp`` 1 (the default) the code path is
+unchanged.
 """
 
 from __future__ import annotations
@@ -127,12 +136,37 @@ class LayerNorm(nn.LayerNorm):
         return super().forward(x.float())
 
 
+def to_region(tp: int, *xs: torch.Tensor) -> tuple:
+    """``xs`` copied into the tp region, one copy per distinct tensor
+    (``tensor.copy_to_region``); ``xs`` themselves at tp 1."""
+    if tp == 1:
+        return xs
+    from eyegaze_tpu_torch.parallel import tensor  # it imports this module
+
+    copies = {}
+    for x in xs:
+        if id(x) not in copies:
+            copies[id(x)] = tensor.copy_to_region(x)
+    return tuple(copies[id(x)] for x in xs)
+
+
+def region_dropout(tp: int, dropout: nn.Dropout, x: torch.Tensor) -> torch.Tensor:
+    """``dropout(x)`` on activations inside a tp region: at tp > 1 drawn
+    from the region's generator (``tensor.region_dropout``)."""
+    if tp == 1:
+        return dropout(x)
+    from eyegaze_tpu_torch.parallel import tensor
+
+    return tensor.region_dropout(x, dropout.p, dropout.training)
+
+
 class MultiHeadAttention(nn.Module):
     """Scaled dot-product attention with q/k/v/out projections.
 
     ``attn_mask`` broadcasts against the (B, H, Tq, Tk) scores; where it is
     0 the score becomes -1e9 before the softmax.  The projections compute in
-    ``dtype`` (``Dense``).
+    ``dtype`` (``Dense``).  Under tp (module docstring) it runs the rank's
+    ``num_heads`` heads.
     """
 
     def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0, *,
@@ -140,7 +174,7 @@ class MultiHeadAttention(nn.Module):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} is not divisible by num_heads {num_heads}")
-        self.num_heads = num_heads
+        self.num_heads, self.head_dim, self.tp = num_heads, d_model // num_heads, 1
         self.q_proj = Dense(d_model, d_model, device=device, dtype=dtype)
         self.k_proj = Dense(d_model, d_model, device=device, dtype=dtype)
         self.v_proj = Dense(d_model, d_model, device=device, dtype=dtype)
@@ -149,10 +183,11 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 attn_mask: torch.Tensor | None = None, return_weights: bool = False):
-        b, tq, d_model = q.shape
+        b, tq, _ = q.shape
         tk = k.shape[1]
-        h = self.num_heads
-        d_k = d_model // h
+        h, d_k = self.num_heads, self.head_dim
+        width = h * d_k
+        q, k, v = to_region(self.tp, q, k, v)
         cast = {}  # each distinct input cast once (self-attention passes one)
         for x in (q, k, v):
             if id(x) not in cast:
@@ -171,7 +206,7 @@ class MultiHeadAttention(nn.Module):
         elif route == "headpacked":
             context = attention.headpacked_attention(qh, kh, vh, 1.0 / math.sqrt(d_k))
         if route != "plain":
-            return self.out_proj(context.reshape(b, tq, d_model))
+            return self.out_proj(context.reshape(b, tq, width))
 
         # (B, H, Tq, Tk) scores from f32 operands, f32 softmax; P in the
         # value dtype for PV with f32 accumulation.
@@ -179,14 +214,15 @@ class MultiHeadAttention(nn.Module):
         scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) / math.sqrt(d_k)
         if attn_mask is not None:
             scores = scores.masked_fill(attn_mask == 0, -1e9)
-        attn = self.dropout(torch.softmax(scores, dim=-1))
+        attn = region_dropout(self.tp, self.dropout, torch.softmax(scores, dim=-1))
         context = torch.matmul(attn.to(vh.dtype).float(), vh.float()).to(vh.dtype)
-        out = self.out_proj(context.transpose(1, 2).reshape(b, tq, d_model))
+        out = self.out_proj(context.transpose(1, 2).reshape(b, tq, width))
         return (out, attn) if return_weights else out
 
 
 class FeedForward(nn.Module):
-    """Linear -> ReLU -> Dropout -> Linear -> Dropout."""
+    """Linear -> ReLU -> Dropout -> Linear -> Dropout; under tp on the
+    rank's hidden units (module docstring)."""
 
     def __init__(self, d_model: int, d_ff: int, dropout: float = 0.0, *,
                  device: torch.device, dtype: torch.dtype = torch.float32):
@@ -194,9 +230,11 @@ class FeedForward(nn.Module):
         self.linear1 = Dense(d_model, d_ff, device=device, dtype=dtype)
         self.linear2 = Dense(d_ff, d_model, device=device, dtype=dtype)
         self.dropout = nn.Dropout(dropout)
+        self.tp = 1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.dropout(torch.relu(self.linear1(x)))
+        (x,) = to_region(self.tp, x)
+        h = region_dropout(self.tp, self.dropout, torch.relu(self.linear1(x)))
         return self.dropout(self.linear2(h))
 
 

@@ -28,6 +28,13 @@ are in ``dtype``, so in bf16 each is rounded to bf16
 weights as Flax's ``broadcast_dropout`` drops them: one keep-mask of shape
 (1, 1, Tq, Tk) per call, shared by every batch row and head.  Its 197
 tokens go to no attention kernel.  Outputs are float32.
+
+Under tensor parallelism (``parallel/tensor.py``) ``Attention`` runs the
+rank's heads (its fused ``qkv`` holds their rows in each of the q, k and v
+thirds) and ``Mlp`` the rank's hidden units.  The broadcast dropout mask is
+shared by every head, so every tp rank draws the same one from the default
+generator, as one process does; the MLP's hidden dropout draws the rank's
+slice from the region's generator.
 """
 
 from __future__ import annotations
@@ -46,6 +53,8 @@ from eyegaze_tpu_torch.models.transformer import (
     cast_params,
     init_weights_,
     normal_,
+    region_dropout,
+    to_region,
 )
 
 EARLY_FUSION_MODES = ("concat", "add", "subtract", "subtract_abs", "multiply")
@@ -115,17 +124,18 @@ class Attention(nn.Module):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"embed dim {dim} is not divisible by num_heads {num_heads}")
-        self.num_heads = num_heads
+        self.num_heads, self.head_dim, self.tp = num_heads, dim // num_heads, 1
         self.qkv = Dense(dim, 3 * dim, device=device, dtype=dtype)
         self.proj = Dense(dim, dim, device=device, dtype=dtype)
         self.dropout = dropout
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, t, dim = x.shape
-        q, k, v = self.qkv(x).reshape(b, t, 3, self.num_heads, dim // self.num_heads).permute(
-            2, 0, 3, 1, 4)
+        b, t, _ = x.shape
+        (x,) = to_region(self.tp, x)
+        h, hd = self.num_heads, self.head_dim
+        q, k, v = self.qkv(x).reshape(b, t, 3, h, hd).permute(2, 0, 3, 1, 4)
         o = dot_product_attention(q, k, v, self.dropout if self.training else 0.0)
-        return self.proj(o.transpose(1, 2).reshape(b, t, dim))
+        return self.proj(o.transpose(1, 2).reshape(b, t, h * hd))
 
 
 class Mlp(nn.Module):
@@ -137,12 +147,14 @@ class Mlp(nn.Module):
         self.fc1 = Dense(dim, hidden, device=device, dtype=dtype)
         self.fc2 = Dense(hidden, dim, device=device, dtype=dtype)
         self.drop = nn.Dropout(dropout)
+        self.tp = 1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        (x,) = to_region(self.tp, x)
         h = self.fc1(x)
         # jax.nn.gelu(approximate=False) in the input's dtype, op by op.
         h = 0.5 * h * torch.erfc(-h * torch.tensor(math.sqrt(0.5), dtype=h.dtype))
-        return self.drop(self.fc2(self.drop(h)))
+        return self.drop(self.fc2(region_dropout(self.tp, self.drop, h)))
 
 
 class Block(nn.Module):

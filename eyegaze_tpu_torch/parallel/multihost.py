@@ -1,10 +1,17 @@
-"""Multi-process data parallelism under torchrun: the SPMD contract.
+"""Multi-process training under torchrun: the SPMD contract.
 
 The counterpart of ``eyegaze_tpu/parallel/multihost.py``.  Every process
 runs the same entry point (``torchrun ... -m eyegaze_tpu_torch.train_dual_eeg
---multihost``), loads only its slice of the data (``process_shard_bounds``)
-and trains its own local batches as one rank of the group; DDP averages the
-gradients, so the global batch is ``global_batch_size(local)``.
+--multihost``), loads only its data rank's slice of the data
+(``process_shard_bounds``) and trains its own local batches as one rank of
+the group; DDP averages the gradients over the dp group, so the global
+batch is ``global_batch_size(local)``.  The world is the mesh's dp x tp:
+the tp ranks of one data rank load the same slice.  Every function here
+shards and gathers by dp rank over the dp group (``mesh.py``): the
+model's outputs are replicated over tp after its last row-parallel reduce,
+so one copy per data rank is gathered.  JAX's ``all_processes_concat``
+dedups shards on the assumption that non-batch dims are replicated
+(ROADMAP section 3); nothing here assumes it.
 
 - ``initialize_multihost`` joins the group that torchrun describes in
   ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
@@ -34,6 +41,7 @@ import torch
 
 from eyegaze_tpu_torch.parallel.mesh import (
     active,
+    data_rank_and_world,
     gather_uneven,
     init_data_parallel,
     rank_and_world,
@@ -73,12 +81,13 @@ def initialize_multihost(device: torch.device | str = "cuda", *,
 
 def process_shard_bounds(n: int, process_index: Optional[int] = None,
                          process_count: Optional[int] = None) -> Tuple[int, int]:
-    """[start, stop) of this process's contiguous slice of n examples.
+    """[start, stop) of this process's contiguous slice of n examples, by
+    its dp rank among the dp ranks unless given.
 
     Every process loads ``n // process_count`` examples; n must divide
     evenly (entry points drop the remainder first, as their batches drop
     theirs)."""
-    rank, world = rank_and_world()
+    rank, world = data_rank_and_world()
     pi = rank if process_index is None else process_index
     pc = world if process_count is None else process_count
     if n % pc:
@@ -90,8 +99,8 @@ def process_shard_bounds(n: int, process_index: Optional[int] = None,
 
 
 def global_batch_size(local_batch_size: int) -> int:
-    """Global batch implied by a per-process batch."""
-    return local_batch_size * rank_and_world()[1]
+    """Global batch implied by a per-process batch: one per dp rank."""
+    return local_batch_size * data_rank_and_world()[1]
 
 
 def common_steps(steps: int, rows: int) -> int:
@@ -107,8 +116,8 @@ def common_steps(steps: int, rows: int) -> int:
 
 
 def all_processes_concat(x):
-    """Every process's rows of ``x`` (a numpy array or a tensor), in rank
-    order, as the same type; ``x`` itself with one process."""
+    """Every dp rank's rows of ``x`` (a numpy array or a tensor), in rank
+    order, as the same type; ``x`` itself with one dp rank."""
     if isinstance(x, np.ndarray):
         return gather_uneven(torch.from_numpy(np.ascontiguousarray(x))).numpy()
     return gather_uneven(x)

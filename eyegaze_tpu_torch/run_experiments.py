@@ -171,8 +171,9 @@ def main(argv=None):
     ap.add_argument("--config", default=str(CONFIG_PATH))
     ap.add_argument("--epochs", type=int, default=None, help="override epochs (smoke runs)")
     ap.add_argument("--mesh", nargs="?", const="dp", default=None,
-                    help="device-mesh spec passed through to every training run: 'dp' = "
-                         "data-parallel over every visible card, 'dpN' over N")
+                    help="device-mesh spec passed through to every training "
+                         "run: 'dp' = data-parallel over all local devices; "
+                         "'dpN,tpM' adds a tensor-parallel model axis")
     args = ap.parse_args(argv)
 
     if args.list:

@@ -33,6 +33,15 @@ Inputs, batched on the leading axis, any N:
 It serves on a CUDA card unless ``--device cpu`` is passed; without a card
 it stops at once.  Device work is serialised by one lock (or by the dynamic
 batcher's thread): concurrency belongs in the batch axis.
+
+``--mesh [spec]`` ("dp" when no spec is given; "dpN", "tpN", "dpN,tpM")
+serves on a mesh (``serving``'s docstring): the ranks are started with
+``parallel.launch``, one per card (dp x tp gloo ranks with ``--device
+cpu``; a spec that needs more cards than there are raises before anything
+is built).  Rank 0, in this process, runs the HTTP front end, the dynamic
+batcher and ``/metrics``; each dispatch goes to every rank first
+(``serving.MeshDispatch``), and a stop header ends the other ranks' loop
+when the server shuts down.
 """
 
 from __future__ import annotations
@@ -49,7 +58,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
-from eyegaze_tpu_torch import serving
+from eyegaze_tpu_torch import parallel, serving
 
 REQUIRED_INPUTS = {"eeg": ("eeg1", "eeg2"), "gaze": ("img1", "img2"), "art": ("noisy",),
                    "multimodal": ("img1", "img2", "eeg1", "eeg2"), "hypereeg": ("eeg1", "eeg2")}
@@ -94,14 +103,15 @@ def sniff_kind(state_path: Path) -> str:
                      "--kind")
 
 
-def build_predictor(kind: str, state_path: Path, buckets, device: torch.device):
+def build_predictor(kind: str, state_path: Path, buckets, device: torch.device, mesh=None):
     if kind in NOT_PORTED:
         raise SystemExit(f"kind {kind!r} is not yet ported to eyegaze_tpu_torch; it serves "
                          f"{sorted(REQUIRED_INPUTS)}")
     cls = {"eeg": serving.Predictor, "gaze": serving.GazePredictor,
            "art": serving.ArtDenoiser, "multimodal": serving.MultimodalPredictor,
            "hypereeg": serving.HyperEEGPredictor}[kind]
-    return cls.from_checkpoint(state_path, device=device, batch_buckets=tuple(buckets))
+    return cls.from_checkpoint(state_path, device=device, batch_buckets=tuple(buckets),
+                               mesh=mesh)
 
 
 def input_spec(kind: str, predictor) -> dict:
@@ -253,11 +263,7 @@ def make_handler(kind: str, predictor, state_path: Path, batcher=None):
     return Handler
 
 
-def main(argv=None, ready=None):
-    """Parses ``argv``, loads the checkpoint and serves until the server is
-    shut down; returns the server.  ``ready``, if given, is called with the
-    bound server before it serves (a caller in another thread learns the
-    port and can call ``shutdown``)."""
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.strip().splitlines()[0])
     ap.add_argument("--checkpoint", required=True, type=Path,
                     help="state_dict written by scripts/export_torch_checkpoint.py; its meta "
@@ -273,27 +279,80 @@ def main(argv=None, ready=None):
                     help="run every bucket once before serving (the default)")
     ap.add_argument("--no-warmup", dest="warmup", action="store_false",
                     help="skip the warm-up: the first request of each bucket pays it")
+    ap.add_argument("--mesh", nargs="?", const="dp", default=None,
+                    help="multi-chip serving: 'dp' shards request batches "
+                         "over all local devices; 'dpN,tpM' also shards the "
+                         "transformer matmuls (tensor parallel) to cut "
+                         "per-request latency")
     ap.add_argument("--dynamic-batch", nargs="?", const=5.0, type=float, default=None,
                     metavar="MAX_WAIT_MS",
                     help="coalesce concurrent requests into one dispatch, waiting at most "
                          "MAX_WAIT_MS (default 5) for co-travellers")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+# rank 0's ``ready`` under --mesh: rank 0 runs in this process (parallel.launch's
+# ``here``), and a callable does not pickle to the other ranks.
+_READY = None
+
+
+def _serve_rank(rank, world, device, args, kind):
+    group = serving.request_group()
+    predictor = build_predictor(kind, args.checkpoint, _buckets(args), device, mesh=args.mesh)
+    if args.warmup:
+        predictor.warmup()
+    if rank:
+        serving.follow_requests(predictor, group)
+        return None
+    dispatch = serving.MeshDispatch(predictor, group)
+    try:
+        return _serve(args, kind, dispatch, _READY)
+    finally:
+        dispatch.close()
+
+
+def _buckets(args) -> tuple:
+    return tuple(int(b) for b in args.buckets.split(","))
+
+
+def main(argv=None, ready=None):
+    """Parses ``argv``, loads the checkpoint and serves until the server is
+    shut down; returns the server.  ``ready``, if given, is called with the
+    bound server before it serves (a caller in another thread learns the
+    port and can call ``shutdown``).  ``--mesh``: rank 0 serves in this
+    process, the other ranks in spawned ones (module docstring)."""
+    global _READY
+    args = parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("eyegaze_tpu_torch.serve needs a CUDA device; pass --device cpu to "
                          "serve on the CPU")
     kind = args.kind or sniff_kind(args.checkpoint)
-    buckets = tuple(int(b) for b in args.buckets.split(","))
+    if args.mesh:
+        world = parallel.mesh_world(args.mesh, device)
+        print(f"[serve] loading the {kind!r} predictor from {args.checkpoint} on mesh "
+              f"{args.mesh!r}: {world} ranks on {device}", flush=True)
+        _READY = ready
+        try:
+            # Ranks sharing one indexed card meet through gloo.
+            backend = "gloo" if device.index is not None else None
+            return parallel.launch(_serve_rank, world, args, kind, device=device,
+                                   backend=backend, here=True)[0]
+        finally:
+            _READY = None
     print(f"[serve] loading the {kind!r} predictor from {args.checkpoint} onto {device}",
           flush=True)
-    predictor = build_predictor(kind, args.checkpoint, buckets, device)
+    predictor = build_predictor(kind, args.checkpoint, _buckets(args), device)
     if args.warmup:
         t0 = time.perf_counter()
         predictor.warmup()
         print(f"[serve] warmed {len(predictor.buckets)} buckets in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return _serve(args, kind, predictor, ready)
 
+
+def _serve(args, kind: str, predictor, ready):
+    """The HTTP front end over ``predictor`` until it is shut down."""
     batcher = None
     if args.dynamic_batch is not None:
         batcher = serving.DynamicBatcher(predictor, max_wait_ms=args.dynamic_batch)

@@ -13,11 +13,22 @@ outputs.  The model runs in ``eval()`` under ``torch.inference_mode()``.
 state_dict that ``scripts/export_torch_checkpoint.py`` writes from an orbax
 checkpoint, plus that checkpoint's ``.meta.json`` copied beside it, and
 serves it in bf16 compute, as the JAX ``from_checkpoint`` does.
+
+``mesh=`` (JAX's ``_mesh_setup``): every predictor serves on a mesh of the
+running group (``parallel.launch``; without a group it raises), ``"dp"``,
+``"dpN"``, ``"tpN"`` or ``"dpN,tpM"``.  Every rank runs ``predict`` on the
+same request: each dp rank takes its rows of the padded bucket, the tp
+ranks of a data rank compute the shards of the Megatron layers
+(``parallel/tensor.py``), and the outputs are gathered over dp on every
+rank.  Buckets round up to multiples of dp.  ``MeshDispatch`` and
+``follow_requests`` carry rank 0's requests to the other ranks (the HTTP
+front end, ``serve --mesh``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import json
 import queue
 import threading
@@ -27,7 +38,9 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from eyegaze_tpu_torch import parallel
 from eyegaze_tpu_torch.data.image_fusion import (
     fuse_image_pair,
     imagenet_normalize,
@@ -43,6 +56,7 @@ from eyegaze_tpu_torch.models.multimodal import FIELDS as MULTIMODAL_FIELDS
 from eyegaze_tpu_torch.models.multimodal import MultimodalFusionModel
 from eyegaze_tpu_torch.models.vit import EarlyFusionViT, LateFusionViT, VisionTransformer
 from eyegaze_tpu_torch.ops.preprocess import common_average_reference, zscore
+from eyegaze_tpu_torch.parallel import tensor
 
 CLASS_NAMES = ("Single", "Competition", "Cooperation")
 
@@ -80,6 +94,48 @@ def _predict_batched(forward, buckets: Sequence[int], *arrays, device: torch.dev
     if isinstance(outs[0], dict):
         return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
     return np.concatenate(outs)
+
+
+def _mesh_setup(model: torch.nn.Module, mesh, buckets: Sequence[int]) -> tuple:
+    """The buckets of a predictor on ``mesh``, rounded up to multiples of
+    dp, with ``model`` cut to the rank's tp shard in place (JAX's
+    ``_mesh_setup``); raises without a running group."""
+    dp, tp = parallel.join_mesh(mesh)
+    if tp > 1:
+        tensor.shard_tp_(model, parallel.tp_rank_and_world()[0], tp)
+    return tuple(sorted({-(-int(b) // dp) * dp for b in buckets}))
+
+
+def _dp_rows(forward):
+    """``forward`` over this dp rank's rows of a bucket (whose rows divide
+    over the dp ranks), its outputs (a tensor or a dict of them) gathered
+    over dp on every rank."""
+
+    def run(*parts):
+        rank, world = parallel.data_rank_and_world()
+        if world == 1:
+            return forward(*parts)
+        per = len(parts[0]) // world
+        out = forward(*[p[rank * per:(rank + 1) * per] for p in parts])
+        if isinstance(out, dict):
+            return {k: parallel.gather_rows(v) for k, v in out.items()}
+        return parallel.gather_rows(out)
+
+    return run
+
+
+class _Served:
+    """What the predictors share: the model on its device in ``eval()``,
+    the buckets and, with ``mesh``, the rank's shard and its rows."""
+
+    def _place(self, model: torch.nn.Module, device, buckets: Sequence[int], mesh) -> None:
+        self.device = torch.device(device)
+        self.mesh = mesh or None
+        if self.mesh:
+            buckets = _mesh_setup(model, self.mesh, buckets)
+        self.model = model.to(self.device).eval()
+        self.buckets = tuple(sorted(buckets))
+        self._run = _dp_rows(self._forward) if self.mesh else self._forward
 
 
 def read_meta(state_path, meta_path=None) -> dict:
@@ -167,15 +223,15 @@ def gaze_model(state, meta: dict, dtype: torch.dtype) -> tuple[torch.nn.Module, 
     return cls_(fusion_mode=mc.get("fusion_mode", "concat"), **common), kind
 
 
-class Predictor:
-    """Bucketed predictor for the DualEEGTransformer family on one device."""
+class Predictor(_Served):
+    """Bucketed predictor for the DualEEGTransformer family on one device,
+    or on a mesh (module docstring)."""
 
     def __init__(self, model: torch.nn.Module, *, device: torch.device,
-                 batch_buckets: Sequence[int] = (1, 8, 32, 128), preprocess: bool = True):
-        self.device = torch.device(device)
-        self.model = model.to(self.device).eval()
-        self.buckets = tuple(sorted(batch_buckets))
+                 batch_buckets: Sequence[int] = (1, 8, 32, 128), preprocess: bool = True,
+                 mesh=None):
         self.preprocess = preprocess
+        self._place(model, device, batch_buckets, mesh)
 
     @classmethod
     def from_checkpoint(cls, state_path, *, device: torch.device, meta_path=None,
@@ -211,7 +267,7 @@ class Predictor:
         c = c or self.model.in_channels
         for b in self.buckets:
             z = torch.zeros((b, c, t), dtype=torch.float32, device=self.device)
-            self._forward(z, z)
+            self._run(z, z)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -219,12 +275,11 @@ class Predictor:
         """(N, C, T) pairs, numpy or tensors of any float type, served as
         float32 -> {'logits', 'probs', 'preds', 'labels'} for any N (padded to
         the next bucket, chunked above the largest)."""
-        logits = _predict_batched(self._forward, self.buckets, eeg1, eeg2,
-                                  device=self.device)
+        logits = _predict_batched(self._run, self.buckets, eeg1, eeg2, device=self.device)
         return _logits_to_output(logits)
 
 
-class GazePredictor:
+class GazePredictor(_Served):
     """Bucketed predictor for the gaze ViTs (early and late fusion, or a bare
     ViT on data-level fused pairs) on one device.
 
@@ -239,14 +294,13 @@ class GazePredictor:
 
     def __init__(self, model: torch.nn.Module, *, device: torch.device,
                  batch_buckets: Sequence[int] = (1, 8, 32),
-                 data_fusion_mode: Optional[str] = None, image_norm: str = "imagenet"):
+                 data_fusion_mode: Optional[str] = None, image_norm: str = "imagenet",
+                 mesh=None):
         if image_norm not in ("imagenet", "vit"):
             raise ValueError(f"image_norm must be 'imagenet' or 'vit', got {image_norm!r}")
-        self.device = torch.device(device)
-        self.model = model.to(self.device).eval()
-        self.buckets = tuple(sorted(batch_buckets))
         self.data_fusion_mode = data_fusion_mode
         self._norm = imagenet_normalize if image_norm == "imagenet" else vit_processor_normalize
+        self._place(model, device, batch_buckets, mesh)
 
     @classmethod
     def from_checkpoint(cls, state_path, *, device: torch.device, meta_path=None,
@@ -289,18 +343,18 @@ class GazePredictor:
         s = self.model.img_size
         for b in self.buckets:
             z = torch.zeros((b, 3, s, s), dtype=torch.uint8, device=self.device)
-            self._forward(z, z)
+            self._run(z, z)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def predict(self, img1, img2) -> Dict[str, np.ndarray]:
         """(N, 3, H, W) uint8 pairs (or float images in [0, 1]), numpy or
         tensors -> {'logits', 'probs', 'preds', 'labels'} for any N."""
-        logits = _predict_batched(self._forward, self.buckets, img1, img2, device=self.device)
+        logits = _predict_batched(self._run, self.buckets, img1, img2, device=self.device)
         return _logits_to_output(logits)
 
 
-class ArtDenoiser:
+class ArtDenoiser(_Served):
     """Bucketed denoiser for the ART seq2seq model on one device.
 
     Serving is label-free: the decoder is fed the noisy signal itself (the
@@ -310,16 +364,22 @@ class ArtDenoiser:
     is always served one sample at a time: its buckets are ``(1,)`` whatever
     the caller passes.  The model may compute in float32 or bf16
     (``ArtifactRemovalTransformer(dtype=...)``; the JAX ``from_checkpoint``
-    serves bf16): requests come in and go out as float32 either way.
+    serves bf16): requests come in and go out as float32 either way.  Such a
+    model serves on a tp-only mesh and refuses dp > 1, whose rounding of the
+    buckets would bring the padding back.
     """
 
     def __init__(self, model: torch.nn.Module, *, device: torch.device,
-                 batch_buckets: Sequence[int] = (1, 8, 32)):
-        self.device = torch.device(device)
-        self.model = model.to(self.device).eval()
+                 batch_buckets: Sequence[int] = (1, 8, 32), mesh=None):
         if model.config.recon_zscore == "batch":
             batch_buckets = (1,)
-        self.buckets = tuple(sorted(batch_buckets))
+            if mesh and parallel.parse_mesh_spec(mesh, parallel.rank_and_world()[1])[0] > 1:
+                raise ValueError(
+                    "recon_zscore='batch' checkpoints serve per-sample; a "
+                    "data-parallel mesh requires batch padding, which would "
+                    "corrupt the batch-axis z-score. Use tp-only ('dp1,tpM') "
+                    "or no mesh.")
+        self._place(model, device, batch_buckets, mesh)
 
     @classmethod
     def from_checkpoint(cls, state_path, *, device: torch.device, meta_path=None,
@@ -351,17 +411,17 @@ class ArtDenoiser:
         c = c or cfg.in_channels
         t = t or min(1024, cfg.max_len)
         for b in self.buckets:
-            self._forward(torch.zeros((b, c, t), dtype=torch.float32, device=self.device))
+            self._run(torch.zeros((b, c, t), dtype=torch.float32, device=self.device))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def predict(self, noisy) -> Dict[str, np.ndarray]:
         """(N, C, T) noisy EEG, numpy or a tensor -> {'denoised': (N, C_out, T) f32}."""
-        return {"denoised": _predict_batched(self._forward, self.buckets, noisy,
+        return {"denoised": _predict_batched(self._run, self.buckets, noisy,
                                              device=self.device)}
 
 
-class MultimodalPredictor:
+class MultimodalPredictor(_Served):
     """Bucketed predictor for the multimodal fuzzy-gating composite on one
     device.
 
@@ -374,10 +434,8 @@ class MultimodalPredictor:
     """
 
     def __init__(self, model: MultimodalFusionModel, *, device: torch.device,
-                 batch_buckets: Sequence[int] = (1, 8, 32)):
-        self.device = torch.device(device)
-        self.model = model.to(self.device).eval()
-        self.buckets = tuple(sorted(batch_buckets))
+                 batch_buckets: Sequence[int] = (1, 8, 32), mesh=None):
+        self._place(model, device, batch_buckets, mesh)
 
     @classmethod
     def from_checkpoint(cls, state_path, *, device: torch.device, meta_path=None,
@@ -454,7 +512,7 @@ class MultimodalPredictor:
             zi = torch.zeros((b, 3, m.img_size, m.img_size), dtype=torch.uint8,
                              device=self.device)
             ze = torch.zeros((b, m.eeg_in_channels, t), dtype=torch.float32, device=self.device)
-            self._forward(zi, zi, ze, ze)
+            self._run(zi, zi, ze, ze)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -462,7 +520,7 @@ class MultimodalPredictor:
         """uint8 (N, 3, S, S) pairs and float (N, C, T) pairs, numpy or
         tensors -> {'logits', 'probs', 'preds', 'labels', 'img_logits',
         'eeg_logits', 'alpha'} for any N."""
-        out = _predict_batched(self._forward, self.buckets, img1, img2, eeg1, eeg2,
+        out = _predict_batched(self._run, self.buckets, img1, img2, eeg1, eeg2,
                                device=self.device)
         result = _logits_to_output(out["logits"])
         result.update(img_logits=out["img_logits"], eeg_logits=out["eeg_logits"],
@@ -470,17 +528,15 @@ class MultimodalPredictor:
         return result
 
 
-class HyperEEGPredictor:
+class HyperEEGPredictor(_Served):
     """Bucketed predictor for HyperEEG on one device: (N, C, T) windowed EEG
     pairs in, logits out (``python -m eyegaze_tpu_torch.serve --kind
     hypereeg``).  The windows go to the model as they come: HyperEEG's
     forward has no CAR or z-score."""
 
     def __init__(self, model: HyperEEGEncoder, *, device: torch.device,
-                 batch_buckets: Sequence[int] = (1, 8, 32)):
-        self.device = torch.device(device)
-        self.model = model.to(self.device).eval()
-        self.buckets = tuple(sorted(batch_buckets))
+                 batch_buckets: Sequence[int] = (1, 8, 32), mesh=None):
+        self._place(model, device, batch_buckets, mesh)
 
     @classmethod
     def from_checkpoint(cls, state_path, *, device: torch.device, meta_path=None,
@@ -526,15 +582,84 @@ class HyperEEGPredictor:
         c = c or self.model.in_channels
         for b in self.buckets:
             z = torch.zeros((b, c, t), dtype=torch.float32, device=self.device)
-            self._forward(z, z)
+            self._run(z, z)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def predict(self, eeg1, eeg2) -> Dict[str, np.ndarray]:
         """(N, C, T) windowed pairs, numpy or tensors -> {'logits', 'probs',
         'preds', 'labels'} for any N."""
-        logits = _predict_batched(self._forward, self.buckets, eeg1, eeg2, device=self.device)
+        logits = _predict_batched(self._run, self.buckets, eeg1, eeg2, device=self.device)
         return _logits_to_output(logits)
+
+
+# A follower waits for the next request for as long as the server runs.
+_REQUEST_TIMEOUT = datetime.timedelta(days=365)
+
+
+def request_group() -> dist.ProcessGroup:
+    """The gloo group that carries rank 0's requests to the other ranks of a
+    served mesh (``MeshDispatch``, ``follow_requests``), with a timeout
+    that outlasts an idle server.  Collective: every rank calls it, before
+    serving."""
+    return dist.new_group(backend="gloo", timeout=_REQUEST_TIMEOUT)
+
+
+def _send(arrays, group) -> None:
+    header = None if arrays is None else [(a.shape, a.dtype.str) for a in arrays]
+    dist.broadcast_object_list([header], src=0, group=group)
+    for a in arrays or ():
+        dist.broadcast(torch.from_numpy(np.ascontiguousarray(a)), src=0, group=group)
+
+
+def _receive(group):
+    box = [None]
+    dist.broadcast_object_list(box, src=0, group=group)
+    if box[0] is None:
+        return None
+    arrays = []
+    for shape, dtype in box[0]:
+        t = torch.from_numpy(np.empty(shape, np.dtype(dtype)))
+        dist.broadcast(t, src=0, group=group)
+        arrays.append(t.numpy())
+    return arrays
+
+
+class MeshDispatch:
+    """Rank 0's side of a predictor served on a mesh: ``predict`` sends the
+    request to every rank (a header of shapes and dtypes, then the arrays,
+    over ``request_group``'s group) and then runs it, as every other rank
+    does in ``follow_requests``; ``close`` sends the stop header.  The rest
+    is the predictor's."""
+
+    def __init__(self, predictor, group: dist.ProcessGroup):
+        self.predictor, self.group = predictor, group
+
+    def __getattr__(self, name):
+        return getattr(self.predictor, name)
+
+    def predict(self, *arrays):
+        arrays = [np.asarray(a) for a in arrays]
+        _send(arrays, self.group)
+        return self.predictor.predict(*arrays)
+
+    def close(self) -> None:
+        _send(None, self.group)
+
+
+def follow_requests(predictor, group: dist.ProcessGroup) -> int:
+    """A rank but 0 of a served mesh: runs ``predictor.predict`` on every
+    request rank 0 sends until its stop header; returns the number of
+    requests.  A request that fails here fails on rank 0 too, which answers
+    it with an error; the loop goes on."""
+    n = 0
+    while (arrays := _receive(group)) is not None:
+        n += 1
+        try:
+            predictor.predict(*arrays)
+        except Exception as e:  # noqa: BLE001 — rank 0 answers the same request with its error
+            print(f"[serve] rank {parallel.rank_and_world()[0]}: request failed: {e}", flush=True)
+    return n
 
 
 def _logits_to_output(logits: np.ndarray) -> Dict[str, np.ndarray]:

@@ -15,6 +15,14 @@ orbax directory, a checkpoint ``<name>`` here is three files:
 
 Each file is written to a temporary name and renamed, and read back with
 ``weights_only=True``.
+
+Under tensor parallelism (``parallel/tensor.py``) a model's parameters are
+the rank's shards.  Every rank calls ``save_*`` (the full model
+``state_dict`` and the optimizer's moments are gathered over the tp group)
+and only the manager built with ``write=True`` (global rank 0's) writes:
+the files are one process's, so a tp run's checkpoint serves and resumes in
+one process and the other way round.  ``restore`` loads the full state
+and cuts it to the rank's shards.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from typing import Dict, Optional
 
 import torch
 
+from eyegaze_tpu_torch.parallel import tensor
 from eyegaze_tpu_torch.train.optim import Optimizer
 
 
@@ -49,10 +58,15 @@ def _set_rng_state(device: torch.device, state: torch.Tensor) -> None:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str | Path, metric_greater_is_better: bool = True):
+    """``write=False``: the manager of a rank that takes part in the
+    gathers of a save but writes nothing (module docstring)."""
+
+    def __init__(self, directory: str | Path, metric_greater_is_better: bool = True,
+                 write: bool = True):
         self.directory = Path(directory).absolute()
         self.directory.mkdir(parents=True, exist_ok=True)
         self.greater_is_better = metric_greater_is_better
+        self.write = write
         self.best_metric: Optional[float] = None
         self._last_config: Optional[Dict] = None
         best_file = self.directory / "best_metric.json"
@@ -71,9 +85,12 @@ class CheckpointManager:
         else:
             self._last_config = config
         device = next(model.parameters()).device
-        _atomic_save({k: v.detach().cpu() for k, v in model.state_dict().items()},
-                     self.directory / f"{name}.pt")
-        _atomic_save({"optimizer": optimizer.state_dict(), "step": optimizer.count,
+        state = tensor.full_state_dict(model)
+        optimizer_state = tensor.full_optimizer_state(optimizer)
+        if not self.write:
+            return
+        _atomic_save({k: v.cpu() for k, v in state.items()}, self.directory / f"{name}.pt")
+        _atomic_save({"optimizer": optimizer_state, "step": optimizer.count,
                       "rng": _rng_state(device)}, self.directory / f"{name}.train.pt")
         meta = {"config": config or {}, **(extra or {})}
         (self.directory / f"{name}.meta.json").write_text(json.dumps(meta, default=str))
@@ -86,20 +103,21 @@ class CheckpointManager:
             self.best_metric = float(metric)
             self._save("best_model", model, optimizer, config,
                        {**(extra or {}), "best_metric": self.best_metric})
-            (self.directory / "best_metric.json").write_text(
-                json.dumps({"best_metric": self.best_metric}))
+            if self.write:
+                (self.directory / "best_metric.json").write_text(
+                    json.dumps({"best_metric": self.best_metric}))
             return True
         return False
 
     def restore(self, name: str, model: torch.nn.Module, optimizer: Optimizer) -> int:
         """Loads checkpoint ``name`` into ``model`` (strict) and
-        ``optimizer``, and its RNG state into the model's device; returns
-        the train step."""
-        model.load_state_dict(torch.load(self.directory / f"{name}.pt", map_location="cpu",
-                                         weights_only=True), strict=True)
+        ``optimizer``, each cut to the rank's shards under tp, and its RNG
+        state into the model's device; returns the train step."""
+        tensor.load_full_state_dict(model, torch.load(self.directory / f"{name}.pt",
+                                                      map_location="cpu", weights_only=True))
         train = torch.load(self.directory / f"{name}.train.pt", map_location="cpu",
                            weights_only=True)
-        optimizer.load_state_dict(train["optimizer"])
+        tensor.load_full_optimizer_state(optimizer, train["optimizer"])
         _set_rng_state(next(model.parameters()).device, train["rng"])
         return int(train["step"])
 

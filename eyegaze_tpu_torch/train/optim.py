@@ -16,6 +16,14 @@ differ from optax, and what this module does instead:
   group in ``group_lrs`` uses that LR (a float or a schedule), the others
   ``learning_rate``; a group in ``frozen_groups`` gets no update and no
   decay (``optax.set_to_zero``).
+
+Under tensor parallelism (``parallel/tensor.py``) the parameters a rank
+holds are its shards and the replicated rest.  The global norm is the full
+arrays' (JAX's, ``eyegaze_tpu/train/trainer.py:108-109``): the squares of
+the sharded gradients summed over the tp group, plus the replicated ones
+counted once.  Otherwise tp would change the clip and every step after it.
+AdamW runs on the shards unchanged; its moments, made at its first step,
+are per shard.
 """
 
 from __future__ import annotations
@@ -61,12 +69,21 @@ def cosine_annealing_schedule(base_lr: float, total_epochs: int,
     return schedule
 
 
-def clip_by_global_norm_(grads: Sequence[torch.Tensor],
-                         max_norm: Optional[float]) -> torch.Tensor:
+def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: Optional[float],
+                         sharded: Optional[Sequence[bool]] = None) -> torch.Tensor:
     """Scales ``grads`` in place to a global norm of at most ``max_norm``
     (None: no clipping), in optax's form, without a host sync; returns the
-    norm before clipping."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    norm before clipping.  ``sharded`` marks the gradients that are a tp
+    rank's shards (module docstring)."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if sharded is not None and any(sharded):
+        from eyegaze_tpu_torch.parallel import tensor
+
+        mask = torch.tensor(sharded, device=norms.device)
+        squares = norms.square()
+        norm = (tensor.sharded_sum(squares[mask].sum()) + squares[~mask].sum()).sqrt()
+    else:
+        norm = torch.linalg.vector_norm(norms)
     if max_norm is not None:
         clip = norm >= max_norm
         torch._foreach_div_(grads, torch.where(clip, norm, 1.0))
@@ -119,7 +136,8 @@ class Optimizer:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        norm = clip_by_global_norm_([p.grad for p in self.params], self.grad_clip)
+        norm = clip_by_global_norm_([p.grad for p in self.params], self.grad_clip,
+                                    [hasattr(p, "tp_shard") for p in self.params])
         for group, lr in zip(self.adamw.param_groups, self.lrs):
             group["lr"] = self._lr(lr, self.count)
         self.adamw.step()

@@ -21,15 +21,28 @@ one train step over a pytree state, this one drives a module and an
 - ``prefetch`` host batches stay in flight: on a CUDA device each goes
   through pinned memory as a ``non_blocking`` copy.
 
-Under ``use_mesh`` (a ``dp`` spec, ``parallel/sharding.py``) the trainer is
-one rank of a group that ``parallel.launch`` (the entry points' ``--mesh``)
-or torchrun (``--multihost``) started:
+Under ``use_mesh`` (a ``dp``, ``tpN`` or ``dpN,tpM`` spec,
+``parallel/sharding.py``) the trainer is one rank of a group that
+``parallel.launch`` (the entry points' ``--mesh``) or torchrun
+(``--multihost``) started; the spec is parsed against the group's world,
+whose size its dp x tp must equal (``parallel.join_mesh``):
 
-- the model trains through ``DistributedDataParallel``; dropout draws from
-  ``seed + rank``;
-- each train batch is the global batch, of which the rank takes its rows
-  (``shard_rows``; a batch that does not split evenly raises, where the JAX
-  trainer replicates it), or with ``local_batches`` the rank's own batch;
+- with tp > 1 the model is cut into the rank's shard (``parallel.tensor.
+  shard_tp_``) before DDP wraps it; the optimizer, holding the same
+  parameter objects, keeps per-shard moments and clips by the full norm
+  (``train/optim.py``); the replicated parameters' gradients are averaged
+  over the tp group before the update, one all_reduce a step, so a
+  nondeterministic backward kernel on a card cannot make the tp ranks'
+  copies drift apart;
+- the model trains through ``DistributedDataParallel`` over the dp group;
+  dropout draws from ``seed + dp_rank`` on the default generator, so the tp
+  ranks of one data rank draw the same masks on replicated activations,
+  and from ``seed + rank`` inside the sharded regions (``parallel/
+  tensor.py``); without tp dp_rank is the rank;
+- each train batch is the global batch, of which the dp rank takes its
+  rows (``shard_rows``; a batch that does not split evenly raises, where
+  the JAX trainer replicates it), or with ``local_batches`` the rank's own
+  batch;
 - the epoch's train metrics (losses, correct, count, grad_norm) are the
   global batch's, summed over the ranks where the epoch reads them;
 - a loss that leaves out an output computed from parameters needs
@@ -40,7 +53,8 @@ or torchrun (``--multihost``) started:
   the full validation set, a ragged batch padded to the rank multiple and
   trimmed back, and ``eval_metrics_fn`` sees the outputs of the whole
   batch, so a ratio of sums over the batch (ART's SNR) is the global one;
-- rank 0 alone logs and writes checkpoints, the others wait at a barrier;
+- global rank 0 alone logs and writes checkpoints, every rank takes part
+  in their gathers (``train/checkpoint.py``) and then waits at a barrier;
   ``restore`` loads on every rank.
 
 Parameters and the optimizer stay float32; a model built with
@@ -59,6 +73,7 @@ import numpy as np
 import torch
 
 from eyegaze_tpu_torch import parallel
+from eyegaze_tpu_torch.parallel import tensor
 from eyegaze_tpu_torch.train.checkpoint import CheckpointManager
 from eyegaze_tpu_torch.train.metrics import classification_metrics
 from eyegaze_tpu_torch.train.optim import Optimizer
@@ -77,8 +92,8 @@ class TrainerConfig:
     greater_is_better: bool = True
     checkpoint_dir: Optional[str] = None
     seed: int = 42
-    # The device-mesh spec ('dp', 'dpN'): train as one rank of the running
-    # data-parallel group (module docstring).
+    # The device-mesh spec ('dp', 'dpN', 'tpN', 'dpN,tpM'): train as one
+    # rank of the running group (module docstring).
     use_mesh: Any = False
     # Under a mesh: each rank's batches are its own rows (--multihost), not
     # the global batch that every rank iterates (--mesh).  Every rank must
@@ -130,12 +145,18 @@ class Trainer:
         if eval_logits_fn is not None and eval_metrics_fn is not None:
             raise ValueError("give one of eval_logits_fn and eval_metrics_fn, not both")
         self.rank, self.world = 0, 1
+        self.tp = 1
         if config.use_mesh:
             if not parallel.active():
                 raise ValueError(f"use_mesh={config.use_mesh!r} needs a running group: start the "
                                  "ranks with eyegaze_tpu_torch.parallel.launch (the entry "
                                  "points' --mesh) or torchrun (--multihost)")
             self.rank, self.world = parallel.rank_and_world()
+            _, self.tp = parallel.join_mesh(config.use_mesh)
+            if self.tp > 1:
+                tensor.shard_tp_(model, parallel.tp_rank_and_world()[0], self.tp)
+        # The data axis: the rank's rows of each global batch, and the sums.
+        self.dp_rank, self.dp = parallel.data_rank_and_world()
         self.config = config
         self.device = torch.device(device)
         self.model = model.to(self.device)
@@ -154,18 +175,21 @@ class Trainer:
         primary = self.rank == 0
         self.logger = (logger if primary else None) or (lambda d: None)
         self.watch_logger = (watch_logger if primary else lambda d: None) if watch_logger else None
-        self.ckpt = (CheckpointManager(config.checkpoint_dir, config.greater_is_better)
+        self.ckpt = (CheckpointManager(config.checkpoint_dir, config.greater_is_better,
+                                       write=primary)
                      if config.checkpoint_dir else None)
         self.history: list[Dict] = []
         self.eval_logits: Optional[np.ndarray] = None  # the last evaluate's, in batch order
         self._last_batch: Optional[Batch] = None
-        seed_device(self.device, config.seed + self.rank)
+        seed_device(self.device, config.seed + self.dp_rank)
+        if self.tp > 1:
+            tensor.seed_region(self.device, config.seed + self.rank)
 
     def _put(self, batch: Dict[str, np.ndarray], rows: bool = False) -> Batch:
         """``batch`` on the device; with ``rows`` under a mesh (train
         batches), only the rank's rows of a global batch."""
         if rows and self.config.use_mesh and not self.config.local_batches:
-            batch = parallel.shard_rows(batch, self.rank, self.world)
+            batch = parallel.shard_rows(batch, self.dp_rank, self.dp)
         out = {}
         for k, v in batch.items():
             t = torch.from_numpy(np.ascontiguousarray(v))
@@ -194,6 +218,8 @@ class Trainer:
         loss.backward()
         if self.config.use_mesh and not self.config.find_unused_parameters:
             self._require_gradients()
+        if self.tp > 1:
+            tensor.average_replicated_grads_(self.model, self.tp)
         metrics = {"loss": loss.detach(), "grad_norm": self.optimizer.step()}
         if "logits" in aux and "label" in batch:
             metrics["correct"] = (aux["logits"].argmax(dim=-1) == batch["label"]).sum()
@@ -221,9 +247,10 @@ class Trainer:
                 totals[k] = totals.get(k, 0) + v
             n_batches += 1
         # The epoch's one wait on the device; under a mesh the sums of the
-        # global batch: correct and count add up, the rest are rank means.
+        # global batch over the dp ranks: correct and count add up, the rest
+        # are dp rank means (equal over the tp ranks of one data rank).
         summed = parallel.sum_over_ranks(list(totals.values()), self.device)
-        totals = {k: s if k in ("correct", "count") else s / self.world
+        totals = {k: s if k in ("correct", "count") else s / self.dp
                   for k, s in zip(totals, summed)}
         dt = time.time() - t0
         out = {f"train/{k}": v / n_batches for k, v in totals.items()
@@ -273,7 +300,7 @@ class Trainer:
             if holding == 0:
                 return
             if without:
-                raise RuntimeError(f"{int(without)} of {self.world} ranks hold no eval batch "
+                raise RuntimeError(f"{int(without)} of {self.dp} ranks hold no eval batch "
                                    "while others do: every rank needs a validation shard")
             yield self._put({k: parallel.all_processes_concat(v)
                              for k, v in (batch if batch is not None else empty).items()})
@@ -297,7 +324,8 @@ class Trainer:
     def _watch(self, epoch: int) -> None:
         """Parameter and gradient histograms; the gradient is of the loss on
         the epoch's last batch (under a mesh, of the global batch: every rank
-        takes part), taken apart from the optimizer's."""
+        takes part), taken apart from the optimizer's.  Under tp they are of
+        rank 0's shards and the replicated parameters."""
         self._train_model.train()
         self.optimizer.zero_grad()
         self.loss_fn(self._train_model, self._last_batch)[0].backward()
@@ -309,13 +337,16 @@ class Trainer:
         self.watch_logger(record)
 
     def restore(self, name: str) -> int:
-        """Loads checkpoint ``name`` into the model and the optimizer;
-        returns its train step.  Under a mesh with more than one rank the
-        saved generator state is rank 0's, so each rank draws from ``seed +
-        rank + world * step`` instead."""
+        """Loads checkpoint ``name`` into the model and the optimizer (the
+        rank's shards of the full state under tp); returns its train step.
+        Under a mesh with more than one rank the saved generator state is
+        rank 0's, so each rank draws from ``seed + dp_rank + dp * step``
+        instead (``seed + rank + world * step`` in the sharded regions)."""
         step = self.ckpt.restore(name, self.model, self.optimizer)
         if self.world > 1:
-            seed_device(self.device, self.config.seed + self.rank + self.world * step)
+            seed_device(self.device, self.config.seed + self.dp_rank + self.dp * step)
+            if self.tp > 1:
+                tensor.seed_region(self.device, self.config.seed + self.rank + self.world * step)
         return step
 
     def fit(
@@ -332,13 +363,14 @@ class Trainer:
                 stats.update(self.evaluate(eval_batches_fn()))
                 metric = stats.get(f"val/{self.config.metric_for_best}")
                 if metric is not None and self.ckpt is not None:
-                    if self.rank == 0 and self.ckpt.save_if_best(
-                            metric, self.model, self.optimizer, config_dict, {"epoch": epoch}):
+                    # Every rank gathers (the metric is the global batch's,
+                    # equal on every rank); the manager of rank 0 writes.
+                    if self.ckpt.save_if_best(metric, self.model, self.optimizer, config_dict,
+                                              {"epoch": epoch}) and self.rank == 0:
                         best = metric
                     parallel.barrier()
             if self.ckpt is not None and (epoch + 1) % self.config.save_every_epochs == 0:
-                if self.rank == 0:
-                    self.ckpt.save_periodic(epoch, self.model, self.optimizer, config_dict)
+                self.ckpt.save_periodic(epoch, self.model, self.optimizer, config_dict)
                 parallel.barrier()
             if (self.config.watch_every_epochs > 0 and self.watch_logger is not None
                     and (epoch + 1) % self.config.watch_every_epochs == 0

@@ -5,7 +5,7 @@ The counterpart of ``scripts/train_art.py``:
 
     python -m eyegaze_tpu_torch.train_art [--epochs 5] [--trials 64] [--loss-zscore]
         [--attn-dropout 0.0] [--tiny] [--output-dir runs/art_torch] [--device cpu]
-        [--mesh [dp|dpN]]
+        [--mesh [dp|dpN|tpN|dpN,tpM]]
 
 Noisy -> clean pairs from the seeded generators (clean multi-sine EEG; the
 input is it plus Gaussian noise of std 0.5), the last fifth held out for
@@ -23,12 +23,14 @@ train step runs the attention kernel K3 forward and its autograd backward
 on the card.  By default attention dropout follows the model's dropout and
 train steps take the plain attention path; evaluation runs K3 either way.
 Training runs on the CUDA card unless ``--device cpu`` asks for the CPU;
-without a card it stops with a message.  ``--mesh`` trains data-parallel,
-one rank per card (N gloo ranks for "dpN" with ``--device cpu``;
+without a card it stops with a message.  ``--mesh`` trains on a mesh,
+one rank per card (dp x tp gloo ranks with ``--device cpu``;
 ``train_dual_eeg``'s docstring): ``--batch-size`` is the global batch and
-must split over the ranks, dropout draws from ``seed + rank``, and the
-evaluation's SNR is the global batch's (``Trainer``).  At ``--attn-dropout
-0.0`` every rank runs K3 and its backward on its own rows.
+must split over the dp ranks, dropout draws from ``seed + dp_rank`` (and
+``seed + rank`` inside the sharded regions), and the evaluation's SNR is
+the global batch's (``Trainer``).  At ``--attn-dropout 0.0`` every rank
+runs K3 and its backward on its own rows and, under tp, on its H / tp
+heads.
 """
 
 from __future__ import annotations
@@ -113,7 +115,7 @@ def run(args: argparse.Namespace, *, device: torch.device) -> dict:
 
     bs = min(args.batch_size, len(train_ds))
     if args.mesh:
-        parallel.require_divisible(bs, parallel.rank_and_world()[1])
+        parallel.require_divisible(bs, parallel.join_mesh(args.mesh)[0])
     steps_per_epoch = max(len(train_ds) // bs, 1)
     optimizer = make_optimizer(model, cosine_annealing_schedule(args.lr, args.epochs,
                                                                 steps_per_epoch),
@@ -159,8 +161,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' must be asked for)")
     ap.add_argument("--mesh", nargs="?", const="dp", default=None,
-                    help="data-parallel mesh: 'dp' = every visible card, 'dpN' = N (N gloo "
-                         "ranks with --device cpu)")
+                    help="device-mesh spec (system.mesh): 'dp' = data-parallel "
+                         "over all local devices; 'dpN,tpM' / 'tpM' adds a "
+                         "tensor-parallel model axis (Megatron-style weight "
+                         "sharding, parallel/sharding.py)")
     return ap.parse_args(argv)
 
 

@@ -4,7 +4,7 @@ The counterpart of ``scripts/train_dual_eeg.py``:
 
     python -m eyegaze_tpu_torch.train_dual_eeg --config configs/dual_eeg_transformer.yaml
         [--resume] [--watch N] [--epochs N] [--batch-size N] [--synthetic-trials N]
-        [--device cpu] [--mesh [dp|dpN]] [--multihost]
+        [--device cpu] [--mesh [dp|dpN|tpN|dpN,tpM]] [--multihost]
 
 The config schema is the reference YAML's.  Data come from the real
 pre-split or unsplit ``.npy`` layout under ``data.eeg_base_path`` when it is
@@ -20,11 +20,13 @@ and ``scripts/import_torch_checkpoint.py`` imports it into the JAX package.
 ``--resume`` continues after the latest periodic checkpoint, from its epoch
 and train step.
 
-``--mesh`` (or ``system.mesh``) trains data-parallel over the local
-devices: the entry point spawns one rank per card ("dp": every visible
-card; "dpN": N of them, more than there are raises), or N gloo ranks with
-``--device cpu``.  ``training.per_device_train_batch_size`` stays the
-global batch, as in the JAX script, and must split evenly over the ranks;
+``--mesh`` (or ``system.mesh``) trains over the local devices: the entry
+point spawns one rank per card ("dp": every visible card; "dpN": N of
+them; "tpN" and "dpN,tpM" add a tensor-parallel model axis, Megatron
+column and row layers, ``parallel/tensor.py``; a spec that needs more
+cards than there are raises), or dp x tp gloo ranks with ``--device cpu``.
+``training.per_device_train_batch_size`` stays the global batch, as in the
+JAX script, and must split evenly over the dp ranks;
 the IBS alignment and contrastive losses take the rows of the global batch
 (``parallel.gather_rows``), so a step equals one device's.  ``--multihost``
 joins the group that torchrun started (``RANK``, ``WORLD_SIZE``,
@@ -32,8 +34,8 @@ joins the group that torchrun started (``RANK``, ``WORLD_SIZE``,
 ``process_shard_bounds`` slice of the split and trains its own batches of
 ``per_device_train_batch_size`` rows, as many an epoch as the smallest
 shard holds; without torchrun's variables it trains in one process, as
-``--mesh dp1`` does.  A tensor-parallel spec
-(tp > 1) is refused.
+``--mesh dp1`` does.  There the world is the spec's dp x tp ("dp" when no
+spec is given): the tp ranks of one data rank load the same slice.
 """
 
 from __future__ import annotations
@@ -134,7 +136,7 @@ def prepare_datasets(cfg: ExperimentConfig, process_shard: bool = False):
         return DualEEGWindowDataset(e1, e2, labels, window_size=d.window_size,
                                     stride=d.stride, pairs=pairs)
 
-    world = parallel.rank_and_world()[1]
+    world = parallel.data_rank_and_world()[1]
 
     def my_slice(ids):
         ids = list(ids)[:len(ids) - len(ids) % world]
@@ -244,13 +246,15 @@ def run(cfg: ExperimentConfig, *, device: torch.device, resume: bool = False,
     if mesh and not parallel.active():
         return parallel.fit_on_ranks(run, parallel.mesh_world(mesh, device), device, cfg,
                                      resume=resume, watch=watch)
+    if mesh:
+        parallel.join_mesh(mesh)  # the data axis of the shards below
     t = cfg.training
     model = build_model(cfg, device=device, dtype=torch.bfloat16 if t.bf16 else torch.float32)
     train_ds, val_ds = prepare_datasets(cfg, process_shard=multihost)
     print(f"[data] train windows: {len(train_ds)}, val windows: {len(val_ds)}")
     bs = min(t.per_device_train_batch_size, len(train_ds))
     if mesh and not multihost:
-        parallel.require_divisible(bs, parallel.rank_and_world()[1])
+        parallel.require_divisible(bs, parallel.data_rank_and_world()[1])
     steps_per_epoch = max(len(train_ds) // bs, 1)
     if multihost:
         # A trial's windows differ in number, so the shards may too: every
@@ -325,8 +329,10 @@ def main(argv=None):
                     help="torch device (default: system.device, the CUDA card; 'cpu' must be "
                          "asked for)")
     ap.add_argument("--mesh", nargs="?", const="dp", default=None,
-                    help="device-mesh spec (system.mesh): 'dp' = data-parallel over every "
-                         "visible card, 'dpN' over N (N gloo ranks with --device cpu)")
+                    help="device-mesh spec (system.mesh): 'dp' = data-parallel "
+                         "over all local devices; 'dpN,tpM' / 'tpM' adds a "
+                         "tensor-parallel model axis (Megatron-style weight "
+                         "sharding, parallel/sharding.py)")
     ap.add_argument("--multihost", action="store_true",
                     help="join the group torchrun started, each process training its shard "
                          "of the data; without torchrun's variables, one process")
@@ -350,9 +356,11 @@ def main(argv=None):
     if not parallel.active():
         cfg.system.mesh = False
         return run(cfg, device=device, resume=args.resume, watch=args.watch)
-    if cfg.system.mesh and parallel.parse_mesh_spec(cfg.system.mesh, world)[0] != world:
-        raise SystemExit(f"--mesh {cfg.system.mesh}: under --multihost the group is torchrun's "
-                         f"{world} processes")
+    if cfg.system.mesh:
+        dp, tp = parallel.parse_mesh_spec(cfg.system.mesh, world)
+        if dp * tp != world:
+            raise SystemExit(f"--mesh {cfg.system.mesh}: under --multihost the group is "
+                             f"torchrun's {world} processes, the spec's dp x tp")
     cfg.system.mesh = cfg.system.mesh or "dp"
     try:
         return run(cfg, device=parallel.local_device(device), resume=args.resume,

@@ -8,7 +8,7 @@ The counterpart of ``scripts/train_gaze.py``:
         [--model early|late|datafusion] [--data-fusion-mode horizontal]
         [--image-norm imagenet|vit] [--tiny] [--epochs N] [--batch-size N]
         [--images DIR | --image-root DIR --metadata FILE] [--pretrained FILE.npz]
-        [--watch N] [--resume] [--device cpu] [--mesh [dp|dpN]]
+        [--watch N] [--resume] [--device cpu] [--mesh [dp|dpN|tpN|dpN,tpM]]
 
 The recipe is the JAX script's: validation held out by pair ID
 (``data.val_pairs``), inverse-frequency weighted cross entropy when
@@ -37,10 +37,12 @@ and ``model.image_norm``, so that ``GazePredictor.from_checkpoint`` and
 ``--resume`` continues after the latest periodic checkpoint, from its epoch
 and train step (the JAX script restarts at epoch 0).  Training runs on the
 CUDA card unless ``--device cpu`` asks for the CPU; without a card it stops
-with a message.  ``--mesh`` trains data-parallel, one rank per card (N gloo
-ranks for "dpN" with ``--device cpu``; ``train_dual_eeg``'s docstring):
+with a message.  ``--mesh`` trains on a mesh, one rank per card (dp x tp
+gloo ranks with ``--device cpu``; ``train_dual_eeg``'s docstring):
 ``training.per_device_train_batch_size`` is the global batch and must split
-over the ranks, and dropout and the augment draw from ``seed + rank``.
+over the dp ranks, and dropout and the augment draw from ``seed +
+dp_rank`` (the tp ranks of one data rank see the same images; dropout
+inside the sharded regions draws from ``seed + rank``).
 """
 
 from __future__ import annotations
@@ -193,9 +195,9 @@ def run(cfg: ExperimentConfig, kind: str = "early", *, device: torch.device, tin
     print(f"[model] {kind}-fusion ViT ({cfg.model.fusion_mode}): "
           f"{sum(p.numel() for p in model.parameters()):,} params on {device}")
     bs = min(t.per_device_train_batch_size, len(train_ds))
-    rank, world = parallel.rank_and_world()
     if cfg.system.mesh:
-        parallel.require_divisible(bs, world)
+        parallel.require_divisible(bs, parallel.join_mesh(cfg.system.mesh)[0])
+    rank = parallel.data_rank_and_world()[0]  # the augment's: one draw per data rank
     steps_per_epoch = max(len(train_ds) // bs, 1)
     schedule = warmup_cosine_schedule(t.learning_rate,
                                       int(steps_per_epoch * max(t.warmup_epochs, 0)),
@@ -277,8 +279,10 @@ def main(argv=None):
                     help="torch device (default: system.device, the CUDA card; 'cpu' must be "
                          "asked for)")
     ap.add_argument("--mesh", nargs="?", const="dp", default=None,
-                    help="device-mesh spec (system.mesh): 'dp' = data-parallel over every "
-                         "visible card, 'dpN' over N (N gloo ranks with --device cpu)")
+                    help="device-mesh spec (system.mesh): 'dp' = data-parallel "
+                         "over all local devices; 'dpN,tpM' / 'tpM' adds a "
+                         "tensor-parallel model axis (Megatron-style weight "
+                         "sharding, parallel/sharding.py)")
     args = ap.parse_args(argv)
     if args.image_root and not args.metadata:
         ap.error("--image-root requires --metadata")

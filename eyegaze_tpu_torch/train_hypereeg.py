@@ -9,7 +9,7 @@ defaults:
         [--batch-size 256] [--lr 5e-4] [--warmup-epochs 10] [--window 1024]
         [--stride 256] [--channels 32] [--fs 250] [--trials 48] [--no-augment]
         [--tiny] [--output-dir DIR] [--watch N] [--device cpu]
-        [--mesh [dp|dpN]]
+        [--mesh [dp|dpN|tpN|dpN,tpM]]
 
 The recipe is the JAX script's: the model in float32 (the JAX script passes
 no ``dtype``), weights from seed 42 (``--tiny``: embed 32, 4 heads, sinc
@@ -28,10 +28,10 @@ It writes ``<output-dir>/checkpoints/best_model.pt`` (+ ``.meta.json``,
 eyegaze_tpu_torch.serve --kind hypereeg`` rebuild the model.  There is no
 ``--resume``, as in the JAX script.  Training runs on the CUDA card unless
 ``--device cpu`` asks for the CPU; without a card it stops with a message.
-``--mesh`` trains data-parallel, one rank per card (N gloo ranks for "dpN"
-with ``--device cpu``; ``train_dual_eeg``'s docstring): ``--batch-size`` is
-the global batch and must split over the ranks, and dropout and the
-augment draw from ``seed + rank``.  HyperEEG's attentions are Flax's and
+``--mesh`` trains on a mesh, one rank per card (dp x tp gloo ranks with
+``--device cpu``; ``train_dual_eeg``'s docstring): ``--batch-size`` is the
+global batch and must split over the dp ranks, and dropout and the augment
+draw from ``seed + dp_rank`` (``seed + rank`` inside the sharded regions).  HyperEEG's attentions are Flax's and
 launch no kernel of the port.
 """
 
@@ -90,8 +90,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default the CUDA card; 'cpu' must be asked for)")
     ap.add_argument("--mesh", nargs="?", const="dp", default=None,
-                    help="data-parallel mesh: 'dp' = every visible card, 'dpN' = N (N gloo "
-                         "ranks with --device cpu)")
+                    help="device-mesh spec (system.mesh): 'dp' = data-parallel "
+                         "over all local devices; 'dpN,tpM' / 'tpM' adds a "
+                         "tensor-parallel model axis (Megatron-style weight "
+                         "sharding, parallel/sharding.py)")
     return ap.parse_args(argv)
 
 
@@ -154,9 +156,9 @@ def run(args: argparse.Namespace, *, device: torch.device) -> dict:
     print(f"[model] HyperEEG[{args.ablation}]: "
           f"{sum(p.numel() for p in model.parameters()):,} params on {device}")
     bs = min(args.batch_size, len(train_ds))
-    rank, world = parallel.rank_and_world()
     if args.mesh:
-        parallel.require_divisible(bs, world)
+        parallel.require_divisible(bs, parallel.join_mesh(args.mesh)[0])
+    rank = parallel.data_rank_and_world()[0]  # the augment's: one draw per data rank
     steps_per_epoch = max(len(train_ds) // bs, 1)
     schedule = warmup_cosine_schedule(args.lr, args.warmup_epochs * steps_per_epoch,
                                       args.epochs * steps_per_epoch)

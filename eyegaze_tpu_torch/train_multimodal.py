@@ -5,7 +5,7 @@ The counterpart of ``scripts/train_multimodal.py``:
 
     python -m eyegaze_tpu_torch.train_multimodal --config configs/multimodal_fuzzy_fusion.yaml
         [--epochs N] [--tiny] [--resume] [--watch N] [--gaze-checkpoint DIR]
-        [--eeg-checkpoint DIR] [--images DIR --eeg DIR] [--device cpu] [--mesh [dp|dpN]]
+        [--eeg-checkpoint DIR] [--images DIR --eeg DIR] [--device cpu] [--mesh [dp|dpN|tpN|dpN,tpM]]
 
 The recipe is the JAX script's:
 
@@ -45,10 +45,11 @@ constructor's fields, so ``MultimodalPredictor.from_checkpoint`` and
 ``--resume`` continues after the latest periodic checkpoint, from its epoch
 and train step (the JAX script restarts at epoch 0).  Training runs on the
 CUDA card unless ``--device cpu`` asks for the CPU; without a card it stops
-with a message.  ``--mesh`` trains data-parallel, one rank per card (N gloo
-ranks for "dpN" with ``--device cpu``; ``train_dual_eeg``'s docstring):
+with a message.  ``--mesh`` trains on a mesh, one rank per card (dp x tp
+gloo ranks with ``--device cpu``; ``train_dual_eeg``'s docstring):
 ``training.per_device_train_batch_size`` is the global batch and must split
-over the ranks, and dropout draws from ``seed + rank``.  On the card the EEG
+over the dp ranks, and dropout draws from ``seed + dp_rank`` (``seed +
+rank`` inside the sharded regions).  On the card the EEG
 encoder launches the phase-metrics kernel K1 once per train step and once
 per eval batch, on every rank.
 """
@@ -260,7 +261,7 @@ def run(cfg: ExperimentConfig, *, device: torch.device, tiny: bool = False, imag
     config_dict["model"]["multimodal"] = {f: getattr(model, f) for f in FIELDS}
     bs = min(t.per_device_train_batch_size, len(train_ds))
     if cfg.system.mesh:
-        parallel.require_divisible(bs, parallel.rank_and_world()[1])
+        parallel.require_divisible(bs, parallel.data_rank_and_world()[1])
     result = trainer.fit(
         train_batches_fn=lambda epoch: train_ds.iter_batches(
             bs, shuffle=True, seed=cfg.system.seed, drop_remainder=True, epoch=epoch),
@@ -297,8 +298,10 @@ def main(argv=None):
                     help="torch device (default: system.device, the CUDA card; 'cpu' must be "
                          "asked for)")
     ap.add_argument("--mesh", nargs="?", const="dp", default=None,
-                    help="device-mesh spec (system.mesh): 'dp' = data-parallel over every "
-                         "visible card, 'dpN' over N (N gloo ranks with --device cpu)")
+                    help="device-mesh spec (system.mesh): 'dp' = data-parallel "
+                         "over all local devices; 'dpN,tpM' / 'tpM' adds a "
+                         "tensor-parallel model axis (Megatron-style weight "
+                         "sharding, parallel/sharding.py)")
     args = ap.parse_args(argv)
     if bool(args.images) != bool(args.eeg):
         ap.error("--images and --eeg must be given together")

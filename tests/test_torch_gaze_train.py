@@ -343,8 +343,11 @@ def test_resume_continues_from_the_saved_epoch(tmp_path):
     resumed = train_gaze.main(argv + ["--epochs", "2", "--resume"])
     assert [h["epoch"] for h in resumed["history"]] == [1]
     assert resumed["trainer"].optimizer.count == 2 * steps
-    with pytest.raises(ValueError, match="ROADMAP §1 item 5"):
-        train_gaze.main(argv + ["--mesh", "dp1,tp2"])
+    # A tensor-parallel spec trains: two gloo ranks, 2 of the 4 heads each.
+    (tmp_path / "tp").mkdir()
+    tp = train_gaze.main(["--config", _write_config(tmp_path / "tp"), "--model", "early",
+                          "--tiny", "--device", "cpu", "--epochs", "1", "--mesh", "dp1,tp2"])
+    assert len(tp["history"]) == 1 and np.isfinite(tp["history"][0]["train/loss"])
     with pytest.raises(SystemExit):
         train_gaze.main(argv + ["--image-root", str(tmp_path)])  # needs --metadata
 

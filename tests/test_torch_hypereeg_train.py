@@ -152,8 +152,11 @@ def test_one_tiny_epoch_served_back(tmp_path):
     np.testing.assert_allclose(got, want, rtol=0, atol=SHARE * np.abs(want).max())
     served = serve.build_predictor("hypereeg", path, (8,), CPU)
     np.testing.assert_array_equal(served.predict(rows["eeg1"], rows["eeg2"])["logits"], got)
-    with pytest.raises(ValueError, match="ROADMAP §1 item 5"):
-        train_hypereeg.main(["--tiny", "--mesh", "dp1,tp2", "--device", "cpu"])
+    # A tensor-parallel spec trains: two gloo ranks, the graph block's
+    # attention 2 of its 4 heads each.
+    tp = train_hypereeg.main(["--tiny", "--epochs", "1", "--channels", "8", "--mesh", "dp1,tp2",
+                              "--device", "cpu", "--output-dir", str(out / "tp")])
+    assert len(tp["history"]) == 1 and np.isfinite(tp["history"][0]["train/loss"])
 
 
 def test_per_step_lr_follows_the_jax_schedule(tmp_path):

@@ -79,15 +79,18 @@ def test_one_epoch_served_back_equals_the_eval(first_run):
     np.testing.assert_array_equal(got, trainer.eval_logits)
 
 
-def test_resume_continues_from_the_saved_epoch(first_run):
+def test_resume_continues_from_the_saved_epoch(first_run, tmp_path):
     _, config, first = first_run
     steps = first["trainer"].optimizer.count
     argv = ["--config", config, "--tiny", "--device", "cpu"]
     resumed = train_multimodal.main(argv + ["--epochs", "2", "--resume"])
     assert [h["epoch"] for h in resumed["history"]] == [1]
     assert resumed["trainer"].optimizer.count == 2 * steps
-    with pytest.raises(ValueError, match="ROADMAP §1 item 5"):
-        train_multimodal.main(argv + ["--mesh", "dp1,tp2"])
+    # A tensor-parallel spec trains: two gloo ranks, half of each encoder's
+    # heads and hidden units a rank.
+    tp = train_multimodal.main(["--config", _config(tmp_path), "--tiny", "--device", "cpu",
+                                "--epochs", "1", "--mesh", "dp1,tp2"])
+    assert len(tp["history"]) == 1 and np.isfinite(tp["history"][0]["train/loss"])
     with pytest.raises(SystemExit):
         train_multimodal.main(argv + ["--images", "converted"])  # needs --eeg
 

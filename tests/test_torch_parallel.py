@@ -2,8 +2,8 @@
 JAX package's ``parallel/`` and against one process.
 
 - ``parse_mesh_spec``, ``process_shard_bounds`` and ``global_batch_size``
-  against the JAX functions over a table of cases, errors included; a spec
-  with tp > 1 that JAX accepts is refused with ROADMAP's next slice.
+  against the JAX functions over a table of cases, errors included (tp
+  specs too: the port has the tensor-parallel axis).
 - Two gloo ranks on the CPU, started once for the module by
   ``parallel.launch`` (``tests/_torch_parallel_ranks.py``), through a
   ``file://`` store under the test's temporary directory:
@@ -95,11 +95,7 @@ def test_parse_mesh_spec_matches_jax(spec, n):
             parallel.parse_mesh_spec(spec, n)
         assert str(got.value) == str(e)
         return
-    if want[1] > 1:
-        with pytest.raises(ValueError, match="ROADMAP §1 item 5"):
-            parallel.parse_mesh_spec(spec, n)
-    else:
-        assert parallel.parse_mesh_spec(spec, n) == want
+    assert parallel.parse_mesh_spec(spec, n) == want
 
 
 BOUNDS = [(32, 0, 4), (32, 3, 4), (10, 1, 2), (10, 0, 1), (30, 0, 4), (7, 2, 3)]

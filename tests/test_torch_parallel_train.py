@@ -15,7 +15,9 @@
   ``--mesh dp1`` (one rank, DDP) does; with ``RANK`` set and
   ``MASTER_ADDR`` missing it raises; under ``torchrun`` each of two
   processes trains its shard and rank 0 alone writes.  ``dp2`` on a host without two cards
-  raises, and a spec with tp > 1 is refused with ROADMAP's next slice.
+  raises; ``--mesh dp1,tp2`` (two gloo ranks, the Megatron layers of
+  ``parallel/tensor.py``) trains one epoch as one device and as the JAX
+  script's ``--mesh dp1,tp2`` run do, at the same bounds.
 - Two ranks for gaze early fusion (its class-weighted cross entropy
   divides by the global batch's weights), the multimodal composite and
   HyperEEG at their ``--tiny`` sizes, dropout and augment off: one epoch's
@@ -86,8 +88,9 @@ def _flagship_config(tmp_path, tag):
     return cfg, str(path)
 
 
-def _jax_mesh_run(tmp_path, cfg):
-    """The JAX script's ``--mesh`` run from the port's initial weights."""
+def _jax_mesh_run(tmp_path, cfg, mesh=None):
+    """The JAX script's ``--mesh [mesh]`` run from the port's initial
+    weights."""
     spec = importlib.util.spec_from_file_location("jax_train_dual_eeg_mesh",
                                                   ROOT / "scripts" / "train_dual_eeg.py")
     script = importlib.util.module_from_spec(spec)
@@ -101,8 +104,8 @@ def _jax_mesh_run(tmp_path, cfg):
                       tx)
 
     script.create_train_state = from_port_weights
-    _, path = _flagship_config(tmp_path, "jax_mesh")
-    return script.main(["--config", path, "--mesh"])
+    _, path = _flagship_config(tmp_path, "jax_mesh" if mesh is None else f"jax_{mesh}")
+    return script.main(["--config", path, "--mesh", *([mesh] if mesh else [])])
 
 
 def _assert_same_epoch(got, want, keys=("train/loss",)):
@@ -173,10 +176,17 @@ def test_mesh_specs_the_port_refuses(tmp_path):
     with pytest.raises(ValueError, match="needs 2 devices, have 0"):
         parallel.mesh_world("dp2", "cuda") if not torch.cuda.is_available() else \
             parallel.mesh_world(f"dp{torch.cuda.device_count() + 1}", "cuda")
-    _, path = _flagship_config(tmp_path, "tp2")
-    with pytest.raises(ValueError, match="ROADMAP §1 item 5"):
-        train_dual_eeg.main(["--config", path, "--device", "cpu", "--mesh", "dp1,tp2"])
     assert parallel.mesh_world("dp", "cpu") == 1 and parallel.mesh_world("dp3", "cpu") == 3
+    # A tensor-parallel spec trains: as one device, and as JAX's tp run.
+    cfg, single = _flagship_config(tmp_path, "single")
+    one = train_dual_eeg.main(["--config", single, "--device", "cpu"])["history"][-1]
+    _, path = _flagship_config(tmp_path, "tp2")
+    tp = train_dual_eeg.main(["--config", path, "--device", "cpu", "--mesh", "dp1,tp2"])
+    assert len(tp["history"]) == 1 and tp["best_metric"] is not None
+    assert (tmp_path / "tp2" / "checkpoints" / "best_model.pt").exists()
+    tp = tp["history"][-1]
+    _assert_same_epoch(tp, one, [k for k in one if k.startswith("train/loss")])
+    _assert_same_epoch(tp, _jax_mesh_run(tmp_path, cfg, "dp1,tp2")["history"][-1])
 
 
 def _on_ranks(entry, mesh, *args, **kwargs):

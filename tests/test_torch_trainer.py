@@ -284,8 +284,12 @@ def test_train_entry_point_on_the_cpu(tmp_path):
     assert r.returncode == 0, r.stderr[-2000:]
     assert "[done] best f1:" in r.stdout and "[model] " in r.stdout
     assert (tmp_path / "run" / "checkpoints" / "best_model.pt").exists()
-    r = _run("eyegaze_tpu_torch.train_dual_eeg", "--config", str(path), "--mesh", "dp1,tp2")
-    assert r.returncode != 0 and "ROADMAP §1 item 5" in r.stderr
+    # A tensor-parallel spec trains (two gloo ranks: the config's device is
+    # the CPU), in bf16.
+    r = _run("eyegaze_tpu_torch.train_dual_eeg", "--config", str(path), "--mesh", "dp1,tp2",
+             "--epochs", "1")
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.count("[done] best f1:") == 1
 
 
 def test_run_experiments_lists_and_dry_runs():
